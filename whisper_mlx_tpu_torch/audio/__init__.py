@@ -1,0 +1,1 @@
+"""audio of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""decoding of the PyTorch port (see the package docstring)."""
