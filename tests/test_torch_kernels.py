@@ -7,9 +7,12 @@ GPU and without jax it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tolerances: 2e-4 absolute for the mel (fp32 FMA in another order), and
+Tolerances: 2e-4 absolute for the mel (fp32 FMA in another order);
 ``2e-2 * max(1, |ref|max)`` for the attention kernels, which round the
-softmax weights to bf16 as the TPU kernels did.
+softmax weights to bf16 (K2, K3 as the TPU kernels did; K4 where the TPU
+kernel kept fp32); for the quantized matmul ``1e-2 * max(1, |ref|max)`` in
+bf16 (sums in another order can move a result by one bf16 ulp) and
+``1e-4 * max(1, |ref|max)`` in fp32.
 """
 
 from __future__ import annotations
@@ -22,8 +25,11 @@ from whisper_mlx_tpu_torch.audio import mel as t_mel
 from whisper_mlx_tpu_torch.ops import _build
 from whisper_mlx_tpu_torch.ops import decode_attention as da
 from whisper_mlx_tpu_torch.ops import dense_attention as dn
+from whisper_mlx_tpu_torch.ops import flash_attention as fa
 from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
+from whisper_mlx_tpu_torch.ops import quant as tq
+from whisper_mlx_tpu_torch.ops import quant_matmul as qm
 
 
 @pytest.fixture
@@ -54,7 +60,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == tmp_path / "kernels" and path.suffix == ".so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "decode_attention.cu", "dense_attention.cu", "mel.cu"]
+        "decode_attention.cu", "dense_attention.cu", "flash_attention.cu", "mel.cu",
+        "quant_matmul.cu"]
 
 
 @pytest.mark.cuda
@@ -133,3 +140,121 @@ def test_plain_model_attention_raises_on_cuda(cuda):
     params = tw.init_params(cfg, seed=0, device=cuda)
     with pytest.raises(ValueError, match="CPU tensors only"):
         tw.encode(params, torch.zeros((1, 3000, cfg.n_mels), device=cuda), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,bits,dtype", [
+    (1, 200, 512, 4, torch.bfloat16),
+    (3, 200, 512, 8, torch.bfloat16),
+    (8, 1000, 1024, 4, torch.bfloat16),
+    (17, 200, 512, 4, torch.bfloat16),
+    (128, 1000, 1024, 4, torch.bfloat16),
+    (300, 130, 5120, 8, torch.bfloat16),
+    (512, 10240, 5120, 4, torch.bfloat16),
+    (1, 10240, 5120, 4, torch.bfloat16),
+    (5, 130, 256, 4, torch.float32),
+    (40, 130, 256, 8, torch.float32),
+])
+def test_quant_matmul_kernel_matches_plain(cuda, m, n, k, bits, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
+    q = tq.quantize(w, bits=bits, group_size=64)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    before = qm.LAUNCHES
+    got = tq.quant_matmul(x, q)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES == before + 1 and got.dtype == dtype
+    ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, bits, 64)
+    rel = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,tq_,tk,hd,causal", [
+    (1, 8, 2, 130, 130, 128, True),
+    (1, 64, 8, 256, 256, 128, True),
+    (2, 4, 4, 37, 37, 64, True),
+    (1, 3, 3, 100, 2100, 64, False),
+    (1, 4, 2, 70, 70, 16, True),
+    (1, 4, 2, 70, 90, 32, False),
+])
+def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
+    gen = torch.Generator(device=cuda).manual_seed(tq_ + tk)
+    s = hd ** -0.25
+    q = (torch.randn((b, h, tq_, hd), generator=gen, device=cuda) * s).to(torch.bfloat16)
+    k = (torch.randn((b, kvh, tk, hd), generator=gen, device=cuda) * s).to(torch.bfloat16)
+    v = torch.randn((b, kvh, tk, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert _max_err(got, ref) <= _attn_tol(ref)
+
+
+@pytest.mark.cuda
+def test_llm_kernel_wrappers_reject_bad_inputs(cuda):
+    q = torch.zeros((1, 2, 4, 64), device=cuda)  # float32: K4 takes bf16
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q, q, q)
+    w = tq.quantize(torch.zeros((8, 64), device=cuda))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tq.quant_matmul(torch.zeros((1, 64), device=cuda, dtype=torch.float16), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound", ["0", "511"])
+def test_quant_matmul_row_bound_below_512_raises_on_cuda(cuda, monkeypatch, bound):
+    """A lower WTPU_QMM_PALLAS_MAX_ROWS would send K5's calls to a library
+    matmul on the card: it raises there instead."""
+    monkeypatch.setenv("WTPU_QMM_PALLAS_MAX_ROWS", bound)
+    w = tq.quantize(torch.zeros((8, 64), device=cuda))
+    before = qm.LAUNCHES
+    with pytest.raises(ValueError, match="WTPU_QMM_PALLAS_MAX_ROWS"):
+        tq.quant_matmul(torch.zeros((1, 64), device=cuda, dtype=torch.bfloat16), w)
+    assert qm.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_qwen_tiny_card_matches_cpu_and_needs_flash(cuda):
+    """A tiny Qwen3 with random 4-bit weights: prefill (K4, K5 tiled) and
+    decode steps (K5 GEMV) on the card against the plain versions on the
+    CPU, same weights, bf16; a prefill with flash off raises on the card."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.models import qwen as qw
+
+    cfg = dataclasses.replace(qw.QWEN_CONFIGS["qwen3-8b"], hidden_size=256,
+                              intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+                              num_key_value_heads=2, head_dim=64, vocab_size=300,
+                              dtype=torch.bfloat16, flash_attention=True)
+    params = qw.init_random_quant_params(cfg, seed=0, device=cuda)
+    params_cpu = _to_cpu(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 300, (2, 40)))
+    logits = {}
+    for label, dev, p in (("cuda", cuda, params), ("cpu", torch.device("cpu"), params_cpu)):
+        cache = qw.init_kv_cache(cfg, 2, 64, dev)
+        out = [qw.decode_step(p, toks.to(dev), 0, cache, cfg)[0]]
+        for i in range(3):
+            out.append(qw.decode_step(p, toks[:, i:i + 1].to(dev), [40 + i, 40 + i], cache,
+                                      cfg)[0])
+        logits[label] = torch.cat(out, dim=1).cpu()
+    ref = logits["cpu"]
+    assert torch.isfinite(logits["cuda"]).all()
+    assert _max_err(logits["cuda"], ref) <= 5e-2 * max(1.0, ref.abs().max().item())
+    with pytest.raises(ValueError, match="flash_attention=True"):
+        qw.decode_step(params, toks.to(cuda), 0, qw.init_kv_cache(cfg, 2, 64, cuda),
+                       dataclasses.replace(cfg, flash_attention=False))
+
+
+def _to_cpu(node):
+    from whisper_mlx_tpu_torch.ops.quant import QuantTensor
+
+    if isinstance(node, dict):
+        return {k: _to_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_cpu(v) for v in node]
+    if isinstance(node, QuantTensor):
+        return QuantTensor(node.w_q.cpu(), node.scales.cpu(), node.biases.cpu(), node.bits,
+                           node.group_size)
+    return node.cpu()

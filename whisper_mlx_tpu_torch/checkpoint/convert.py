@@ -9,9 +9,15 @@ structure of torch tensors in PyTorch's layouts:
 - conv ``w`` ``(k, in, out)`` -> ``(out, in, k)``;
 - ``pos_emb``, ``token_emb`` and LayerNorm ``g``/``b`` as they are.
 
-An unknown or missing key raises ``ValueError``; a fused ``qkv``
-projection or a quantized weight raises ``NotImplementedError`` (4-bit
-checkpoints are ROADMAP.md M9).
+An unknown or missing key raises ``ValueError``. A fused ``qkv``
+projection or a quantized weight in a whisper tree raises
+``NotImplementedError``: ``QuantTensor`` and ``quant_matmul`` (K5) exist
+(``ops/quant.py``), but whisper's quantized walkers, its fused ``qkv`` and
+the whisper loaders are ROADMAP.md M9.
+
+``qwen_params_from_jax`` converts a Qwen tree (``models/qwen.py``), whose
+``QuantTensor`` leaves carry numpy arrays (``jax.tree.map(np.asarray,
+params)`` maps into their children), into the port's Qwen state dict.
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from whisper_mlx_tpu_torch.models.qwen import QwenConfig
 from whisper_mlx_tpu_torch.models.whisper import Params, WhisperConfig
+from whisper_mlx_tpu_torch.ops.quant import QuantTensor
 
 _LN = ("g", "b")
 _ATTN = ("q", "k", "v", "o")
@@ -31,7 +39,8 @@ _DENSE = ("w", "b")
 def _tensor(a: Any, path: str, device, dtype, layout: str) -> torch.Tensor:
     if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
         raise NotImplementedError(f"params_from_jax: {path} is {type(a).__name__}, not a "
-                                  "float numpy array: quantized weights are ROADMAP.md M9")
+                                  "float numpy array: quantized whisper weights (walkers "
+                                  "and loaders) are ROADMAP.md M9")
     if layout == "linear":
         a = a.T
     elif layout == "conv":
@@ -44,8 +53,8 @@ def _keys(node: Any, allowed: tuple[str, ...], path: str, required=()) -> None:
         raise ValueError(f"params_from_jax: {path} is not a dict")
     unknown = set(node) - set(allowed)
     if "qkv" in unknown:
-        raise NotImplementedError(f"params_from_jax: fused qkv projection at {path}: "
-                                  "ROADMAP.md M9")
+        raise NotImplementedError(f"params_from_jax: fused whisper qkv projection at "
+                                  f"{path}: ROADMAP.md M9")
     if unknown:
         raise ValueError(f"params_from_jax: unknown keys {sorted(unknown)} at {path}")
     missing = set(required) - set(node)
@@ -122,3 +131,42 @@ def params_from_jax(tree: Params, config: WhisperConfig, device="cpu",
             "ln": ln(dec["ln"], "decoder.ln"),
         },
     }
+
+
+def _qwen_leaf(a: Any, path: str, device, dtype, transpose: bool):
+    if type(a).__name__ == "QuantTensor":
+        words = np.ascontiguousarray(np.asarray(a.w_q).astype(np.uint32)).view(np.int32)
+        return QuantTensor(torch.from_numpy(words).to(device),
+                           torch.from_numpy(np.array(a.scales, np.float32)).to(device),
+                           torch.from_numpy(np.array(a.biases, np.float32)).to(device),
+                           int(a.bits), int(a.group_size))
+    if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
+        raise NotImplementedError(f"qwen_params_from_jax: {path} is {type(a).__name__}: only "
+                                  "float numpy arrays and QuantTensor leaves are ported "
+                                  "(other resident layouts: ROADMAP.md M12, M15)")
+    return _tensor(a, path, device, dtype, "linear" if transpose else "as_is")
+
+
+def qwen_params_from_jax(tree: Params, config: QwenConfig, device="cpu",
+                         dtype: torch.dtype | None = None) -> Params:
+    """JAX Qwen params (numpy and QuantTensor leaves) -> the port's state
+    dict: fp linear ``w`` ``(in, out)`` -> ``(out, in)``; ``QuantTensor``
+    (already ``(out, in)``) -> the port's ``QuantTensor``; the embedding,
+    norms and biases as they are. Fused ``qkv`` / ``gate_up`` are kept."""
+    dtype = dtype or config.dtype
+
+    def walk(node, path, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}.{k}", k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{path}.{i}") for i, v in enumerate(node)]
+        return _qwen_leaf(node, path, device, dtype, transpose=key == "w")
+
+    _keys(tree, ("embed", "layers", "final_ln", "lm_head"), "params",
+          required=("embed", "layers", "final_ln"))
+    if len(tree["layers"]) != config.num_hidden_layers:
+        raise ValueError("qwen_params_from_jax: layer count does not match the config")
+    if ("lm_head" in tree) == config.tie_word_embeddings:
+        raise ValueError("qwen_params_from_jax: lm_head presence does not match "
+                         "tie_word_embeddings")
+    return walk(tree, "params")

@@ -11,7 +11,8 @@ mel ``(B, 3000, n_mels)``, encoder states ``(B, 1500, d)``, q/k/v
 Compute follows ``config.dtype`` (bf16 serving, fp32 parity); LayerNorm
 and softmax run in fp32. Attention goes to the hand-written kernels on
 CUDA (``ops/dense_attention.py`` for the encoder when
-``flash_attention``, ``ops/decode_attention.py`` for quantized decoder
+``flash_attention``, ``ops/flash_attention.py`` above 2048 keys,
+``ops/decode_attention.py`` for quantized decoder
 caches, the JAX package's ``attention_int8_auto`` and
 ``attention_int8_grouped``); GEMMs and the conv stem are plain torch. The
 plain attention of the parity configuration (flash off, fp caches) runs on
@@ -35,7 +36,9 @@ import torch.nn.functional as F
 
 from whisper_mlx_tpu_torch.ops.decode_attention import decode_attention
 from whisper_mlx_tpu_torch.ops.dense_attention import dense_attention
+from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
+from whisper_mlx_tpu_torch.ops.quant import quant_matmul
 
 Params = dict[str, Any]
 
@@ -116,8 +119,11 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) ->
     return emb.to(dtype)[tokens]
 
 
-def embed_logits(emb: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Tied-embedding output head: x (b, t, d) -> logits (b, t, vocab)."""
+def embed_logits(emb, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Tied-embedding output head: x (b, t, d) -> logits (b, t, vocab); a
+    quantized table goes through ``quant_matmul`` (kernel K5)."""
+    if not isinstance(emb, torch.Tensor):
+        return quant_matmul(x, emb)
     return torch.matmul(x, emb.to(dtype).T)
 
 
@@ -164,16 +170,13 @@ def _qkv_proj(h: torch.Tensor, attn: Params, n_head: int):
 
 
 def mha(x: torch.Tensor, p: Params, n_head: int, use_flash: bool = False) -> torch.Tensor:
-    """Encoder self-attention; kernel K2 when ``use_flash``."""
+    """Encoder self-attention when ``use_flash``: kernel K2 up to 2048 keys,
+    kernel K4 (non-causal) above, as the reference splits it."""
     q, k, v = _qkv_proj(x, p, n_head)
     if use_flash:
-        if k.shape[2] > 2048:
-            raise NotImplementedError(
-                "attention over more than 2048 keys needs the flash kernel "
-                "(ROADMAP.md Queue 2, K4)")
         scale = q.shape[-1] ** -0.25
-        out = dense_attention((q * scale).contiguous(), (k * scale).contiguous(),
-                              v.contiguous())
+        attend = dense_attention if k.shape[2] <= 2048 else flash_attention
+        out = attend((q * scale).contiguous(), (k * scale).contiguous(), v.contiguous())
     else:
         out = attention(q, k, v)
     return linear(_merge_heads(out), p["o"])

@@ -1,8 +1,9 @@
 """Build and bind the hand-written Hopper kernels in ``csrc/``.
 
-The CUDA sources have a plain C interface (no PyTorch headers), so one
-``nvcc`` call compiles all of them into a shared library in seconds. The
-library lands in ``build/kernels/`` at the repository root, named by a
+The CUDA sources have a plain C interface (no PyTorch headers). Each one
+is compiled by its own ``nvcc`` process, all started together, and one
+more ``nvcc`` call links the objects into a shared library. The library
+lands in ``build/kernels/`` at the repository root, named by a
 hash of the sources and flags, and is built at first use: importing this
 module builds nothing, so the package imports on machines without a GPU
 or a CUDA toolkit.
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -40,6 +41,12 @@ SIGNATURES: dict[str, list] = {
     # valid_len, bits, stream
     "wmt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _P],
+    # x, w_q, scales, biases, out, m, n, k, bits, group_size, x_bf16, stream
+    "wmt_quant_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, xg, w_q, scales, biases, out, m, n, k, bits, group_size, stream
+    "wmt_quant_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, b, h, kv_heads, tq, tk, hd, causal, stream
+    "wmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -70,19 +77,31 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists: one
+    ``nvcc -c`` per source in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG["cmd"] = cmd
-    BUILD_LOG["stderr"] = proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for o, s in zip(objs, srcs)]
+    cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                 *map(str, objs)])
+    BUILD_LOG["cmd"], BUILD_LOG["stderr"] = cmds, ""
+    try:
+        for batch in (cmds[:-1], cmds[-1:]):  # every compile at once, then the link
+            procs = [subprocess.Popen(c, stderr=subprocess.PIPE, text=True) for c in batch]
+            errs = [p.communicate()[1] for p in procs]
+            BUILD_LOG["stderr"] += "".join(errs)
+            for cmd, proc, err in zip(batch, procs, errs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{err}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 
