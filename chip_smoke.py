@@ -8,21 +8,30 @@ is non-zero and the result line is not printed:
 1. device: requires CUDA, prints the card, its power limit, the torch,
    CUDA and nvcc versions; turns TF32 off;
 2. build: compiles the hand-written kernels in whisper_mlx_tpu_torch/csrc;
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (max error beside its tolerance, device time per call
-   with the host's launch work off the clock);
+3. kernels: each whisper kernel against its plain PyTorch version at the
+   main path's shapes (max error beside its tolerance, device time per call
+   with the host's launch work off the clock, the least time the card could
+   take, and one PyTorch call computing the same function where one exists):
+   K1-K3, then the beam path's K3 integer-dot mode, K8 and K9;
 4. tiny model: the same weights and mel through decode() on CUDA (kernels)
-   and on the CPU (plain versions);
+   and on the CPU (plain versions), greedy and beam 3;
 5. main path: whisper large-v3 at full width with random bf16 weights,
    through the CLI on a synthetic 65 s WAV, then an 8-window batch timed
    through log_mel_spectrogram -> decode();
-6. LLM kernels: the quantized matmul (K5) at the five Qwen3-32B linear
+6. beam main path: the same model through the CLI with --beam-size 5,
+   2-window beam runs under WTPU_BEAM_KV=flat, permp and permi (K9), then
+   an 8-window x beam 5 batch, timed, with a per-step breakdown;
+7. LLM kernels: the quantized matmul (K5) at the five Qwen3-32B linear
    shapes and the flash prefill (K4) against their plain versions;
-7. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
+8. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
    QwenModel on CUDA and on the CPU (plain versions), logits and tokens;
-8. LLM main path: Qwen3-32B at full width with random packed int4 weights
+9. LLM main path: Qwen3-32B at full width with random packed int4 weights
    built on the card, through LLMEngine.chat, stream_generate and the
    continuous-batching engine (4 slots, 6 requests), then the timings.
+
+Each kernel's launches in the JSON line are counted over its path's run
+(phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5),
+with every count set to 0 just before that run.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -34,6 +43,7 @@ import dataclasses
 import gc
 import importlib.metadata
 import importlib.util
+import itertools
 import json
 import os
 import struct
@@ -44,11 +54,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from whisper_mlx_tpu_torch import cli
 from whisper_mlx_tpu_torch.audio.mel import N_SAMPLES, _frame_signal, log_mel_spectrogram
 from whisper_mlx_tpu_torch.decoding.llm_tokenizer import ByteFallbackTokenizer
-from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode
+from whisper_mlx_tpu_torch.decoding import beam as tb
+from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode, decode_setup
 from whisper_mlx_tpu_torch.decoding.tokenizer import (
     ByteLevelBPE,
     WhisperTokenizer,
@@ -58,6 +70,7 @@ from whisper_mlx_tpu_torch.inference.generate import LLMEngine
 from whisper_mlx_tpu_torch.models import qwen as qw
 from whisper_mlx_tpu_torch.models.whisper import (
     WHISPER_CONFIGS,
+    beam_flat_cache,
     cross_kv,
     decode_step,
     encode,
@@ -65,12 +78,15 @@ from whisper_mlx_tpu_torch.models.whisper import (
     init_params,
 )
 from whisper_mlx_tpu_torch.ops import _build
+from whisper_mlx_tpu_torch.ops import beamflat_attention as bf
 from whisper_mlx_tpu_torch.ops import decode_attention as da
 from whisper_mlx_tpu_torch.ops import dense_attention as dn
 from whisper_mlx_tpu_torch.ops import flash_attention as fa
+from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
 from whisper_mlx_tpu_torch.ops import quant as tq
 from whisper_mlx_tpu_torch.ops import quant_matmul as qm
+from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.runtime.device import setup_device
 from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
@@ -81,6 +97,24 @@ ATTN_TOL = 2e-2  # times max(1, |ref|max)
 TINY_LOGIT_TOL = 5e-2  # times max(1, |ref|max)
 QMM_TOL = 1e-2  # times max(1, |ref|max): one bf16 ulp of the output
 QWEN32 = qw.QWEN_CONFIGS["qwen3-32b"]
+# the card's published peaks (H100 SXM data sheet, dense, 700 W): device
+# memory bytes per ms and operations per ms by type
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+PEAK_OPS_PER_MS = {"fp32": 67e12 / 1e3, "bf16": 989e12 / 1e3, "int8": 1979e12 / 1e3}
+
+
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_MS
+    by_ops = ops / PEAK_OPS_PER_MS[kind]
+    if by_bytes >= by_ops:
+        return dict(bound_ms=by_bytes, bound_by="bytes")
+    return dict(bound_ms=by_ops, bound_by="operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _smi() -> str:
@@ -119,6 +153,14 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     print(f"    (host-bound: {reps} calls took {host_ms:.1f} ms to queue, longer than a "
           f"{spin_ms:.1f} ms spin; the time below includes the host's)")
     return start.elapsed_time(end) / reps
+
+
+def _cold_ms(fn, inputs: list, reps: int = 24) -> float:
+    """Device time per call of ``fn(x)`` with x cycling through copies of
+    one layer's inputs whose bytes together exceed the 50 MB L2, as a
+    decode step finds each layer's cache: not left in L2 by the call before."""
+    turn = itertools.cycle(inputs)
+    return _device_ms(lambda: fn(next(turn)), reps=reps)
 
 
 def _kernel_us(prof) -> tuple[float, list]:
@@ -181,7 +223,12 @@ def phase_kernels() -> dict:
         name="log_mel", route="cuda", source="whisper_mlx_tpu_torch/csrc/mel.cu",
         replaces="whisper_mlx_tpu/ops/mel_pallas.py:61", max_abs_err=err,
         ms=_device_ms(lambda: mk.log_mel_frames(frames, 128)),
-        plain_ms=_device_ms(lambda: mk.log_mel_frames_plain(frames, 128)))
+        plain_ms=_device_ms(lambda: mk.log_mel_frames_plain(frames, 128)),
+        # frames, cos/sin bases (400 x 208), filterbank (208 x 128), output;
+        # 201 bins x 400 samples x (re, im) FMAs + the 201 x 128 filterbank
+        **_bound(_nbytes(frames, got) + (2 * 400 * 208 + 208 * 128) * 4,
+                 frames.shape[0] * (2 * 2 * 400 * 201 + 2 * 201 * 128), "fp32"),
+        library_ms=None)
 
     # K2: encoder self-attention, B=8 windows x 20 heads, T=1500; ragged cases
     errs = []
@@ -201,7 +248,12 @@ def phase_kernels() -> dict:
         source="whisper_mlx_tpu_torch/csrc/dense_attention.cu",
         replaces="whisper_mlx_tpu/ops/dense_attention.py:91", max_abs_err=max(errs),
         ms=_device_ms(lambda: dn.dense_attention(*main), reps=10),
-        plain_ms=_device_ms(lambda: dn.dense_attention_plain(*main), reps=10))
+        plain_ms=_device_ms(lambda: dn.dense_attention_plain(*main), reps=10),
+        # q, k, v, out bf16; QK^T and PV, 2 operations per multiply-add
+        **_bound(4 * _nbytes(main[0]), 4 * main[0].numel() * main[1].shape[2], "bf16"),
+        # q and k arrive pre-scaled by hd**-0.25, hence scale 1
+        library_ms=_device_ms(lambda: F.scaled_dot_product_attention(*main, scale=1.0),
+                              reps=10))
 
     # K3: self int8 (B=8, 20 heads, T_alloc 256) and cross int4 (Tk 1500)
     def cache(n, t, bits):
@@ -239,14 +291,149 @@ def phase_kernels() -> dict:
             + _device_ms(lambda: da.decode_attention_plain(q1, *cross_c, valid_len=1500)))
     print(f"  decode_attention one layer's step (self pos 226 + cross): "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    # live keys: 227 self positions (int8) and 1500 cross (int4), K and V
+    # codes plus their scales, and q in / out bf16 for both calls
+    live = [(227, 64 + 64 + 2 + 2), (1500, 32 + 32 + 2 + 2)]
     rows["decode"] = dict(
         name="decode_attention", route="cuda",
         source="whisper_mlx_tpu_torch/csrc/decode_attention.cu",
         replaces="whisper_mlx_tpu/ops/decode_attention.py:156", max_abs_err=max(errs),
-        ms=k_ms, plain_ms=p_ms)
+        ms=k_ms, plain_ms=p_ms,
+        **_bound(sum(8 * 20 * t * b for t, b in live) + 4 * _nbytes(q1),
+                 sum(8 * 20 * t * 2 * 2 * 64 for t, _ in live), "fp32"),
+        library_ms=None)
+    rows.update(_beam_kernels(rng, cache, query))
     torch.cuda.synchronize()
     for r in rows.values():
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"))
+    return rows
+
+
+def _copies(tensors, n: int = 8) -> list[tuple]:
+    """n copies of one layer's tensors in their own memory."""
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def _beam_ancestry(gen, n, g, t_pos):
+    """An ancestry map as a beam builds it: at every position each lane
+    takes a random parent's history and owns the position it writes."""
+    anc = torch.arange(g, dtype=torch.int32, device=gen.device)[None, :, None].repeat(
+        n, 1, t_pos)
+    for t in range(1, t_pos):
+        parent = torch.randint(0, g, (n, g, 1), generator=gen, device=gen.device)
+        anc[:, :, :t] = anc[:, :, :t].gather(1, parent.expand(-1, -1, t))
+    return anc.reshape(n * g, t_pos).contiguous()
+
+
+def _beam_kernels(rng, cache, query) -> dict:
+    """The beam path's kernels at large-v3 beam 5 on 8 windows: K3's
+    integer-dot mode, K8 (both modes, int8 and int4) and K9."""
+    rows = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, g, h, t_pos, pos = 8, 5, 20, 256, 226
+
+    # K3 integer-dot: cross (1500 keys, int4, g = 5) and self causal (g = 1)
+    errs = []
+    cross_c = cache(8, 1500, 4)
+    self_c = cache(40, 256, 8)
+    q40 = query(40, 1)
+    cases = [("cross int4 g=5 Tq=1", q40, cross_c, dict(valid_len=1500, group=5)),
+             ("cross int4 g=5 Tq=3", query(40, 3), cross_c, dict(valid_len=1500, group=5)),
+             ("self int8 g=1 Tq=1 pos=226", q40, self_c, dict(pos=226, causal=True)),
+             ("self int8 g=1 Tq=3 pos=0", query(40, 3), self_c, dict(pos=0, causal=True))]
+    for name, q, c, kw in cases:
+        got = kq.attention_int8_mxu(q, *c, **kw)
+        ref = da.decode_attention_plain(q, *c, int_dot=True, **kw)
+        tol = ATTN_TOL * max(1.0, ref.float().abs().max().item())
+        errs.append(_check(f"decode_attention int_dot {name}", got, ref, tol))
+    cross_kw = dict(valid_len=1500, group=5)
+    layers = _copies(cross_c)
+    rows["decode_int"] = dict(
+        name="decode_attention_int_dot", route="cuda",
+        source="whisper_mlx_tpu_torch/csrc/decode_attention.cu",
+        replaces="whisper_mlx_tpu/ops/kv_quant.py:131", max_abs_err=max(errs),
+        ms=_cold_ms(lambda c: kq.attention_int8_mxu(q40, *c, **cross_kw), layers),
+        plain_ms=_cold_ms(lambda c: da.decode_attention_plain(q40, *c, int_dot=True,
+                                                              **cross_kw), layers, reps=8),
+        # the beam step's cross call: the int4 cache once, 40 query rows
+        **_bound(_nbytes(*cross_c) + 2 * _nbytes(q40), 40 * h * 1500 * 2 * 2 * 64, "int8"),
+        library_ms=None)
+    self_ms = _cold_ms(lambda c: kq.attention_int8_mxu(q40, *c, pos=226, causal=True),
+                       _copies(self_c))
+    del layers
+    print(f"  decode_attention int_dot self g=1 (40 rows, pos 226): kernel {self_ms:.4f} ms")
+
+    # K8 over the flat cache: rows t * 5 + k, ancestry as a beam builds it
+    anc = _beam_ancestry(gen, n, g, t_pos)
+    q = query(n * g, 1)
+    rows_needed = torch.unique(  # distinct rows the 40 lanes gather, per window
+        (torch.arange(n, device=dev)[:, None, None] * t_pos * g
+         + torch.arange(pos + 1, device=dev) * g
+         + anc.reshape(n, g, t_pos)[:, :, :pos + 1])).numel()
+    errs = []
+    for bits in (8, 4):
+        c = cache(n, t_pos * g, bits)
+        for int_dot in (False, True):
+            got = bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot)
+            ref = bf.beamflat_attention_plain(q, *c, anc, pos, g, int_dot=int_dot)
+            tol = ATTN_TOL * max(1.0, ref.float().abs().max().item())
+            errs.append(_check(f"beamflat_attention int{bits} int_dot={int_dot}", got, ref,
+                               tol))
+        if bits == 8:
+            layers = _copies(c)
+            fp_ms = _cold_ms(lambda c_: bf.beamflat_attention(q, *c_, anc, pos, g), layers)
+    print(f"  beamflat int8 fp mode: kernel {fp_ms:.4f} ms; {rows_needed} distinct rows of "
+          f"{n * g * (pos + 1)} gathered per head")
+    rows["beamflat"] = dict(
+        name="beamflat_attention", route="cuda",
+        source="whisper_mlx_tpu_torch/csrc/beamflat_attention.cu",
+        replaces="whisper_mlx_tpu/ops/beamflat_attention.py:58", max_abs_err=max(errs),
+        ms=_cold_ms(lambda c: bf.beamflat_attention(q, *c, anc, pos, g, int_dot=True), layers),
+        plain_ms=_cold_ms(lambda c: bf.beamflat_attention_plain(q, *c, anc, pos, g,
+                                                                int_dot=True), layers, reps=8),
+        # the distinct live rows once (codes and scales of K and V), each
+        # lane's ancestry up to pos, q in and out
+        **_bound(rows_needed * h * (64 + 64 + 2 + 2) + n * g * (pos + 1) * 4
+                 + 2 * _nbytes(q), n * g * h * (pos + 1) * 2 * 2 * 64, "int8"),
+        library_ms=None)
+
+    # K9: one layer's per-lane self cache of 40 lanes (T 256, int8)
+    layer = list(cache(n * g, t_pos, 8))
+    parent = torch.arange(n * g, device=dev).reshape(n, g)
+    parent[:, 1:] = parent[:, :1]  # lane 0 of each window spawns every child
+    parent[::2, 3] = parent[::2, 3] + 3
+    parent = parent.reshape(-1)
+    got = lp.permute_lanes(layer, parent)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, lp.permute_lanes_plain(layer, parent)))
+    _check("permute_lanes 40 lanes", torch.tensor(err), torch.tensor(0.0), 0.0)
+    src = torch.arange(n * g, device=dev)
+    src[1::5] = src[0::5]
+    moved = int((src != torch.arange(n * g, device=dev)).sum())
+    want = lp.lane_move_inplace_plain([t.clone() for t in layer], src)
+    lp.lane_move_inplace(layer, src)
+    err_m = max(float((a.float() - b.float()).abs().max()) for a, b in zip(layer, want))
+    _check("lane_move_inplace 40 lanes", torch.tensor(err_m), torch.tensor(0.0), 0.0)
+    layers = [list(c) for c in _copies(layer)]
+    rows["permute"] = dict(
+        name="permute_lanes", route="cuda", source="whisper_mlx_tpu_torch/csrc/lane_permute.cu",
+        replaces="whisper_mlx_tpu/ops/lane_permute.py:39", max_abs_err=err,
+        ms=_cold_ms(lambda c: lp.permute_lanes(c, parent), layers),
+        plain_ms=_cold_ms(lambda c: lp.permute_lanes_plain(c, parent), layers),
+        **_bound(2 * _nbytes(*layer), 0, "int8"),
+        # one index_select per tensor of the layer (k8, ks, v8, vs)
+        library_ms=_cold_ms(lambda c: [t.index_select(0, parent) for t in c], layers))
+    rows["move"] = dict(
+        name="lane_move_inplace", route="cuda", source="whisper_mlx_tpu_torch/csrc/lane_permute.cu",
+        replaces="whisper_mlx_tpu/ops/lane_permute.py:102", max_abs_err=err_m,
+        ms=_cold_ms(lambda c: lp.lane_move_inplace(c, src), layers),
+        plain_ms=_cold_ms(lambda c: lp.lane_move_inplace_plain(c, src), layers),
+        # the moved rows only: read once, written once
+        **_bound(2 * moved * _nbytes(*layer) / (n * g), 0, "int8"),
+        library_ms=None)
     return rows
 
 
@@ -301,6 +488,47 @@ def phase_tiny() -> None:
         print(f"  tiny window: cpu {len(a.tokens)} tokens, cuda {len(b.tokens)} tokens, "
               f"first difference at {next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y), min(len(a.tokens), len(b.tokens)))}")
     print(f"  tiny token agreement: {same}/{total}")
+    _tiny_beam(params_cpu, params_dev, config, tok, mel)
+
+
+def _agreement(a_results, b_results) -> tuple[int, int]:
+    same = total = 0
+    for a, b in zip(a_results, b_results):
+        same += sum(x == y for x, y in zip(a.tokens, b.tokens))
+        total += max(len(a.tokens), len(b.tokens))
+    return same, total
+
+
+def _tiny_beam(params_cpu, params_dev, config, tok, mel) -> None:
+    """Beam 3 on the tiny config: a prefill and one flat-cache step (K3's
+    integer mode, K8) card vs CPU, then decode(beam_size=3) on both."""
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    cfg = dataclasses.replace(config, attn_mxu=True)
+    g = 3
+    logits = {}
+    with torch.inference_mode():
+        for device, params in ((cpu, params_cpu), (dev, params_dev)):
+            states = encode(params, mel.to(device), cfg)
+            init = torch.tensor([tok.sot_sequence] * (2 * g), device=device)
+            cache = init_kv_cache(cfg, 2 * g, device, 8)
+            xkv = cross_kv(params, states, cfg)
+            pre, _ = decode_step(params, init, 0, cache, xkv, cfg, share_xkv_groups=g)
+            n_init = init.shape[1]
+            # every lane owns its rows, as right after the prefill
+            anc = torch.arange(g, dtype=torch.int32, device=device).repeat(2)[:, None]
+            step, _ = decode_step(params, init[:, -1:], n_init, beam_flat_cache(cache, g), xkv,
+                                  cfg, share_xkv_groups=g,
+                                  beam_ancestry=anc.repeat(1, 128).contiguous())
+            logits[device.type] = torch.cat([pre, step], dim=1).float().cpu()
+    ref = logits["cpu"]
+    _check("tiny beam prefill + flat step logits cuda vs cpu", logits["cuda"], ref,
+           TINY_LOGIT_TOL * max(1.0, ref.abs().max().item()))
+    opts = DecodingOptions(sample_len=32, beam_size=3)
+    res_cpu = decode(params_cpu, mel, tok, config, opts)
+    res_dev = decode(params_dev, mel.to(dev), tok, config, opts)
+    same, total = _agreement(res_cpu, res_dev)
+    print(f"  tiny beam 3: cpu {[len(r.tokens) for r in res_cpu]} tokens, cuda "
+          f"{[len(r.tokens) for r in res_dev]}; token agreement {same}/{total}")
 
 
 def _to(node, device):
@@ -442,6 +670,173 @@ def _breakdown(params, config, tok, audio) -> None:
 
 
 # ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+
+def _zero_counts() -> None:
+    mk.LAUNCHES = dn.LAUNCHES = da.LAUNCHES = da.INT_DOT_LAUNCHES = bf.LAUNCHES = 0
+    lp.PERMUTE_LAUNCHES = lp.MOVE_LAUNCHES = 0
+
+
+def phase_beam_main_path() -> dict:
+    """large-v3 at full width (random bf16 weights, kv4/self8): the CLI with
+    --beam-size 5 on the 65 s WAV, then 2-window beam runs under each lane
+    scheme (K9 launches under permp and permi). Returns the launch counts of
+    the beam path's kernels; then the timed 8-window x beam 5 batch."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "clip.wav")
+        _write_wav(wav, 65.0)
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([wav, "-f", "txt", "--output-name", "out", "-o", tmp,
+                       "--model", "large-v3", "--condition-on-previous-text", "False",
+                       "--beam-size", "5", "--verbose", "False"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        txt = os.path.join(tmp, "out.txt")
+        assert rc == 0 and os.path.exists(txt), "CLI wrote no .txt"
+        with open(txt, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+    print(f"beam main path: large-v3 CLI --beam-size 5 on a 65 s WAV in {seconds:.2f} s, "
+          f"{len(lines)} lines of text; K3 int_dot {da.INT_DOT_LAUNCHES}, K8 {bf.LAUNCHES}, "
+          f"K3 fp {da.LAUNCHES} launches so far")
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    params, config = apply_asr_serving_config(
+        init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+    tok = _bench_tokenizer(config.n_vocab)
+    rng = np.random.default_rng(3)
+    audio = torch.from_numpy(rng.standard_normal((8, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
+    with torch.inference_mode():
+        mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
+        states = encode(params, mel, config)
+    opts = DecodingOptions(sample_len=32, beam_size=5)
+    by_scheme = {}
+    for scheme in ("flat", "permp", "permi"):
+        os.environ["WTPU_BEAM_KV"] = scheme
+        try:
+            before = (lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES)
+            by_scheme[scheme] = decode(params, states[:2], tok, config, opts,
+                                       states_precomputed=True)
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["WTPU_BEAM_KV"]
+        for r in by_scheme[scheme]:
+            assert r.tokens and np.isfinite(r.avg_logprob), f"{scheme}: empty or non-finite"
+        if scheme != "flat":
+            same, total = _agreement(by_scheme["flat"], by_scheme[scheme])
+            print(f"  2 windows x beam 5, sample_len 32, WTPU_BEAM_KV={scheme}: K9 launches "
+                  f"permute +{lp.PERMUTE_LAUNCHES - before[0]}, move "
+                  f"+{lp.MOVE_LAUNCHES - before[1]}; tokens agree with flat {same}/{total}")
+    launches = {"decode_int": da.INT_DOT_LAUNCHES, "beamflat": bf.LAUNCHES,
+                "permute": lp.PERMUTE_LAUNCHES, "move": lp.MOVE_LAUNCHES}
+    print(f"  launches on the beam main path: {launches} (also mel {mk.LAUNCHES}, dense "
+          f"{dn.LAUNCHES}, decode fp {da.LAUNCHES})")
+    for key, n in launches.items():
+        assert n > 0, f"kernel {key} was not launched on the beam main path"
+    del states, mel
+    torch.cuda.empty_cache()
+    _time_beam_batch(params, config, tok, audio)
+    return launches
+
+
+def _time_beam_batch(params, config, tok, audio) -> None:
+    """8 windows x beam 5 through log_mel_spectrogram -> decode(), sample_len
+    224, then a per-step breakdown of beam_decode."""
+    batch = audio.shape[0]
+    opts = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
+
+    def pipeline():
+        mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
+        return decode(params, mel, tok, config, opts)
+
+    with torch.inference_mode():
+        pipeline()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        results = pipeline()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    print(f"beam batch: large-v3 bf16 kv4/self8 int_dot, {batch} windows x beam 5 x 30 s, "
+          f"sample_len 224: {times} s (best {best:.3f} s), "
+          f"{sum(len(r.tokens) for r in results)} tokens, {batch * 30.0 / best:.2f} audio-s/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _beam_breakdown(params, config, tok, audio)
+
+
+def _beam_breakdown(params, config, tok, audio) -> None:
+    """Per-step wall time, device busy time and kernel time by name of the
+    beam loop: two beam_decode runs of 16 and 48 steps (pools never fill
+    at random weights), the difference over 32 steps, without and with
+    torch.profiler."""
+    dev = audio.device
+    beam_cfg = dataclasses.replace(config, attn_mxu=True)
+    with torch.inference_mode():
+        mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
+        states = encode(params, mel, config)
+    opts = DecodingOptions(beam_size=5)
+    setup = decode_setup(tok, opts, config, dev)
+    init = torch.tensor([setup.init_tokens] * audio.shape[0], device=dev)
+
+    def run(steps):
+        return tb.beam_decode(params, states, init, setup.suppress_mask, setup.blank_mask,
+                              beam_cfg, setup.filter_cfg, steps, setup.sot_index,
+                              tok.no_speech, 5, 5)
+
+    def wall(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run(16)
+    step_ms = (wall(48) - wall(16)) / 32
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    by_name, host = {}, {}
+    for steps in (16, 48):
+        with torch.profiler.profile(activities=activities) as prof:
+            prof_ms = wall(steps)
+        total, events = _kernel_us(prof)
+        by_name[steps] = (prof_ms, total, {e.key: (e.self_device_time_total, e.count)
+                                           for e in events})
+        host[steps] = {e.key: (e.self_cpu_time_total, e.count) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU}
+    prof_step = (by_name[48][0] - by_name[16][0]) / 32
+    dev_step = (by_name[48][1] - by_name[16][1]) / 1e3 / 32
+    print(f"beam breakdown (8 windows x beam 5, 40 rows): decode step {step_ms:.3f} ms wall "
+          f"(x224 = {step_ms * 224 / 1e3:.2f} s)")
+    if dev_step > 0:
+        print(f"  under the profiler: wall {prof_step:.3f} ms/step, device {dev_step:.3f} "
+              f"ms/step, device idle share {1 - dev_step / prof_step:.3f}")
+    else:
+        print("  under the profiler: no device time recorded (not measured)")
+    diff = []
+    for key, (us, count) in by_name[48][2].items():
+        us0, count0 = by_name[16][2].get(key, (0.0, 0))
+        diff.append(((us - us0) / 32, (count - count0) / 32, key))
+    for us, calls, key in sorted(diff, reverse=True)[:10]:
+        print(f"  {key[:60]:60s} device {us:9.1f} us/step, calls {calls:.1f}/step")
+    # host side: where the step's wall time goes (CPU self time under the
+    # profiler), and any host waits on the device
+    diff = []
+    for key, (us, count) in host[48].items():
+        us0, count0 = host[16].get(key, (0.0, 0))
+        diff.append(((us - us0) / 32, (count - count0) / 32, key))
+    print(f"  host: {sum(c for _, c, _ in diff):.0f} CPU events/step")
+    for us, calls, key in sorted(diff, reverse=True)[:8]:
+        print(f"  {key[:60]:60s} host {us:9.1f} us/step, calls {calls:.1f}/step")
+    for us, calls, key in diff:
+        if "Synchronize" in key or "Memcpy" in key:
+            print(f"  {key[:60]:60s} host {us:9.1f} us/step, calls {calls:.1f}/step")
+
+
+# ---------------------------------------------------------------------------
 # the Qwen chat LLM
 # ---------------------------------------------------------------------------
 
@@ -469,8 +864,8 @@ def _time_quant(name, q, m, gen, errs, m1_ms, m1_plain):
     print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, weights+affines "
           f"{nbytes / ms / 1e6:.1f} GB/s")
     if m == 1 and q.bits == 4:
-        return m1_ms + ms, m1_plain + plain
-    return m1_ms, m1_plain
+        return m1_ms + ms, m1_plain + plain, _nbytes(q.w_q, q.scales, q.biases, x) + 2 * n
+    return m1_ms, m1_plain, 0
 
 
 def phase_llm_kernels() -> dict:
@@ -478,7 +873,7 @@ def phase_llm_kernels() -> dict:
     plain versions; returns the JSON rows."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    errs, m1_ms, m1_plain = [], 0.0, 0.0
+    errs, m1_ms, m1_plain, m1_bytes = [], 0.0, 0.0, 0
     cases = [(name, n, k, 4, (1, 4, 128, 512)) for name, n, k in QWEN_LINEARS]
     cases.append(("qkv", 10240, 5120, 8, (1, 128)))
     for name, n, k, bits, m_values in cases:
@@ -488,7 +883,8 @@ def phase_llm_kernels() -> dict:
             tq.quantize(torch.randn((min(16384, n - r), k), generator=gen, device=dev)
                         * k ** -0.5, bits) for r in range(0, n, 16384)])
         for m in m_values:
-            m1_ms, m1_plain = _time_quant(name, q, m, gen, errs, m1_ms, m1_plain)
+            m1_ms, m1_plain, nbytes = _time_quant(name, q, m, gen, errs, m1_ms, m1_plain)
+            m1_bytes += nbytes
         del q
         torch.cuda.empty_cache()
     print(f"  quant_matmul one layer's linears + head at M=1 (qkv, o, gate_up, down, "
@@ -496,7 +892,10 @@ def phase_llm_kernels() -> dict:
     rows = {"quant": dict(
         name="quant_matmul", route="cuda", source="whisper_mlx_tpu_torch/csrc/quant_matmul.cu",
         replaces="whisper_mlx_tpu/ops/quant_pallas.py:113", max_abs_err=max(errs),
-        ms=m1_ms, plain_ms=m1_plain)}
+        ms=m1_ms, plain_ms=m1_plain,
+        # codes, scales and biases of the five linears once, x in, y out
+        **_bound(m1_bytes, 2 * sum(n * k for _, n, k in QWEN_LINEARS), "bf16"),
+        library_ms=None)}
 
     errs = []
     s = 128 ** -0.25
@@ -514,11 +913,15 @@ def phase_llm_kernels() -> dict:
         plain = _device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), reps=5)
         print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms")
         if (t, causal) == (2048, True):
-            f_ms, f_plain = ms, plain
+            # q, k, v, out bf16; the causal half of QK^T and PV
+            f = dict(ms=ms, plain_ms=plain,
+                     **_bound(2 * _nbytes(q) + 2 * _nbytes(k), 2 * 2 * h * hd * t * (t + 1) / 2,
+                              "bf16"),
+                     library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=True, scale=1.0, enable_gqa=True), reps=10))
     rows["flash"] = dict(
         name="flash_attention", route="cuda", source="whisper_mlx_tpu_torch/csrc/flash_attention.cu",
-        replaces="whisper_mlx_tpu/ops/flash_attention.py:72", max_abs_err=max(errs),
-        ms=f_ms, plain_ms=f_plain)
+        replaces="whisper_mlx_tpu/ops/flash_attention.py:72", max_abs_err=max(errs), **f)
     return rows
 
 
@@ -757,6 +1160,9 @@ def main() -> int:
     rows = _timed_phase("kernels", phase_kernels)
     _timed_phase("tiny", phase_tiny)
     launches = _timed_phase("main path", phase_main_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(_timed_phase("beam main path", phase_beam_main_path))
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(_timed_phase("llm kernels", phase_llm_kernels))

@@ -1,5 +1,6 @@
 """The Hopper kernels of whisper_mlx_tpu_torch against their plain PyTorch
-versions, on a GPU.
+versions, on a GPU, and the beam path's kernels (K8, K3's integer-dot mode,
+K9) on a tiny model card against CPU.
 
 Tests marked ``cuda`` skip without a GPU: a CUDA kernel has no CPU mode.
 This file imports neither jax nor the JAX package, so on a machine with a
@@ -12,7 +13,10 @@ Tolerances: 2e-4 absolute for the mel (fp32 FMA in another order);
 softmax weights to bf16 (K2, K3 as the TPU kernels did; K4 where the TPU
 kernel kept fp32); for the quantized matmul ``1e-2 * max(1, |ref|max)`` in
 bf16 (sums in another order can move a result by one bf16 ulp) and
-``1e-4 * max(1, |ref|max)`` in fp32.
+``1e-4 * max(1, |ref|max)`` in fp32. The integer-dot modes (K3, K8) take
+the attention tolerance too: the card's expf and the CPU's exp may differ
+in an ulp, which can move one dynamic w * vs code by one step, at most
+max(w * vs) on the output. The lane kernel (K9) moves bytes: exact.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ import torch
 
 from whisper_mlx_tpu_torch.audio import mel as t_mel
 from whisper_mlx_tpu_torch.ops import _build
+from whisper_mlx_tpu_torch.ops import beamflat_attention as bf
 from whisper_mlx_tpu_torch.ops import decode_attention as da
 from whisper_mlx_tpu_torch.ops import dense_attention as dn
 from whisper_mlx_tpu_torch.ops import flash_attention as fa
 from whisper_mlx_tpu_torch.ops import kv_quant as kq
+from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
 from whisper_mlx_tpu_torch.ops import quant as tq
 from whisper_mlx_tpu_torch.ops import quant_matmul as qm
@@ -60,8 +66,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == tmp_path / "kernels" and path.suffix == ".so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "decode_attention.cu", "dense_attention.cu", "flash_attention.cu", "mel.cu",
-        "quant_matmul.cu"]
+        "beamflat_attention.cu", "decode_attention.cu", "dense_attention.cu",
+        "flash_attention.cu", "lane_permute.cu", "mel.cu", "quant_matmul.cu"]
+    assert [p.name for p in _build.CSRC.glob("*.cuh")] == ["attend_row.cuh"]
 
 
 @pytest.mark.cuda
@@ -258,3 +265,153 @@ def _to_cpu(node):
         return QuantTensor(node.w_q.cpu(), node.scales.cpu(), node.biases.cpu(), node.bits,
                            node.group_size)
     return node.cpu()
+
+
+# ---------------------------------------------------------------------------
+# the beam path: K3's integer-dot mode, K8, K9
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,n,g,tq,t,kw", [
+    (8, 8, 1, 1, 256, dict(pos=226, causal=True)),
+    (8, 40, 1, 3, 256, dict(pos=0, causal=True)),
+    (4, 8, 5, 1, 1500, dict(valid_len=1500)),
+    (4, 8, 5, 3, 1500, dict(valid_len=1500)),
+    (8, 2, 1, 1, 384, dict(valid_len=333)),
+])
+def test_decode_kernel_int_dot_matches_plain(cuda, bits, n, g, tq, t, kw):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    kx, vx = (torch.randn((n, 20, t, 64), generator=gen, device=cuda) for _ in range(2))
+    k8, ks = kq.quantize_kv(kx * 0.35, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    q = (torch.randn((n * g, 20, tq, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+    before = (da.LAUNCHES, da.INT_DOT_LAUNCHES)
+    got = kq.attention_int8_mxu(q, k8, ks, v8, vs, group=g, **kw)
+    torch.cuda.synchronize()
+    assert (da.LAUNCHES, da.INT_DOT_LAUNCHES) == (before[0], before[1] + 1)
+    ref = da.decode_attention_plain(q, k8, ks, v8, vs, group=g, int_dot=True, **kw)
+    assert _max_err(got, ref) <= _attn_tol(ref)
+
+
+def _beam_ancestry(gen, n, g, t_pos, device):
+    anc = torch.arange(g, dtype=torch.int32, device=device)[None, :, None].repeat(n, 1, t_pos)
+    for t in range(1, t_pos):
+        parent = torch.randint(0, g, (n, g, 1), generator=gen, device=device)
+        anc[:, :, :t] = anc[:, :, :t].gather(1, parent.expand(-1, -1, t))
+    return anc.reshape(n * g, t_pos).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("int_dot", [False, True])
+@pytest.mark.parametrize("n,g,t_pos,pos", [(8, 5, 256, 226), (2, 3, 128, 0), (1, 2, 448, 447)])
+def test_beamflat_kernel_matches_plain(cuda, bits, int_dot, n, g, t_pos, pos):
+    gen = torch.Generator(device=cuda).manual_seed(pos + g)
+    kx, vx = (torch.randn((n, 20, t_pos * g, 64), generator=gen, device=cuda)
+              for _ in range(2))
+    k8, ks = kq.quantize_kv(kx * 0.35, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    anc = _beam_ancestry(gen, n, g, t_pos, cuda)
+    q = (torch.randn((n * g, 20, 1, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+    before = bf.LAUNCHES
+    got = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
+    torch.cuda.synchronize()
+    assert bf.LAUNCHES == before + 1
+    ref = bf.beamflat_attention_plain(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
+    assert _max_err(got, ref) <= _attn_tol(ref)
+
+
+@pytest.mark.cuda
+def test_lane_kernels_match_plain(cuda):
+    """Permute and in-place move of one layer's int8, packed int4, bf16
+    and odd-length rows: byte-exact."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    nb = 40
+    tensors = [torch.randint(-127, 128, (nb, 20, 256, 64), generator=gen, device=cuda,
+                             dtype=torch.int8),
+               torch.randint(0, 256, (nb, 20, 256, 32), generator=gen, device=cuda,
+                             dtype=torch.uint8),
+               torch.randn((nb, 20, 256), generator=gen, device=cuda).to(torch.bfloat16),
+               torch.randint(0, 256, (nb, 3, 7), generator=gen, device=cuda,
+                             dtype=torch.uint8)]
+    parent = torch.tensor([0, 0, 1, 3, 3, 3] * 6 + [36, 36, 39, 38], device=cuda)
+    before = (lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES)
+    got = lp.permute_lanes(tensors, parent)
+    for a, b in zip(got, lp.permute_lanes_plain(tensors, parent)):
+        assert torch.equal(a, b)
+    src = torch.arange(nb, device=cuda)
+    src[1::5] = src[0::5]  # lane 5k+1 copies fixed lane 5k
+    want = lp.lane_move_inplace_plain([t.clone() for t in tensors], src)
+    moved = lp.lane_move_inplace(tensors, src)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(moved, tensors))
+    for a, b in zip(moved, want):
+        assert torch.equal(a, b)
+    assert (lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_beam_tiny_card_matches_cpu_and_fp_caches_raise(cuda, monkeypatch):
+    """Beam 3 on a tiny model: the card (K3 integer mode, K8, K9) against
+    the CPU's plain versions, bf16 kv4/self8; fp caches raise on the card."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.decoding import beam as tb
+    from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode
+    from whisper_mlx_tpu_torch.decoding.tokenizer import make_synthetic_tokenizer
+    from whisper_mlx_tpu_torch.models import whisper as tw
+
+    tok = make_synthetic_tokenizer()
+    cfg = tw.WhisperConfig(n_vocab=tok.n_vocab, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=2, n_text_state=128, n_text_head=2, n_text_layer=2,
+                           dtype=torch.bfloat16, flash_attention=True, kv_bits=4,
+                           self_kv_bits=8, attn_mxu=True)
+    params = tw.init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    params_cpu = _to_cpu(params)
+    states = torch.randn((2, 1500, 128), generator=torch.Generator().manual_seed(0)) \
+        .to(torch.bfloat16)
+    init = torch.tensor([tok.sot_sequence] * 6)
+    logits = {}
+    for label, dev, p in (("cuda", cuda, params), ("cpu", torch.device("cpu"), params_cpu)):
+        cache = tw.init_kv_cache(cfg, 6, dev, max_len=16)
+        xkv = tw.cross_kv(p, states.to(dev), cfg)
+        out = [tw.decode_step(p, init.to(dev), 0, cache, xkv, cfg, share_xkv_groups=3)[0]]
+        flat = tw.beam_flat_cache(cache, 3)
+        anc = torch.tensor([[0, 0, 0, 1], [1, 1, 0, 1], [2, 0, 0, 2]] * 2, dtype=torch.int32)
+        anc = torch.cat([anc, anc[:, :1].expand(-1, 124)], dim=1).contiguous().to(dev)
+        step = tw.decode_step(p, init[:, :1].to(dev), 3, flat, xkv, cfg, share_xkv_groups=3,
+                              beam_ancestry=anc)[0]
+        logits[label] = torch.cat([out[0], step], dim=1).float().cpu()
+    ref = logits["cpu"]
+    assert torch.isfinite(logits["cuda"]).all()
+    assert _max_err(logits["cuda"], ref) <= 5e-2 * max(1.0, ref.abs().max().item())
+    res = {}
+    for scheme in ("flat", "permp", "permi"):
+        before = (bf.LAUNCHES, lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES)
+        monkeypatch.setenv("WTPU_BEAM_KV", scheme)
+        res[scheme] = [r.tokens for r in decode(params, states.to(cuda), tok, cfg,
+                                                 DecodingOptions(sample_len=12, beam_size=3),
+                                                 states_precomputed=True)]
+        after = (bf.LAUNCHES, lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES)
+        launched = [a > b for a, b in zip(after, before)]
+        assert launched == [scheme == "flat", scheme == "permp", scheme == "permi"], scheme
+    assert all(len(t) > 0 for t in res["flat"])
+    fp = dataclasses.replace(cfg, kv_bits=0, self_kv_bits=0)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        tb.beam_decode(params, states.to(cuda), init[:2].to(cuda),
+                       torch.zeros(cfg.n_vocab, dtype=torch.bool, device=cuda),
+                       torch.zeros(cfg.n_vocab, dtype=torch.bool, device=cuda), fp,
+                       _filter_cfg(tok), 4, 0, tok.no_speech, 3, 3)
+    q = torch.zeros((3, 2, 1, 64), device=cuda)
+    kf = torch.zeros((1, 2, 12, 64), device=cuda)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        bf.attention_fp_beamflat(q, kf, kf, torch.zeros((3, 4), dtype=torch.int32,
+                                                        device=cuda), 1, 3)
+
+
+def _filter_cfg(tok):
+    from whisper_mlx_tpu_torch.decoding.filters import FilterConfig
+
+    return FilterConfig(eot=tok.eot, no_timestamps=tok.no_timestamps,
+                        timestamp_begin=tok.timestamp_begin, sample_begin=3)

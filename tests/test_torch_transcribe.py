@@ -211,7 +211,6 @@ def test_serving_config_rejects_skipping_kernels(monkeypatch, name, value, devic
     (dict(word_timestamps=True), "M8"),
     (dict(batch_windows=True), "M7"),
     (dict(draft_params={}), "M11"),
-    (dict(beam_size=5), "M10"),
 ])
 def test_features_out_of_slice_raise(pair, kwargs, item):
     _, _, tparams, tcfg, _ = pair

@@ -9,6 +9,7 @@ Counterpart of ``whisper_mlx_tpu/cli.py``. ``--model`` names a size in
 the synthetic tokenizer, as the JAX CLI does without a checkpoint) or
 ``test-tiny``. Loading checkpoint directories is ROADMAP.md M9.
 ``--device`` defaults to ``cuda`` and raises when no GPU is present.
+``--beam-size B`` (with ``--patience``) decodes the T=0 rung by beam search.
 """
 
 from __future__ import annotations

@@ -1,17 +1,19 @@
 """Decoding task: options -> initial tokens -> decode loop -> results.
 
-Counterpart of ``whisper_mlx_tpu/decoding/task.py`` for the greedy slice:
-sot-sequence construction (language/task/prompt/prefix), suppress lists,
-the greedy loop (temperature 0, or best_of sampling at temperature > 0),
-and the host-side metrics that drive the temperature-fallback ladder.
-Beam search raises (ROADMAP.md M10).
+Counterpart of ``whisper_mlx_tpu/decoding/task.py``: sot-sequence
+construction (language/task/prompt/prefix), suppress lists, the greedy loop
+(temperature 0, or best_of sampling at temperature > 0), beam search
+(``beam_size``, ``decoding/beam.py``), and the host-side metrics that drive
+the temperature-fallback ladder.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import zlib
 from dataclasses import dataclass
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -122,6 +124,43 @@ def build_initial_tokens(
     return tokens, sot_index, sample_begin
 
 
+class DecodeSetup(NamedTuple):
+    init_tokens: list[int]
+    sot_index: int
+    sample_len: int
+    suppress_mask: torch.Tensor  # (n_vocab,) bool, on the decode device
+    blank_mask: torch.Tensor  # (n_vocab,) bool
+    filter_cfg: FilterConfig
+
+
+def decode_setup(tokenizer: WhisperTokenizer, options: DecodingOptions,
+                 config: WhisperConfig, device: torch.device) -> DecodeSetup:
+    """What greedy and beam decoding share: the initial tokens, the sample
+    length, the suppress masks and the filter configuration."""
+    init_tokens, sot_index, sample_begin = build_initial_tokens(
+        tokenizer, options, config.n_text_ctx
+    )
+    suppress_ids = _resolve_suppress(options, tokenizer)
+    blank_ids = tuple(tokenizer.encode(" ")) + (tokenizer.eot,) if options.suppress_blank else ()
+    always_np, begin_np = make_suppress_mask(config.n_vocab, suppress_ids, blank_ids)
+    max_initial_ts_idx = (
+        round(options.max_initial_timestamp / 0.02)
+        if options.max_initial_timestamp is not None
+        else None
+    )
+    filter_cfg = FilterConfig(
+        eot=tokenizer.eot,
+        no_timestamps=tokenizer.no_timestamps,
+        timestamp_begin=tokenizer.timestamp_begin,
+        sample_begin=sample_begin,
+        max_initial_timestamp_index=max_initial_ts_idx,
+        apply_timestamp_rules=not options.without_timestamps,
+    )
+    return DecodeSetup(init_tokens, sot_index, options.sample_len or (config.n_text_ctx // 2),
+                       torch.from_numpy(always_np).to(device),
+                       torch.from_numpy(begin_np).to(device), filter_cfg)
+
+
 @torch.inference_mode()
 def detect_language(
     params: Params,
@@ -165,45 +204,32 @@ def decode(
     temperature > 0 draws.
     """
     if options.beam_size is not None:
-        raise NotImplementedError("beam search: ROADMAP.md M10")
+        from whisper_mlx_tpu_torch.decoding.beam import beam_decode_task
+
+        # Integer-dot attention is the beam default over quantized caches,
+        # as in the reference; WTPU_BEAM_ATTN_MXU=0 turns it off.
+        if (not config.attn_mxu and config.kv_bits in (4, 8)
+                and config.self_kv_bits in (4, 8)
+                and os.environ.get("WTPU_BEAM_ATTN_MXU", "1") == "1"):
+            config = dataclasses.replace(config, attn_mxu=True)
+        return beam_decode_task(params, mel_or_states, tokenizer, config, options,
+                                states_precomputed=states_precomputed)
     audio_states = (
         mel_or_states if states_precomputed else encode(params, mel_or_states, config)
     )
     batch = audio_states.shape[0]
     device = audio_states.device
-
-    init_tokens, sot_index, sample_begin = build_initial_tokens(
-        tokenizer, options, config.n_text_ctx
-    )
-    sample_len = options.sample_len or (config.n_text_ctx // 2)
-
-    suppress_ids = _resolve_suppress(options, tokenizer)
-    blank_ids = tuple(tokenizer.encode(" ")) + (tokenizer.eot,) if options.suppress_blank else ()
-    always_np, begin_np = make_suppress_mask(config.n_vocab, suppress_ids, blank_ids)
-
-    max_initial_ts_idx = (
-        round(options.max_initial_timestamp / 0.02)
-        if options.max_initial_timestamp is not None
-        else None
-    )
-    filter_cfg = FilterConfig(
-        eot=tokenizer.eot,
-        no_timestamps=tokenizer.no_timestamps,
-        timestamp_begin=tokenizer.timestamp_begin,
-        sample_begin=sample_begin,
-        max_initial_timestamp_index=max_initial_ts_idx,
-        apply_timestamp_rules=not options.without_timestamps,
-    )
+    setup = decode_setup(tokenizer, options, config, device)
 
     n_candidates = options.best_of if (options.best_of and options.temperature > 0) else 1
-    initial = torch.tensor(init_tokens, dtype=torch.long, device=device)
+    initial = torch.tensor(setup.init_tokens, dtype=torch.long, device=device)
     initial = initial[None, :].expand(batch * n_candidates, -1).contiguous()
 
     result = greedy_decode(
-        params, audio_states, initial, torch.from_numpy(always_np).to(device),
-        torch.from_numpy(begin_np).to(device), float(options.temperature),
-        generator, config=config, filter_cfg=filter_cfg, sample_len=sample_len,
-        sot_index=sot_index, no_speech_token=tokenizer.no_speech,
+        params, audio_states, initial, setup.suppress_mask, setup.blank_mask,
+        float(options.temperature), generator, config=config,
+        filter_cfg=setup.filter_cfg, sample_len=setup.sample_len,
+        sot_index=setup.sot_index, no_speech_token=tokenizer.no_speech,
         share_xkv_groups=n_candidates,
     )
     # the one device -> host fetch of the greedy path
@@ -212,7 +238,7 @@ def decode(
     sum_lp = result.sum_logprobs.cpu().numpy()
     ns_probs = result.no_speech_probs.cpu().numpy()
     return _rank_greedy(tokens_np, lengths, sum_lp, ns_probs, batch, n_candidates,
-                        sample_begin, tokenizer, options)
+                        setup.filter_cfg.sample_begin, tokenizer, options)
 
 
 def _rank_greedy(tokens_np, lengths, sum_lp, ns_probs, batch: int,

@@ -2,16 +2,16 @@
 
 Counterpart of the sequential mode of ``whisper_mlx_tpu/inference/
 transcribe.py``: mel over the whole file plus 30 s of padding, 30 s seek
-windows, per-window decode with the fallback ladder (T=0 greedy, T>0
-best_of sampling), compression-ratio / logprob rejection, the no-speech
-skip and the timestamp-driven seek advance. The mel stays on the device;
-each window is encoded once and its states reused across the ladder.
+windows, per-window decode with the fallback ladder (T=0 greedy, or beam
+search with ``beam_size``/``patience``; T>0 best_of sampling),
+compression-ratio / logprob rejection, the no-speech skip and the
+timestamp-driven seek advance. The mel stays on the device; each window is
+encoded once and its states reused across the ladder.
 
 Not in this slice (each raises ``NotImplementedError``): word timestamps
 (ROADMAP.md M8) and with them the ``hallucination_silence_threshold``
 re-seek, which the reference applies only to aligned words; batched
-windows and the serving batcher (M7); a draft model (M11); beam search
-(M10, raised by ``decode``).
+windows and the serving batcher (M7); a draft model (M11).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Whisper encoder/decoder as PyTorch functions over a parameter dict.
 
-Counterpart of ``whisper_mlx_tpu/models/whisper.py`` for the greedy slice.
+Counterpart of ``whisper_mlx_tpu/models/whisper.py`` for the greedy and
+beam paths.
 Parameters are a nested dict of tensors with the JAX package's tree
 structure (``checkpoint/convert.py`` builds it from the JAX tree) in
 PyTorch's layouts: linear ``w`` is ``(n_out, n_in)``, conv ``w`` is
@@ -13,27 +14,35 @@ and softmax run in fp32. Attention goes to the hand-written kernels on
 CUDA (``ops/dense_attention.py`` for the encoder when
 ``flash_attention``, ``ops/flash_attention.py`` above 2048 keys,
 ``ops/decode_attention.py`` for quantized decoder
-caches, the JAX package's ``attention_int8_auto`` and
-``attention_int8_grouped``); GEMMs and the conv stem are plain torch. The
-plain attention of the parity configuration (flash off, fp caches) runs on
-CPU tensors only: on CUDA tensors it raises.
+caches, the JAX package's ``attention_int8_auto`` /
+``attention_int8_grouped`` and, with ``attn_mxu``, their integer-dot forms;
+``ops/beamflat_attention.py`` for beam self-attention over the flat cache);
+GEMMs and the conv stem are plain torch. The plain attention of the parity
+configuration (flash off, fp caches) runs on CPU tensors only: on CUDA
+tensors it raises.
 
 Caches are position-major and updated in place by :func:`decode_step`:
 fp ``{"k", "v"}`` ``(B, H, T, hd)``; quantized ``{"k8", "ks", "v8", "vs"}``
 with codes ``(B, H, T, hd)`` int8 or ``(B, H, T, hd/2)`` packed int4 and
-scales ``(B, H, T)`` bf16 (``ops/kv_quant.py``).
+scales ``(B, H, T)`` bf16 (``ops/kv_quant.py``). Beam search's flat cache
+(:func:`beam_flat_cache`) interleaves a window's g lanes along the time
+axis: ``{"k8f", "ksf", "v8f", "vsf"}`` codes ``(n, H, T*g, ...)`` and
+scales ``(n, H, T*g)``, or fp ``{"kf", "vf"}``; row ``t*g + k`` is lane k's
+position t.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisper_mlx_tpu_torch.ops.beamflat_attention import attention_fp_beamflat, beamflat_attention
 from whisper_mlx_tpu_torch.ops.decode_attention import decode_attention
 from whisper_mlx_tpu_torch.ops.dense_attention import dense_attention
 from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
@@ -41,6 +50,10 @@ from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.ops.quant import quant_matmul
 
 Params = dict[str, Any]
+
+# integer-dot decode attention (attn_mxu) for greedy; read once at import,
+# as the reference does (beam turns it on for quantized caches itself)
+_ATTN_MXU_DEFAULT = os.environ.get("WTPU_ATTN_MXU") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +75,9 @@ class WhisperConfig:
     # quantized cross / self KV caches: 8 = int8, 4 = packed int4, 0 = fp
     kv_bits: int = 0
     self_kv_bits: int = 0
+    # integer-dot attention over the quantized caches (kernel K3's and K8's
+    # int_dot mode): q and w * vs re-quantized per row, s8 x s8 -> s32 dots
+    attn_mxu: bool = _ATTN_MXU_DEFAULT
 
     @property
     def head_dim(self) -> int:
@@ -256,6 +272,46 @@ def init_kv_cache(config: WhisperConfig, batch: int, device: torch.device | str,
     ]
 
 
+def beam_flat_cache(cache: list[Params], group: int) -> list[Params]:
+    """Per-lane prefilled self cache ``(n*g, H, T, ...)`` -> beam flat
+    layout ``(n, H, T*g, ...)`` with row ``t*g + k`` = lane k's position t
+    (``whisper_mlx_tpu/decoding/beam.py:_to_flat``). A copy; done once per
+    beam decode, after the prefill."""
+    names = {"k8": "k8f", "ks": "ksf", "v8": "v8f", "vs": "vsf", "k": "kf", "v": "vf"}
+
+    def flat(a):
+        nb, h, t = a.shape[:3]
+        x = a.reshape(nb // group, group, h, t, *a.shape[3:]).movedim(1, 3)
+        return x.reshape(nb // group, h, t * group, *a.shape[3:]).contiguous()
+
+    return [{names[k]: flat(a) for k, a in entry.items()} for entry in cache]
+
+
+def _write_beam_rows(buf: torch.Tensor, new: torch.Tensor, pos: int, group: int) -> None:
+    """Write a step's ``(n*g, H, 1, ...)`` K/V (or ``(n*g, H, 1)`` scales)
+    into rows ``[pos*g, pos*g + g)`` of the flat ``(n, H, T*g, ...)``."""
+    nb, h = new.shape[:2]
+    blk = new[:, :, 0].reshape(nb // group, group, h, *new.shape[3:]).transpose(1, 2)
+    buf[:, :, pos * group:(pos + 1) * group] = blk
+
+
+def _beam_self_attention(c: Params, q, k_new, v_new, pos: int, ancestry, group: int,
+                         config: WhisperConfig) -> torch.Tensor:
+    """Beam self-attention of one step over the flat cache ``c`` (updated
+    in place): kernel K8 for quantized caches, the fp form on the CPU."""
+    if "k8f" not in c:
+        _write_beam_rows(c["kf"], k_new, pos, group)
+        _write_beam_rows(c["vf"], v_new, pos, group)
+        return attention_fp_beamflat(q, c["kf"], c["vf"], ancestry, pos, group)
+    scale = q.shape[-1] ** -0.25
+    k8n, ksn = quantize_kv(k_new * scale, bits=config.self_kv_bits)
+    v8n, vsn = quantize_kv(v_new, bits=config.self_kv_bits)
+    for name, new in (("k8f", k8n), ("ksf", ksn), ("v8f", v8n), ("vsf", vsn)):
+        _write_beam_rows(c[name], new, pos, group)
+    return beamflat_attention((q * scale).contiguous(), c["k8f"], c["ksf"], c["v8f"],
+                              c["vsf"], ancestry, pos, group, int_dot=config.attn_mxu)
+
+
 def decode_step(
     params: Params,
     tokens: torch.Tensor,  # (batch, t) token ids for these positions
@@ -265,6 +321,7 @@ def decode_step(
     config: WhisperConfig,
     collect_cross_attn: bool = False,
     share_xkv_groups: int = 1,
+    beam_ancestry: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """Run the decoder on ``tokens`` at positions ``[pos, pos + t)``.
 
@@ -272,7 +329,9 @@ def decode_step(
     (t = 1). Writes the new K/V into ``kv_cache`` IN PLACE and returns
     ``(logits (batch, t, vocab) fp32, kv_cache)``. ``share_xkv_groups=g``:
     ``xkv`` holds batch/g windows whose cross K/V are shared by g
-    consecutive rows (best_of candidates).
+    consecutive rows (best_of candidates, beam lanes). A beam flat cache
+    (:func:`beam_flat_cache`) needs ``beam_ancestry (batch, T)`` int32, the
+    lane owning each position of each row's hypothesis, and t = 1.
     """
     if collect_cross_attn:
         raise NotImplementedError("cross-attention weights for word timestamps: "
@@ -280,11 +339,16 @@ def decode_step(
     p = params["decoder"]
     b, t = tokens.shape
     end = pos + t
+    g = share_xkv_groups
     x = embed_tokens(p["token_emb"], tokens, config.dtype)
     x = x + p["pos_emb"][pos:end].to(config.dtype)
 
+    beam_flat = "k8f" in kv_cache[0] or "kf" in kv_cache[0]
+    if beam_flat and (beam_ancestry is None or t != 1):
+        raise ValueError("decode_step: the beam flat cache takes one position and "
+                         "beam_ancestry")
     quant_self = "k8" in kv_cache[0]
-    if not quant_self:
+    if not quant_self and not beam_flat:
         q_idx = torch.arange(t, device=x.device)[:, None] + pos
         k_idx = torch.arange(end, device=x.device)[None, :]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -295,7 +359,9 @@ def decode_step(
         q, k_new, v_new = _qkv_proj(h, blk["attn"], config.n_text_head)
         c = kv_cache[i]
         scale = q.shape[-1] ** -0.25
-        if quant_self:
+        if beam_flat:
+            attn_out = _beam_self_attention(c, q, k_new, v_new, pos, beam_ancestry, g, config)
+        elif quant_self:
             k8n, ksn = quantize_kv(k_new * scale, bits=config.self_kv_bits)
             v8n, vsn = quantize_kv(v_new, bits=config.self_kv_bits)
             c["k8"][:, :, pos:end] = k8n
@@ -303,7 +369,8 @@ def decode_step(
             c["v8"][:, :, pos:end] = v8n
             c["vs"][:, :, pos:end] = vsn
             attn_out = decode_attention((q * scale).contiguous(), c["k8"], c["ks"],
-                                        c["v8"], c["vs"], pos=pos, causal=True)
+                                        c["v8"], c["vs"], pos=pos, causal=True,
+                                        int_dot=config.attn_mxu)
         else:
             c["k"][:, :, pos:end] = k_new
             c["v"][:, :, pos:end] = v_new
@@ -313,11 +380,11 @@ def decode_step(
         h = layer_norm(x, blk["cross_attn_ln"])
         qx = _split_heads(linear(h, blk["cross_attn"]["q"]), config.n_text_head)
         xc = xkv[i]
-        g = share_xkv_groups
         if "k8" in xc:
             qs = (qx * scale).contiguous()
             cross_out = decode_attention(qs, xc["k8"], xc["ks"], xc["v8"], xc["vs"],
-                                         valid_len=config.n_audio_ctx, group=g)
+                                         valid_len=config.n_audio_ctx, group=g,
+                                         int_dot=config.attn_mxu)
         elif g > 1:
             _plain_on_cpu_only(qx, "plain grouped cross attention")
             n = b // g

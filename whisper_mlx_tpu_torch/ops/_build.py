@@ -38,9 +38,15 @@ SIGNATURES: dict[str, list] = {
     # q, k, v, out, bh, tq, tk, stream
     "wmt_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, ks, v, vs, out, bq, h, tq, t_alloc, group, pos, causal,
-    # valid_len, bits, stream
+    # valid_len, bits, int_dot, stream
     "wmt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
+    # q, k, ks, v, vs, ancestry, out, nb, h, rows, t_anc, group, limit,
+    # bits, int_dot, stream
+    "wmt_beamflat_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
+    # srcs, dsts, row bytes (host arrays), n, from, nb, skip_fixed, stream
+    "wmt_lane_copy": [_P, _P, _P, _I, _P, _I, _I, _P],
     # x, w_q, scales, biases, out, m, n, k, bits, group_size, x_bf16, stream
     "wmt_quant_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, xg, w_q, scales, biases, out, m, n, k, bits, group_size, stream

@@ -1,15 +1,19 @@
 """Quantized KV caches: quantization and the attention dispatchers.
 
-Counterpart of ``whisper_mlx_tpu/ops/kv_quant.py`` for the greedy slice.
-K/V are quantized per (row, head, position) with a bf16 scale, and the
-dequantization folds exactly into the attention algebra:
+Counterpart of ``whisper_mlx_tpu/ops/kv_quant.py`` for the greedy and beam
+paths. K/V are quantized per (row, head, position) with a bf16 scale, and
+the dequantization folds exactly into the attention algebra:
 
     scores_t = (q . k8_t) * sk_t
     out      = sum_t (softmax_t * sv_t) . v8_t
 
 Codes and scales are bit-identical to the JAX ``quantize_kv``. int4 codes
 are packed two nibbles per byte along hd (``ops/decode_attention.py``).
-The integer-dot mode (``attention_int8_mxu``) is not ported here.
+The integer-dot mode (``attention_int8_mxu`` / ``_grouped_mxu``, the beam
+default over quantized caches) re-quantizes q and ``w * vs`` per row with
+:func:`_quantize_rows` and runs both dots s8 x s8 -> s32; it is kernel K3's
+``int_dot`` mode. Beam self-attention over the flat cache is
+``ops/beamflat_attention.py`` (kernel K8).
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ import torch
 from whisper_mlx_tpu_torch.ops.decode_attention import (
     decode_attention,
     pack_int4,
+    quantize_rows as _quantize_rows,
     unpack_int4,
 )
 
 __all__ = ["quantize_kv", "pack_int4", "unpack_int4", "attention_int8_auto",
-           "attention_int8_grouped"]
+           "attention_int8_grouped", "attention_int8_mxu", "attention_int8_grouped_mxu",
+           "_quantize_rows"]
 
 
 def quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
@@ -47,6 +53,15 @@ def quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Ten
 
 # The JAX package's dispatcher names: ``decode_attention`` already runs
 # kernel K3 on CUDA tensors and its plain version on CPU tensors, and takes
-# ``group`` for the grouped (best_of) form.
+# ``group`` for the grouped (best_of, beam) form.
 attention_int8_auto = decode_attention
 attention_int8_grouped = decode_attention
+
+
+def attention_int8_mxu(q, k, ks, v, vs, **kw) -> torch.Tensor:
+    """Integer-dot attention (``kv_quant.py:attention_int8_mxu``; with
+    ``group=g`` its grouped twin): K3 in its ``int_dot`` mode."""
+    return decode_attention(q, k, ks, v, vs, int_dot=True, **kw)
+
+
+attention_int8_grouped_mxu = attention_int8_mxu
