@@ -27,11 +27,18 @@ is non-zero and the result line is not printed:
    QwenModel on CUDA and on the CPU (plain versions), logits and tokens;
 9. LLM main path: Qwen3-32B at full width with random packed int4 weights
    built on the card, through LLMEngine.chat, stream_generate and the
-   continuous-batching engine (4 slots, 6 requests), then the timings.
+   continuous-batching engine (4 slots, 6 requests), then the timings;
+10. LLM residency kernels: the transposed dequant-matmul (K6; packed int4,
+   codes-resident, int8) and the W8A8 matmul (K7) at the Qwen3-32B linear
+   shapes against their plain versions, and K6 at ring depth 2, 4 and 8
+   beside K5 on the same packed weights;
+11. LLM residency main path, once under WTPU_MBT_RESIDENT=1 and once under
+   WTPU_QWEN_A8=1: phase 8 under the opt-in, then Qwen3-32B through chat
+   and the continuous-batching engine, then the timings.
 
 Each kernel's launches in the JSON line are counted over its path's run
-(phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5),
-with every count set to 0 just before that run.
+(phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
+11 for K6 and K7), with every count set to 0 just before that run.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -85,7 +92,9 @@ from whisper_mlx_tpu_torch.ops import flash_attention as fa
 from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
 from whisper_mlx_tpu_torch.ops import quant as tq
+from whisper_mlx_tpu_torch.ops import quant_a8 as a8
 from whisper_mlx_tpu_torch.ops import quant_matmul as qm
+from whisper_mlx_tpu_torch.ops import quant_matmul_mb as mb
 from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.runtime.device import setup_device
@@ -129,8 +138,8 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     two CUDA events, queued behind a spin kernel so that the host has
     launched them all before the first one starts and its own work (checks,
     allocation, the launch) stays off the clock. The spin grows until it
-    outlasts the host's queueing; if it never does, the time includes the
-    host's and a line says so."""
+    outlasts the host's queueing; if it never does, the device's own events
+    under torch.profiler give the time, and a line says so."""
     for _ in range(warmup):
         fn()
     cycles = 10**8
@@ -150,9 +159,23 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         if host_ms < spin_ms:
             return start.elapsed_time(end) / reps
         cycles = int(cycles * 2 * host_ms / spin_ms)
-    print(f"    (host-bound: {reps} calls took {host_ms:.1f} ms to queue, longer than a "
-          f"{spin_ms:.1f} ms spin; the time below includes the host's)")
-    return start.elapsed_time(end) / reps
+    print(f"    (the host outran a {spin_ms:.1f} ms spin: {reps} calls took {host_ms:.1f} ms to "
+          f"queue; the time below is the sum of the device's own events under the profiler)")
+    return _profiled_ms(fn, reps)
+
+
+def _profiled_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` from the device's own events (kernels
+    and copies) under torch.profiler: the host's work is not on it."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us, _ = _kernel_us(prof)
+    if device_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return device_us / 1e3 / reps
 
 
 def _cold_ms(fn, inputs: list, reps: int = 24) -> float:
@@ -219,10 +242,14 @@ def phase_kernels() -> dict:
     got = mk.log_mel_frames(frames, 128)
     ref = mk.log_mel_frames_plain(frames, 128)
     err = _check("mel 3000x128", got, ref, MEL_TOL)
+    mel_ms = _device_ms(lambda: mk.log_mel_frames(frames, 128))
+    mel_prof = _profiled_ms(lambda: mk.log_mel_frames(frames, 128))
+    print(f"  mel: {mel_ms:.4f} ms a call behind the spin, {mel_prof:.4f} ms from the "
+          "profiler's device events (both device time alone)")
     rows["mel"] = dict(
         name="log_mel", route="cuda", source="whisper_mlx_tpu_torch/csrc/mel.cu",
         replaces="whisper_mlx_tpu/ops/mel_pallas.py:61", max_abs_err=err,
-        ms=_device_ms(lambda: mk.log_mel_frames(frames, 128)),
+        ms=mel_ms,
         plain_ms=_device_ms(lambda: mk.log_mel_frames_plain(frames, 128)),
         # frames, cos/sin bases (400 x 208), filterbank (208 x 128), output;
         # 201 bins x 400 samples x (re, im) FMAs + the 201 x 128 filterbank
@@ -1137,11 +1164,221 @@ def _llm_rates(params, config) -> None:
         device_us, top = _kernel_us(prof)
         print(f"  decode B={rows}: {ms / 16:.3f} ms/step, {rows * 16 / ms * 1e3:.2f} tok/s; "
               f"under the profiler wall {prof_ms / 8:.3f} ms/step, device kernels "
-              + (f"{device_us / 1e3 / 8:.3f} ms/step" if device_us else "not measured"))
+              + (f"{device_us / 1e3 / 8:.3f} ms/step, device idle share "
+                 f"{1 - device_us / 1e3 / prof_ms:.3f}" if device_us else "not measured"))
         for e in top[:6]:
             print(f"    {e.key[:60]:60s} device {e.self_device_time_total / 8:9.1f} "
                   f"us/step, calls {e.count // 8}/step")
         del cache
+
+
+# ---------------------------------------------------------------------------
+# the LLM's weight residency: K6 (WTPU_MBT_RESIDENT), K7 (WTPU_QWEN_A8)
+# ---------------------------------------------------------------------------
+
+
+def _layer_copies(make, nbytes: int) -> list:
+    """Copies of one linear whose bytes together pass 100 MB, twice the L2,
+    so that cycling through them finds each cold as a decode step does."""
+    return [make() for _ in range(max(1, -(-100_000_000 // nbytes)))]
+
+
+def _mbt_copy(qt):
+    return dataclasses.replace(qt, wqt=qt.wqt.clone(), scalest=qt.scalest.clone(),
+                               biasest=qt.biasest.clone())
+
+
+def _a8_copy(at):
+    return dataclasses.replace(at, codes=at.codes.clone(), scale=at.scale.clone())
+
+
+def _random_quant(gen, n, k, bits=4):
+    """Random normal weights quantized 16384 rows at a time (phase 7's)."""
+    return tq.stack_quant([
+        tq.quantize(torch.randn((min(16384, n - r), k), generator=gen, device=gen.device)
+                    * k ** -0.5, bits) for r in range(0, n, 16384)])
+
+
+def _mbt_beside_k5(q, copies, gen, sums: dict) -> None:
+    """K6 on packed int4 at M = 1 with the ring 2, 4 and 8 deep, and K5 on
+    the same weights as they are packed, all with L2 cold: what the ring's
+    depth and the transposed layout buy. Adds each time to ``sums``."""
+    x = torch.randn((1, q.shape[1]), generator=gen, device=gen.device).to(torch.bfloat16)
+    for depth in (2, 4, 8):
+        sums[f"K6 depth {depth}"] += _cold_ms(
+            lambda c: tq.quant_matmul(x, c), [dataclasses.replace(c, depth=depth) for c in copies])
+    nbytes = _nbytes(q.w_q, q.scales, q.biases)
+    packed = _layer_copies(lambda: dataclasses.replace(
+        q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), nbytes)
+    sums["K5"] += _cold_ms(lambda c: tq.quant_matmul(x, c), packed)
+    print("    at M = 1, L2 cold: " + ", ".join(f"{key} {ms:.4f} ms" for key, ms in sums.items())
+          + " (summed over the linears so far)")
+
+
+def _time_residency(label, leaf, call, plain, copies, nbytes, kind, gen, errs):
+    """One leaf against its plain version at M = 1, 4, 128 and 384; returns
+    the M = 1 (kernel ms, plain ms) with L2 cold."""
+    n, k = leaf.shape
+    out = None
+    for m in (1, 4, 128, 384):
+        x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+        got, ref = call(x, leaf), plain(x, leaf)
+        tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+        errs.append(_check(f"{label} N={n} K={k} M={m}", got, ref, tol))
+        del got, ref
+        ms = _cold_ms(lambda c: call(x, c), copies, reps=24 if m <= 4 else 8)
+        bound = _bound(nbytes + 2 * m * (n + k), 2 * m * n * k, kind)
+        print(f"    kernel {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s of weights; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        if m == 1:
+            out = (ms, _device_ms(lambda: plain(x, leaf), reps=3, warmup=1))
+            print(f"    plain {out[1]:.4f} ms")
+    return out
+
+
+def phase_residency_kernels() -> dict:
+    """K6 and K7 against their plain versions at the Qwen3-32B linear shapes
+    (M = 1, 4, 128, 384): K6 on packed int4 (the layer's four linears; the
+    head stays packed under WTPU_MBT_RESIDENT), codes-resident int4 and the
+    int8 qkv; K7 on the four linears and the head, each with its VMEM-rule
+    verdict at decode and prefill (the kernel is timed either way). Returns
+    the JSON rows: M = 1, L2 cold, bound from the run's bytes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sums = {key: [0.0, 0.0, 0, 0] for key in ("mbt", "mbt_i8", "a8")}  # ms, plain, bytes, ops
+    errs = {"mbt": [], "a8": []}
+    lib_ms, lib_bytes = 0.0, 0
+    beside = {key: 0.0 for key in ("K6 depth 2", "K6 depth 4", "K6 depth 8", "K5")}
+    for name, n, k in QWEN_LINEARS:
+        q = _random_quant(gen, n, k)
+        x1 = 2 * (n + k)  # bf16 x in and y out at M = 1
+        if name != "lm_head":
+            for codes, key in ((False, "mbt"), (True, "mbt_i8")):
+                qt = mb.transpose_quant(q, codes=codes)
+                nbytes = _nbytes(qt.wqt, qt.scalest, qt.biasest)
+                copies = _layer_copies(lambda: _mbt_copy(qt), nbytes)
+                print(f"  {qt!r}")
+                ms, plain = _time_residency(
+                    f"quant_matmul_mbt {name}{' i8' if codes else ''}", qt, tq.quant_matmul,
+                    mb.quant_matmul_mbt_plain, copies, nbytes, "bf16", gen, errs["mbt"])
+                for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k)):
+                    sums[key][i] += v
+                if not codes:
+                    _mbt_beside_k5(q, copies, gen, beside)
+                del qt, copies
+        at = a8.requant_a8(q)
+        del q
+        route = {m: "kernel" if a8.a8_fits(at, m) else "dequantize + matmul" for m in (1, 384)}
+        print(f"  {at!r}: the VMEM rule sends M = 1 to the {route[1]}, M = 384 to the "
+              f"{route[384]}; the kernel is timed at every M")
+        nbytes = _nbytes(at.codes, at.scale)
+        copies = _layer_copies(lambda: _a8_copy(at), nbytes)
+        ms, plain = _time_residency(f"a8_matmul {name}", at, a8.a8_matmul_kernel,
+                                    a8.a8_matmul_plain, copies, nbytes, "int8", gen, errs["a8"])
+        for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k)):
+            sums["a8"][i] += v
+        # the library's int8 GEMM: the int32 product alone, at the fewest
+        # rows torch._int_mm takes (17), without the activation
+        # quantization or the scales
+        xq = torch.randint(-127, 128, (17, k), generator=gen, device=dev, dtype=torch.int8)
+        lib_ms += _cold_ms(lambda c: torch._int_mm(xq, c.codes.t()), copies)
+        lib_bytes += nbytes
+        del at, copies
+        torch.cuda.empty_cache()
+    q = _random_quant(gen, 10240, 5120, bits=8)
+    qt = mb.transpose_quant(q)
+    del q
+    nbytes = _nbytes(qt.wqt, qt.scalest, qt.biasest)
+    _time_residency("quant_matmul_mbt qkv int8", qt, tq.quant_matmul,
+                    mb.quant_matmul_mbt_plain, _layer_copies(lambda: _mbt_copy(qt), nbytes),
+                    nbytes, "bf16", gen, errs["mbt"])
+    del qt
+    torch.cuda.empty_cache()
+    for key, (ms, plain, nbytes, ops) in sums.items():
+        what = "the four linears and the head" if key == "a8" else "the four linears"
+        print(f"  {key} at M = 1 over {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"{nbytes / 1e6:.1f} MB, bound "
+              f"{_bound(nbytes, ops, 'int8' if key == 'a8' else 'bf16')['bound_ms']:.4f} ms")
+    print(f"  torch._int_mm at M = 17 (the fewest rows it takes; the int32 product only) over "
+          f"the same five: {lib_ms:.4f} ms ({lib_bytes / lib_ms / 1e6:.1f} GB/s of codes)")
+    ms, plain, nbytes, ops = sums["mbt"]
+    rows = {"mbt": dict(
+        name="quant_matmul_mbt", route="cuda",
+        source="whisper_mlx_tpu_torch/csrc/quant_matmul_mb.cu",
+        replaces="whisper_mlx_tpu/ops/quant_pallas_mb.py:354", max_abs_err=max(errs["mbt"]),
+        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "bf16"), library_ms=None)}
+    ms, plain, nbytes, ops = sums["a8"]
+    rows["a8"] = dict(
+        name="a8_matmul", route="cuda", source="whisper_mlx_tpu_torch/csrc/a8_matmul.cu",
+        replaces="whisper_mlx_tpu/ops/quant_a8.py:198", max_abs_err=max(errs["a8"]),
+        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "int8"), library_ms=lib_ms)
+    return rows
+
+
+RESIDENCY = {  # env var -> (its kernel's module, the JSON row's key, extra env)
+    "WTPU_MBT_RESIDENT": (mb, "mbt", {}),
+    "WTPU_QWEN_A8": (a8, "a8", {"WTPU_A8_FREE_SRC": "1"}),
+}
+
+
+def phase_llm_residency(env: str) -> dict:
+    """One residency opt-in: the tiny Qwen card-vs-CPU check (phase 8) under
+    it, then Qwen3-32B at full width (random packed int4 weights built on
+    the card, converted by LLMEngine) through chat and the 4-slot
+    continuous-batching engine, each request checked for its token count,
+    then the prefill and decode rates with a profiled decode window.
+    Returns the opt-in's kernel launches over the chat and batch run."""
+    module, key, extra = RESIDENCY[env]
+    settings = {env: "1", **extra}
+    os.environ.update(settings)
+    try:
+        _timed_phase(f"tiny qwen {env}=1", phase_tiny_qwen)
+        dev = torch.device("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
+        params = qw.init_random_quant_params(config, seed=0, device=dev)
+        t0 = time.perf_counter()
+        tok = _CountingTokenizer()
+        engine = LLMEngine(params, config, tok, max_context=4096)
+        del params
+        torch.cuda.synchronize()
+        leaves = {name: type(engine.params["layers"][0][part][name]["w"]).__name__
+                  for part, name in (("attn", "qkv"), ("attn", "o"), ("mlp", "gate_up"),
+                                     ("mlp", "down"))}
+        leaves["lm_head"] = type(engine.params["lm_head"]["w"]).__name__
+        print(f"llm {env}=1: converted in {time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; leaves {leaves}")
+        rng = np.random.default_rng(7)
+        new = 32
+        mb.LAUNCHES = a8.LAUNCHES = qm.LAUNCHES = fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = engine.chat([{"role": "user", "content": _prompt_text(rng, 270)}], max_tokens=new,
+                        temperature=0.0)
+        print(f"  chat: prompt {r.prompt_tokens} tokens, {r.generation_tokens} new in "
+              f"{time.perf_counter() - t0:.3f} s")
+        assert r.generation_tokens == new, f"chat returned {r.generation_tokens} of {new} tokens"
+        batch = engine.continuous(4)
+        t0 = time.perf_counter()
+        handles = [batch.submit(_prompt_text(rng, 100 + 40 * i), max_tokens=new,
+                                temperature=0.0) for i in range(6)]
+        counts = [len(list(h.tokens())) for h in handles]
+        batch_s = time.perf_counter() - t0
+        assert batch.alive, "the batch engine's worker thread died"
+        assert counts == [new] * 6, f"batch requests received {counts} tokens"
+        torch.cuda.synchronize()
+        launches = {key: module.LAUNCHES}
+        print(f"  continuous batching: 6 requests x {new} tokens on 4 slots in {batch_s:.3f} s "
+              f"({6 * new / batch_s:.2f} tok/s); launches {key} {module.LAUNCHES}, "
+              f"quant_matmul {qm.LAUNCHES}, flash_attention {fa.LAUNCHES}")
+        assert module.LAUNCHES > 0, f"kernel {key} was not launched under {env}=1"
+        batch.close()
+        _llm_rates(engine.params, config)
+        print(f"  llm {env}=1 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return launches
+    finally:
+        for name in settings:
+            os.environ.pop(name, None)
 
 
 def _timed_phase(name, fn, *args):
@@ -1168,6 +1405,13 @@ def main() -> int:
     rows.update(_timed_phase("llm kernels", phase_llm_kernels))
     _timed_phase("tiny qwen", phase_tiny_qwen)
     launches.update(_timed_phase("llm main path", phase_llm_main_path))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(_timed_phase("llm residency kernels", phase_residency_kernels))
+    for env in RESIDENCY:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(_timed_phase(f"llm residency {env}", phase_llm_residency, env))
     kernels = []
     for key, mod_launches in launches.items():
         row = dict(rows[key])

@@ -2,7 +2,8 @@
 chat, sampling, continuous batching, the chat model) against the JAX
 package on the CPU, on the reference's engine fixture (tests/test_generate.py)
 at fp32; plus the copies of jax-free host code and the opt-ins of the
-reference that this slice does not port, which must raise."""
+reference that the port does not have, which must raise. The residency
+opt-ins are tested in tests/test_torch_quant_mb.py and test_torch_a8.py."""
 
 from __future__ import annotations
 
@@ -249,8 +250,6 @@ def test_llm_tokenizer_copy_matches():
 
 @pytest.mark.parametrize("name,value,item", [
     ("WTPU_LLM_KV_BITS", "8", "M12"), ("WTPU_NATIVE_RESIDENT", "1", "M15"),
-    ("WTPU_MBT_RESIDENT", "1", "K6"), ("WTPU_QWEN_A8", "1", "K7"),
-    ("WTPU_QMM_MB", "4,512", "K6"),
 ])
 def test_engine_opt_ins_raise(engines, monkeypatch, name, value, item):
     _, teng = engines

@@ -1,6 +1,7 @@
 """The Hopper kernels of whisper_mlx_tpu_torch against their plain PyTorch
-versions, on a GPU, and the beam path's kernels (K8, K3's integer-dot mode,
-K9) on a tiny model card against CPU.
+versions, on a GPU, the beam path's kernels (K8, K3's integer-dot mode, K9)
+and the LLM's weight-residency kernels (K6, K7) on tiny models card
+against CPU.
 
 Tests marked ``cuda`` skip without a GPU: a CUDA kernel has no CPU mode.
 This file imports neither jax nor the JAX package, so on a machine with a
@@ -13,7 +14,10 @@ Tolerances: 2e-4 absolute for the mel (fp32 FMA in another order);
 softmax weights to bf16 (K2, K3 as the TPU kernels did; K4 where the TPU
 kernel kept fp32); for the quantized matmul ``1e-2 * max(1, |ref|max)`` in
 bf16 (sums in another order can move a result by one bf16 ulp) and
-``1e-4 * max(1, |ref|max)`` in fp32. The integer-dot modes (K3, K8) take
+``1e-4 * max(1, |ref|max)`` in fp32, the same for the transposed
+dequant-matmul (K6); the W8A8 matmul (K7) computes the same int32 sums and
+fp32 products as its plain version, so one bf16 ulp in bf16 and ``1e-5 *
+max(1, |ref|max)`` in fp32. The integer-dot modes (K3, K8) take
 the attention tolerance too: the card's expf and the CPU's exp may differ
 in an ulp, which can move one dynamic w * vs code by one step, at most
 max(w * vs) on the output. The lane kernel (K9) moves bytes: exact.
@@ -35,7 +39,9 @@ from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
 from whisper_mlx_tpu_torch.ops import quant as tq
+from whisper_mlx_tpu_torch.ops import quant_a8 as a8
 from whisper_mlx_tpu_torch.ops import quant_matmul as qm
+from whisper_mlx_tpu_torch.ops import quant_matmul_mb as mb
 
 
 @pytest.fixture
@@ -66,9 +72,11 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == tmp_path / "kernels" and path.suffix == ".so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "beamflat_attention.cu", "decode_attention.cu", "dense_attention.cu",
-        "flash_attention.cu", "lane_permute.cu", "mel.cu", "quant_matmul.cu"]
-    assert [p.name for p in _build.CSRC.glob("*.cuh")] == ["attend_row.cuh"]
+        "a8_matmul.cu", "beamflat_attention.cu", "decode_attention.cu", "dense_attention.cu",
+        "flash_attention.cu", "lane_permute.cu", "mel.cu", "quant_matmul.cu",
+        "quant_matmul_mb.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attend_row.cuh",
+                                                                 "quant_tile.cuh"]
 
 
 @pytest.mark.cuda
@@ -265,6 +273,140 @@ def _to_cpu(node):
         return QuantTensor(node.w_q.cpu(), node.scales.cpu(), node.biases.cpu(), node.bits,
                            node.group_size)
     return node.cpu()
+
+
+# ---------------------------------------------------------------------------
+# the LLM's weight residency: K6 (transposed dequant-matmul), K7 (W8A8)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,bits,codes,contig,depth,dtype,gs", [
+    (1, 200, 512, 4, False, False, 2, torch.bfloat16, 64),
+    (3, 200, 512, 8, False, True, 3, torch.bfloat16, 64),
+    (8, 1000, 1024, 4, True, False, 4, torch.bfloat16, 64),
+    (2, 700, 2048, 4, False, False, 2, torch.bfloat16, 32),  # two groups in a ring slot
+    (1, 300, 4096, 4, True, True, 3, torch.bfloat16, 128),  # a group over four slots
+    (17, 200, 512, 4, False, False, 2, torch.bfloat16, 64),
+    (128, 1000, 1024, 4, True, True, 2, torch.bfloat16, 64),
+    (300, 130, 512, 8, False, True, 2, torch.bfloat16, 64),
+    (5, 130, 256, 4, False, False, 1, torch.float32, 64),
+    (40, 130, 256, 8, False, False, 8, torch.float32, 64),
+    (1, 10240, 5120, 4, False, False, 2, torch.bfloat16, 64),  # Qwen3-32B qkv
+    (4, 51200, 5120, 4, False, False, 8, torch.bfloat16, 64),  # gate_up
+    (1, 5120, 25600, 4, False, False, 2, torch.bfloat16, 64),  # down
+    (1, 5120, 8192, 4, True, False, 2, torch.bfloat16, 64),  # o, codes-resident
+    (384, 10240, 5120, 4, False, False, 2, torch.bfloat16, 64),  # the 384-row prefill
+])
+def test_mbt_kernel_matches_plain(cuda, m, n, k, bits, codes, contig, depth, dtype, gs):
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
+    qt = mb.transpose_quant(tq.quantize(w, bits=bits, group_size=gs), tile_n=512, depth=depth,
+                            codes=codes, contig=contig)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    before = mb.LAUNCHES
+    got = tq.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES == before + 1 and got.dtype == dtype and got.shape == (m, n)
+    ref = mb.quant_matmul_mbt_plain(x, qt)
+    rel = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,depth,dtype", [
+    (1, 200, 512, 4, torch.bfloat16),
+    (3, 200, 512, 4, torch.bfloat16),
+    (8, 1000, 1024, 4, torch.bfloat16),
+    (9, 130, 256, 4, torch.bfloat16),
+    (128, 1000, 1024, 4, torch.bfloat16),
+    (300, 130, 512, 4, torch.bfloat16),
+    (17, 200, 96, 4, torch.bfloat16),  # K not a multiple of 64: the GEMV in row groups
+    (5, 130, 256, 4, torch.float32),
+    (40, 130, 256, 4, torch.float32),
+    (1, 10240, 5120, 4, torch.bfloat16),  # Qwen3-32B qkv
+    (4, 51200, 5120, 4, torch.bfloat16),  # gate_up
+    (1, 5120, 25600, 1, torch.bfloat16),  # down (depth 1 keeps it under the VMEM rule)
+    (384, 10240, 5120, 4, torch.bfloat16),  # the 384-row prefill
+])
+def test_a8_kernel_matches_plain(cuda, m, n, k, depth, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
+    at = a8.requant_a8(w, tile_n=512, depth=depth)
+    assert a8.a8_fits(at, m)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    before = a8.LAUNCHES
+    got = tq.quant_matmul(x, at)
+    torch.cuda.synchronize()
+    assert a8.LAUNCHES == before + 1 and got.dtype == dtype and got.shape == (m, n)
+    ref = a8.a8_matmul_plain(x, at)
+    rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_qmm_mb_routes_packed_weights_through_k6(cuda, monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = tq.quantize(torch.randn((300, 512), generator=gen, device=cuda) / 16, bits=4)
+    x = torch.randn((2, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    monkeypatch.setenv("WTPU_QMM_MB", "3,128")
+    before = (mb.LAUNCHES, qm.LAUNCHES)
+    got = tq.quant_matmul(x, q)
+    torch.cuda.synchronize()
+    assert (mb.LAUNCHES, qm.LAUNCHES) == (before[0] + 1, before[1])
+    ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, 4, 64)
+    assert _max_err(got, ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", ["mbt", "a8"])
+@pytest.mark.parametrize("bound", ["0", "511"])
+def test_residency_row_bound_below_512_raises_on_cuda(cuda, monkeypatch, leaf, bound):
+    q = tq.quantize(torch.zeros((8, 64), device=cuda))
+    w = mb.transpose_quant(q) if leaf == "mbt" else a8.requant_a8(q)
+    monkeypatch.setenv("WTPU_QMM_PALLAS_MAX_ROWS", bound)
+    before = (mb.LAUNCHES, a8.LAUNCHES)
+    with pytest.raises(ValueError, match="WTPU_QMM_PALLAS_MAX_ROWS"):
+        tq.quant_matmul(torch.zeros((1, 64), device=cuda, dtype=torch.bfloat16), w)
+    assert (mb.LAUNCHES, a8.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,leaf,module", [("WTPU_MBT_RESIDENT", "QuantTensorT", mb),
+                                             ("WTPU_QWEN_A8", "A8Tensor", a8)])
+def test_qwen_tiny_residency_card_matches_cpu(cuda, monkeypatch, env, leaf, module):
+    """A tiny Qwen3 with random 4-bit weights through LLMEngine under each
+    residency opt-in: prefill and decode steps on the card (K6 or K7)
+    against the plain versions on the CPU, same weights, bf16."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.decoding.llm_tokenizer import ByteFallbackTokenizer
+    from whisper_mlx_tpu_torch.inference.generate import LLMEngine
+    from whisper_mlx_tpu_torch.models import qwen as qw
+
+    cfg = dataclasses.replace(qw.QWEN_CONFIGS["qwen3-8b"], hidden_size=256,
+                              intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+                              num_key_value_heads=2, head_dim=64, vocab_size=300,
+                              dtype=torch.bfloat16, flash_attention=True)
+    params = qw.init_random_quant_params(cfg, seed=0, device=cuda)
+    params_cpu = _to_cpu(params)
+    monkeypatch.setenv(env, "1")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 300, (2, 40)))
+    logits = {}
+    before = module.LAUNCHES
+    for label, dev, p in (("cuda", cuda, params), ("cpu", torch.device("cpu"), params_cpu)):
+        eng = LLMEngine(p, cfg, ByteFallbackTokenizer())
+        assert type(eng.params["layers"][0]["mlp"]["down"]["w"]).__name__ == leaf
+        cache = qw.init_kv_cache(cfg, 2, 64, dev)
+        out = [qw.decode_step(eng.params, toks.to(dev), 0, cache, cfg)[0]]
+        for i in range(3):
+            out.append(qw.decode_step(eng.params, toks[:, i:i + 1].to(dev), [40 + i, 40 + i],
+                                      cache, cfg)[0])
+        logits[label] = torch.cat(out, dim=1).cpu()
+    assert module.LAUNCHES > before
+    ref = logits["cpu"]
+    assert torch.isfinite(logits["cuda"]).all()
+    assert _max_err(logits["cuda"], ref) <= 5e-2 * max(1.0, ref.abs().max().item())
 
 
 # ---------------------------------------------------------------------------

@@ -169,19 +169,11 @@ def test_quant_matmul_lower_row_bound_on_cpu(monkeypatch):
     np.testing.assert_allclose(got.numpy(), (x @ q.dequantize().T).numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("leaf,item", [("NativeQuantTensor", "M15"), ("QuantTensorT", "K6"),
-                                       ("A8Tensor", "K7"), ("DenseWeight", "M9")])
+@pytest.mark.parametrize("leaf,item", [("NativeQuantTensor", "M15"), ("DenseWeight", "M9")])
 def test_unported_leaf_types_raise(leaf, item):
     fake = type(leaf, (), {})()
     with pytest.raises(NotImplementedError, match=item):
         tq.quant_matmul(torch.zeros(1, 64), fake)
-
-
-def test_qmm_mb_opt_in_raises(monkeypatch):
-    monkeypatch.setenv("WTPU_QMM_MB", "4")
-    q = tq.quantize(torch.zeros(8, 64))
-    with pytest.raises(NotImplementedError, match="K6"):
-        tq.quant_matmul(torch.zeros(1, 64), q)
 
 
 def test_cpu_wrapper_uses_plain_version():

@@ -16,8 +16,9 @@ projection or a quantized weight in a whisper tree raises
 the whisper loaders are ROADMAP.md M9.
 
 ``qwen_params_from_jax`` converts a Qwen tree (``models/qwen.py``), whose
-``QuantTensor`` leaves carry numpy arrays (``jax.tree.map(np.asarray,
-params)`` maps into their children), into the port's Qwen state dict.
+``QuantTensor``, ``QuantTensorT`` and ``A8Tensor`` leaves carry numpy
+arrays (``jax.tree.map(np.asarray, params)`` maps into their children),
+into the port's Qwen state dict.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import torch
 from whisper_mlx_tpu_torch.models.qwen import QwenConfig
 from whisper_mlx_tpu_torch.models.whisper import Params, WhisperConfig
 from whisper_mlx_tpu_torch.ops.quant import QuantTensor
+from whisper_mlx_tpu_torch.ops.quant_a8 import A8Tensor
+from whisper_mlx_tpu_torch.ops.quant_matmul_mb import QuantTensorT
 
 _LN = ("g", "b")
 _ATTN = ("q", "k", "v", "o")
@@ -133,26 +136,71 @@ def params_from_jax(tree: Params, config: WhisperConfig, device="cpu",
     }
 
 
+def _words(a: Any) -> np.ndarray:
+    """uint32 words -> int32 with the same bits (int8 codes as they are)."""
+    a = np.array(a)  # a writable copy
+    return a if a.dtype == np.int8 else a.astype(np.uint32).view(np.int32)
+
+
+def _f32(a: Any, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _mbt_leaf(a: Any, device) -> QuantTensorT:
+    """JAX QuantTensorT (flat ``(rows, N)`` or pre-tiled ``contig``, words or
+    int8 codes) -> the port's flat ``(rows, Np)`` layout, zero-padded."""
+    wqt, sct, bit = _words(a.wqt), np.asarray(a.scalest), np.asarray(a.biasest)
+    if a.contig:
+        t, rows, tile = wqt.shape
+        wqt = wqt.transpose(1, 0, 2).reshape(rows, t * tile)
+    n = int(a.n_orig) if a.contig else wqt.shape[1]
+    np_ = -(-n // int(a.tile_n)) * int(a.tile_n)
+
+    def pad(v: np.ndarray) -> np.ndarray:
+        return np.pad(v[:, :n], ((0, 0), (0, np_ - n)))
+
+    wqt, sct, bit = pad(wqt), pad(sct), pad(bit)
+    return QuantTensorT(torch.from_numpy(wqt).to(device), _f32(sct, device), _f32(bit, device),
+                        int(a.bits), int(a.group_size), int(a.tile_n), int(a.depth),
+                        bool(a.contig), n)
+
+
+def _a8_leaf(a: Any, device) -> A8Tensor:
+    """JAX A8Tensor (codes ``(K, Np)`` or ``contig`` ``(n_tiles, K, tile_n)``)
+    -> the port's N-major ``(N, K)`` codes."""
+    codes = np.asarray(a.codes)
+    if a.contig:
+        t, k, tile = codes.shape
+        codes = codes.transpose(1, 0, 2).reshape(k, t * tile)
+    n = int(a.n_orig)
+    return A8Tensor(torch.from_numpy(np.ascontiguousarray(codes[:, :n].T)).to(device),
+                    _f32(np.asarray(a.scale)[0, :n], device), int(a.tile_n), int(a.depth))
+
+
 def _qwen_leaf(a: Any, path: str, device, dtype, transpose: bool):
-    if type(a).__name__ == "QuantTensor":
-        words = np.ascontiguousarray(np.asarray(a.w_q).astype(np.uint32)).view(np.int32)
-        return QuantTensor(torch.from_numpy(words).to(device),
-                           torch.from_numpy(np.array(a.scales, np.float32)).to(device),
-                           torch.from_numpy(np.array(a.biases, np.float32)).to(device),
-                           int(a.bits), int(a.group_size))
+    kind = type(a).__name__
+    if kind == "QuantTensor":
+        return QuantTensor(torch.from_numpy(_words(a.w_q)).to(device), _f32(a.scales, device),
+                           _f32(a.biases, device), int(a.bits), int(a.group_size))
+    if kind == "QuantTensorT":
+        return _mbt_leaf(a, device)
+    if kind == "A8Tensor":
+        return _a8_leaf(a, device)
     if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
         raise NotImplementedError(f"qwen_params_from_jax: {path} is {type(a).__name__}: only "
-                                  "float numpy arrays and QuantTensor leaves are ported "
-                                  "(other resident layouts: ROADMAP.md M12, M15)")
+                                  "float numpy arrays and QuantTensor, QuantTensorT and "
+                                  "A8Tensor leaves are ported (native-code residency: "
+                                  "ROADMAP.md M15)")
     return _tensor(a, path, device, dtype, "linear" if transpose else "as_is")
 
 
 def qwen_params_from_jax(tree: Params, config: QwenConfig, device="cpu",
                          dtype: torch.dtype | None = None) -> Params:
-    """JAX Qwen params (numpy and QuantTensor leaves) -> the port's state
+    """JAX Qwen params (numpy and quantized leaves) -> the port's state
     dict: fp linear ``w`` ``(in, out)`` -> ``(out, in)``; ``QuantTensor``
-    (already ``(out, in)``) -> the port's ``QuantTensor``; the embedding,
-    norms and biases as they are. Fused ``qkv`` / ``gate_up`` are kept."""
+    (already ``(out, in)``), ``QuantTensorT`` and ``A8Tensor`` -> the
+    port's, with an equal ``dequantize``; the embedding, norms and biases
+    as they are. Fused ``qkv`` / ``gate_up`` are kept."""
     dtype = dtype or config.dtype
 
     def walk(node, path, key=None):

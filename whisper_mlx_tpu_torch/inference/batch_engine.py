@@ -14,6 +14,9 @@ top_p/top_k are engine-level. Slot positions are kept on the host (every
 slot advances one position a step, as the reference's do), so the decode
 step reads only cache positions below the largest of them. If the worker
 dies, every waiter is closed and the exception re-raised in the thread.
+The engine runs over the tree it is given: ``LLMEngine.continuous`` hands
+it the engine's tree, converted there under ``WTPU_QWEN_A8`` or
+``WTPU_MBT_RESIDENT``.
 """
 
 from __future__ import annotations

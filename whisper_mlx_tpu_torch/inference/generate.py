@@ -11,9 +11,13 @@ step ``i + 1`` is dispatched before token ``i`` is read back (the
 reference's streaming structure, here also under ``generate``). Tokens are
 those of the reference's loop at temperature 0.
 
-Opt-ins of the reference outside this slice raise ``NotImplementedError``
-when set: ``WTPU_LLM_KV_BITS``, ``WTPU_NATIVE_RESIDENT``,
-``WTPU_MBT_RESIDENT``, ``WTPU_QWEN_A8``, ``WTPU_QMM_MB`` and a draft model.
+The reference's two weight-residency opt-ins convert the packed tree once,
+in :class:`LLMEngine`: ``WTPU_QWEN_A8=1`` re-quantizes the linears to
+per-channel int8 (``ops/quant_a8.py``, kernel K7), then
+``WTPU_MBT_RESIDENT=1`` transposes the linears still packed
+(``ops/quant_matmul_mb.py``, kernel K6), so A8 wins where both are set.
+Opt-ins of the reference outside the port raise ``NotImplementedError``
+when set: ``WTPU_LLM_KV_BITS``, ``WTPU_NATIVE_RESIDENT`` and a draft model.
 """
 
 from __future__ import annotations
@@ -36,9 +40,6 @@ if TYPE_CHECKING:
 _OPT_INS = {
     "WTPU_LLM_KV_BITS": "M12 (the quantized LLM KV cache)",
     "WTPU_NATIVE_RESIDENT": "M15 (native-code residency)",
-    "WTPU_MBT_RESIDENT": "M12 (K6, the transposed DMA-ring layout)",
-    "WTPU_QWEN_A8": "M12 (K7, W8A8)",
-    "WTPU_QMM_MB": "M12 (K6, the multi-buffered kernel)",
 }
 
 
@@ -148,6 +149,14 @@ class LLMEngine:
         if draft is not None:
             raise NotImplementedError("a draft model (speculative decoding) is not ported: "
                                       "ROADMAP.md M11")
+        if os.environ.get("WTPU_QWEN_A8", "0") == "1":
+            from whisper_mlx_tpu_torch.ops.quant_a8 import prepare_a8_params
+
+            params = prepare_a8_params(params)
+        if os.environ.get("WTPU_MBT_RESIDENT", "0") == "1":
+            from whisper_mlx_tpu_torch.ops.quant import prepare_mbt_params
+
+            params = prepare_mbt_params(params)
         self.params = params
         self.config = config
         self.tokenizer = tokenizer

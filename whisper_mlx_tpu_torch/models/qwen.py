@@ -3,8 +3,9 @@
 Counterpart of ``whisper_mlx_tpu/models/qwen.py``: RMSNorm pre-norm,
 rotary embeddings, grouped-query attention, SwiGLU, optional per-head q/k
 RMSNorm (Qwen3), tied or untied head. Parameters are a dict in the port's
-layouts: linear ``w`` is ``(out, in)`` (a tensor or an MLX
-:class:`~whisper_mlx_tpu_torch.ops.quant.QuantTensor`), ``embed`` is
+layouts: linear ``w`` is ``(out, in)`` (a tensor, an MLX
+:class:`~whisper_mlx_tpu_torch.ops.quant.QuantTensor`, or one of its
+converted residency forms), ``embed`` is
 ``(vocab, d)``; ``fuse_qwen_projections`` gives fused ``qkv`` and
 ``gate_up`` linears.
 
@@ -13,7 +14,9 @@ per layer, written in place by :func:`decode_step` (the reference keeps it
 time-minor for TPU lanes; the values each step returns are the same).
 
 Kernels on the card: every quantized linear goes through ``quant_matmul``
-(K5 at <= 512 rows), every prefill through ``flash_attention`` (K4). A
+(at <= 512 rows K5 for a packed ``QuantTensor``, K6 for a ``QuantTensorT``,
+K7 for an ``A8Tensor``: ``ops/quant.py``), every prefill through
+``flash_attention`` (K4). A
 prefill starts at position 0, and on CUDA it needs ``flash_attention=True``.
 Decode attention over the cache is plain torch, as the reference computes
 it in XLA outside any kernel; it reads only positions below ``pos + t``,

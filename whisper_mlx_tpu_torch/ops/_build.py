@@ -53,6 +53,15 @@ SIGNATURES: dict[str, list] = {
     "wmt_quant_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, b, h, kv_heads, tq, tk, hd, causal, stream
     "wmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, scales, biases, out, partial, m, n, k, bits, group_size, np,
+    # stages, splits, rows_per_split, x_bf16, stream
+    "wmt_mbt_gemv": [_P] * 6 + [_I] * 10 + [_P],
+    # x, xg, w, scales, biases, out, m, n, k, bits, group_size, np, stream
+    "wmt_mbt_gemm": [_P] * 6 + [_I] * 6 + [_P],
+    # x, xq, sx, m, k, x_bf16, stream
+    "wmt_a8_quantize": [_P, _P, _P, _I, _I, _I, _P],
+    # xq, sx, codes, scale, out, m, n, k, out_bf16, stream
+    "wmt_a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -14,11 +14,14 @@ Codes are held as ``torch.int32`` with the bits of MLX's uint32 words:
 followed by ``& mask`` gives the same code as a logical one.
 
 ``quant_matmul`` sends calls of at most ``WTPU_QMM_PALLAS_MAX_ROWS`` (512)
-rows to kernel K5 (``ops/quant_matmul.py``) and larger ones to dequantize
-+ ``torch.matmul``, the reference's policy. The reference's other resident
-layouts (``NativeQuantTensor``, ``DenseWeight``, ``QuantTensorT``,
-``A8Tensor``) and the whisper walkers are not ported: ROADMAP.md M9, M12
-(K6, K7) and M15.
+rows to a kernel and larger ones to dequantize + ``torch.matmul``, the
+reference's policy: a ``QuantTensor`` to K5 (``ops/quant_matmul.py``), or
+with ``WTPU_QMM_MB="depth[,tile_n]"`` to K6 transposing per call; a
+``QuantTensorT`` (``prepare_mbt_params``, ``WTPU_MBT_RESIDENT``) to K6
+(``ops/quant_matmul_mb.py``); an ``A8Tensor`` (``ops/quant_a8.py``,
+``WTPU_QWEN_A8``) to K7. The reference's other resident layouts
+(``NativeQuantTensor``, ``DenseWeight``) and the whisper walkers are not
+ported: ROADMAP.md M9 and M15.
 """
 
 from __future__ import annotations
@@ -35,8 +38,6 @@ from whisper_mlx_tpu_torch.ops.quant_matmul import quant_matmul_kernel
 _NOT_PORTED = {
     "NativeQuantTensor": "M15 (native-code residency)",
     "DenseWeight": "M9 (dequantize-once residency)",
-    "QuantTensorT": "M12 (K6, WTPU_MBT_RESIDENT)",
-    "A8Tensor": "M12 (K7, WTPU_QWEN_A8)",
 }
 
 
@@ -188,23 +189,72 @@ def _check_leaf(q: Any) -> None:
         raise TypeError(f"expected a QuantTensor, got {type(q).__name__}")
 
 
-def quant_matmul(x: torch.Tensor, q: QuantTensor) -> torch.Tensor:
+def prepare_mbt_params(params: Any, embed_keys: tuple = ("embed", "token_emb"),
+                       max_k: int | None = None, max_n: int | None = None) -> Any:
+    """Transpose every packed QuantTensor linear of a tree once to
+    :class:`~whisper_mlx_tpu_torch.ops.quant_matmul_mb.QuantTensorT`, the
+    layout of kernel K6 (``WTPU_MBT_RESIDENT``). Embedding tables (dict keys
+    in ``embed_keys``) stay packed for their row gathers; linears deeper
+    than ``max_k`` (``WTPU_MBT_MAX_K``) or wider than ``max_n``
+    (``WTPU_MBT_MAX_N``, default 65536: the vocabulary head) stay packed
+    too. Other leaves pass through."""
+    from whisper_mlx_tpu_torch.ops.quant_matmul_mb import transpose_quant
+
+    if max_k is None:
+        mk = os.environ.get("WTPU_MBT_MAX_K", "")
+        max_k = int(mk) if mk else None
+    if max_n is None:
+        mn = os.environ.get("WTPU_MBT_MAX_N", "")
+        max_n = int(mn) if mn else 65536
+
+    def walk(node):
+        if isinstance(node, QuantTensor):
+            n, k = node.shape
+            if (max_k is not None and k > max_k) or n > max_n:
+                return node
+            return transpose_quant(node)
+        if isinstance(node, dict):
+            return {k: (v if k in embed_keys and isinstance(v, QuantTensor) else walk(v))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def quant_matmul(x: torch.Tensor, q: Any) -> torch.Tensor:
     """``x @ dequant(q).T``: x ``(..., in)`` -> ``(..., out)`` in x's dtype.
 
-    At most ``WTPU_QMM_PALLAS_MAX_ROWS`` (512) rows: kernel K5 (its plain
-    version on CPU tensors). More rows: dequantize to x's dtype and
-    ``torch.matmul``, the reference's policy. On CUDA tensors a bound below
-    512 raises: it would take calls away from the kernel.
+    At most ``WTPU_QMM_PALLAS_MAX_ROWS`` (512) rows: the leaf's kernel (its
+    plain version on CPU tensors); more rows: dequantize to x's dtype and
+    ``torch.matmul``, the reference's policy (module docstring). On CUDA
+    tensors a bound below 512 raises: it would take calls away from the
+    kernels.
     """
-    _check_leaf(q)
-    if os.environ.get("WTPU_QMM_MB", ""):
-        raise NotImplementedError("WTPU_QMM_MB (the multi-buffered K6 kernel) is not "
-                                  "ported: ROADMAP.md M12, K6")
+    from whisper_mlx_tpu_torch.ops.quant_a8 import A8Tensor, a8_matmul
+    from whisper_mlx_tpu_torch.ops.quant_matmul_mb import (
+        QuantTensorT,
+        quant_matmul_mb,
+        quant_matmul_mbt,
+    )
+
     max_rows = int(os.environ.get("WTPU_QMM_PALLAS_MAX_ROWS", "512"))
     if x.is_cuda and max_rows < 512:
-        raise ValueError(f"WTPU_QMM_PALLAS_MAX_ROWS={max_rows}: on CUDA kernel K5 runs "
-                         "every call of at most 512 rows (the bound may only rise)")
+        raise ValueError(f"WTPU_QMM_PALLAS_MAX_ROWS={max_rows}: on CUDA the quantized "
+                         "matmul kernels run every call of at most 512 rows (the bound "
+                         "may only rise)")
     rows = x.numel() // x.shape[-1]
-    if rows <= max_rows:
-        return quant_matmul_kernel(x, q.w_q, q.scales, q.biases, q.bits, q.group_size)
-    return torch.matmul(x, q.dequantize(x.dtype).T)
+    if isinstance(q, (A8Tensor, QuantTensorT)):
+        if rows > max_rows:
+            return torch.matmul(x, q.dequantize(x.dtype).T)
+        return a8_matmul(x, q) if isinstance(q, A8Tensor) else quant_matmul_mbt(x, q)
+    _check_leaf(q)
+    if rows > max_rows:
+        return torch.matmul(x, q.dequantize(x.dtype).T)
+    mb = os.environ.get("WTPU_QMM_MB", "")
+    if mb:
+        parts = mb.split(",")
+        return quant_matmul_mb(x, q, tile_n=int(parts[1]) if len(parts) > 1 else 512,
+                               depth=int(parts[0]))
+    return quant_matmul_kernel(x, q.w_q, q.scales, q.biases, q.bits, q.group_size)

@@ -1,0 +1,253 @@
+"""W8A8 matmul (kernel K7): per-channel int8 weights times per-row dynamic
+int8 activations, its weight conversion and its plain PyTorch version.
+
+Counterpart of ``whisper_mlx_tpu/ops/quant_a8.py`` (``WTPU_QWEN_A8=1``).
+:func:`requant_a8` re-quantizes a packed
+:class:`~whisper_mlx_tpu_torch.ops.quant.QuantTensor` once, at load, to
+symmetric per-channel int8 (``w ~ s_n * c[n, k]``, ``c`` in [-127, 127],
+the group zero points folded into the codes); :func:`a8_matmul` quantizes
+each row of x to int8 (``amax / 127``, round half to even, a true
+division), takes the int32 dot product and returns ``(float(acc) * s_n) *
+sx`` in x's dtype. On a CUDA tensor it launches ``csrc/a8_matmul.cu``, on a
+CPU tensor it runs :func:`a8_matmul_plain`. :func:`prepare_a8_params`
+converts a parameter tree.
+
+Storage: the port keeps the codes ``(N, K)``, N-major, so the four k values
+one ``__dp4a`` takes are one 32-bit word (the reference keeps ``(K, Np)``
+or, ``contig``, ``(n_tiles, K, tile_n)`` for its DMA ring, and
+``_codes_2d`` gives that view back). ``tile_n`` and ``depth`` stay on the
+tensor: the reference's VMEM rule (:func:`a8_fits`) reads them to decide
+whether a call takes the kernel or dequantize + matmul, which is a
+different function (no activation quantization). ``WTPU_A8_XLA=1`` is the
+reference's other lowering of the kernel's function; on the card K7 is its
+only route.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any
+
+import torch
+
+from whisper_mlx_tpu_torch.ops import _build
+from whisper_mlx_tpu_torch.ops.quant import QuantTensor
+
+LAUNCHES = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass
+class A8Tensor:
+    """Per-channel int8 linear: ``codes`` ``(N, K)`` int8, ``scale`` ``(N,)``
+    fp32; ``shape`` is the logical ``(out, in)`` like QuantTensor's."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    tile_n: int
+    depth: int
+
+    @property
+    def n_orig(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.codes.shape[0], self.codes.shape[1])
+
+    def _codes_2d(self) -> torch.Tensor:
+        """The reference's ``(K, Np)`` view: codes transposed, N padded with
+        zero columns to a ``tile_n`` multiple."""
+        n, k = self.shape
+        out = self.codes.new_zeros((k, _round_up(n, self.tile_n)))
+        out[:, :n] = self.codes.T
+        return out
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """``(out, in)`` weights: ``codes * scale`` in fp32, then ``dtype``."""
+        return (self.codes.float() * self.scale[:, None]).to(dtype)
+
+    def __repr__(self) -> str:
+        return f"A8Tensor(out={self.shape[0]}, in={self.shape[1]})"
+
+
+def _rows_to_a8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 rows -> (int8 codes, fp32 scales): ``s = max(amax, 1e-12) / 127``,
+    ``c = clip(round_half_even(w / s), -127, 127)``."""
+    s = torch.clamp(w.abs().amax(dim=1), min=1e-12) / 127.0
+    return torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8), s
+
+
+def requant_a8(q: QuantTensor | torch.Tensor, tile_n: int = 512, depth: int = 4) -> A8Tensor:
+    """Re-quantize a QuantTensor (or fp ``(out, in)`` weights) to per-channel
+    symmetric int8, once at load. A QuantTensor with more than
+    ``WTPU_A8_CHUNK_ROWS`` (16384) rows is converted that many rows at a
+    time: the scales are per row, so the chunks give the same codes, and a
+    vocabulary-wide head never dequantizes whole."""
+    if isinstance(q, QuantTensor):
+        n = q.shape[0]
+        chunk = int(os.environ.get("WTPU_A8_CHUNK_ROWS", "16384"))
+        if chunk and n > chunk:
+            parts = [_rows_to_a8(QuantTensor(q.w_q[i:i + chunk], q.scales[i:i + chunk],
+                                             q.biases[i:i + chunk], q.bits, q.group_size)
+                                 .dequantize(torch.float32)) for i in range(0, n, chunk)]
+            codes = torch.cat([c for c, _ in parts])
+            scale = torch.cat([s for _, s in parts])
+        else:
+            codes, scale = _rows_to_a8(q.dequantize(torch.float32))
+    else:
+        codes, scale = _rows_to_a8(q.float())
+    return A8Tensor(codes, scale, tile_n, depth)
+
+
+def a8_fits(at: A8Tensor, rows: int) -> bool:
+    """The reference's rule for which function a call computes: the TPU
+    kernel keeps its (Mp, Np) fp32 output, ``depth`` (K, tile_n) code slabs,
+    the (Mp, K) int8 x and the scales in VMEM; a call whose footprint is
+    above ``WTPU_A8_MAX_VMEM_MB`` (48) MB takes dequantize + matmul."""
+    n, k = at.shape
+    mp = _round_up(max(rows, 8), 8)
+    np_ = _round_up(n, at.tile_n)
+    need = mp * np_ * 4 + min(at.depth, np_ // at.tile_n) * k * at.tile_n + mp * k + 4 * np_
+    return need <= float(os.environ.get("WTPU_A8_MAX_VMEM_MB", "48")) * 1e6
+
+
+def a8_matmul_plain(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch; the int32 sum is taken in
+    float64, where it is exact, and rounded to fp32 once."""
+    *lead, k = x.shape
+    xf = x.reshape(-1, k).float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / sx), -127, 127)
+    acc = torch.matmul(xq.double(), at.codes.double().T)
+    out = (acc.float() * at.scale) * sx
+    return out.to(x.dtype).reshape(*lead, at.n_orig)
+
+
+def a8_matmul(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
+    """``x @ dequant(at).T`` with per-row dynamic int8 activations: x
+    ``(..., K)`` -> ``(..., N)`` in x's dtype. Calls that :func:`a8_fits`
+    refuses take dequantize + matmul, as in the reference; the others
+    :func:`a8_matmul_kernel`."""
+    k = x.shape[-1]
+    if k != at.shape[1]:
+        raise ValueError(f"a8_matmul: x {tuple(x.shape)} against weights {at!r}")
+    if not a8_fits(at, x.numel() // k):
+        return torch.matmul(x, at.dequantize(x.dtype).T)
+    return a8_matmul_kernel(x, at)
+
+
+def a8_matmul_kernel(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
+    """Kernel K7 on CUDA tensors (quantize x, then the ``__dp4a`` GEMV for at
+    most 8 rows or the int8 tensor-core tiles for more); its plain version
+    on CPU tensors."""
+    *lead, k = x.shape
+    n = at.n_orig
+    if k != at.shape[1]:
+        raise ValueError(f"a8_matmul: x {tuple(x.shape)} against weights {at!r}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"a8_matmul: x must be bfloat16 or float32, got {x.dtype}")
+    for name, t in (("codes", at.codes), ("scale", at.scale)):
+        if t.device != x.device:
+            raise ValueError(f"a8_matmul: {name} on {t.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return a8_matmul_plain(x, at)
+    if x.device.type != "cuda":
+        raise ValueError(f"a8_matmul: unsupported device {x.device}")
+    if k % 16:
+        raise ValueError(f"a8_matmul: K {k} is not a multiple of 16")
+    if at.codes.dtype != torch.int8 or not at.codes.is_contiguous() or \
+            at.scale.dtype != torch.float32 or not at.scale.is_contiguous():
+        raise ValueError("a8_matmul: codes must be contiguous int8 and scale contiguous fp32")
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*lead, n)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16 = int(x.dtype == torch.bfloat16)
+    lib = _build.lib()
+    _build.check(lib.wmt_a8_quantize(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, bf16,
+                                     stream), "wmt_a8_quantize")
+    _build.check(lib.wmt_a8_matmul(xq.data_ptr(), sx.data_ptr(), at.codes.data_ptr(),
+                                   at.scale.data_ptr(), out.data_ptr(), m, n, k, bf16, stream),
+                 "wmt_a8_matmul")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out.reshape(*lead, n)
+
+
+def _linear_name(path: tuple) -> Any:
+    """The name of the linear a leaf belongs to: ``down`` for
+    ``(..., "down", "w")`` and for ``(..., "down")``."""
+    if len(path) > 1 and path[-1] == "w":
+        return path[-2]
+    return path[-1] if path else None
+
+
+def prepare_a8_params(params: Any, embed_keys: tuple = ("embed", "token_emb"),
+                      tile_n: int = 512, depth: int = 4, max_n: int | None = None,
+                      free_source: bool | None = None, skip_keys: tuple | None = None) -> Any:
+    """Re-quantize every QuantTensor linear of a tree to :class:`A8Tensor`,
+    at load. Embedding tables (dict keys in ``embed_keys``) stay packed for
+    their row gathers. Linears named in ``skip_keys`` (``WTPU_A8_SKIP``,
+    comma-separated; a linear is named by its own key, so ``down`` keeps
+    ``{"down": {"w": ...}}`` packed) and those wider than ``max_n``
+    (``WTPU_A8_MAX_N``) stay packed too.
+
+    ``free_source`` (``WTPU_A8_FREE_SRC=1``) frees each packed source's
+    storage as soon as its A8Tensor exists, so the conversion's peak is
+    about one tree; storage reachable under an embedding key (a tied head)
+    is never freed. The caller's tree is dead afterwards."""
+    if max_n is None:
+        mn = os.environ.get("WTPU_A8_MAX_N", "")
+        max_n = int(mn) if mn else None
+    if free_source is None:
+        free_source = os.environ.get("WTPU_A8_FREE_SRC", "0") == "1"
+    if skip_keys is None:
+        skip_keys = tuple(p for p in os.environ.get("WTPU_A8_SKIP", "").split(",") if p)
+
+    protected: set[int] = set()
+
+    def scan(node: Any, under_embed: bool) -> None:
+        if isinstance(node, QuantTensor):
+            if under_embed:
+                protected.update(t.untyped_storage().data_ptr()
+                                 for t in (node.w_q, node.scales, node.biases))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                scan(v, under_embed or k in embed_keys)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                scan(v, under_embed)
+
+    if free_source:
+        scan(params, False)
+
+    def walk(node: Any, path: tuple) -> Any:
+        if isinstance(node, QuantTensor):
+            if _linear_name(path) in skip_keys or (max_n is not None and node.shape[0] > max_n):
+                return node
+            out = requant_a8(node, tile_n=tile_n, depth=depth)
+            if free_source:
+                for t in (node.w_q, node.scales, node.biases):
+                    storage = t.untyped_storage()
+                    # storage that torch does not own (numpy's) cannot be freed
+                    if storage.data_ptr() not in protected and storage.resizable():
+                        storage.resize_(0)
+            return out
+        if isinstance(node, dict):
+            return {k: (v if k in embed_keys and isinstance(v, QuantTensor)
+                        else walk(v, path + (k,)))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path) for v in node)
+        return node
+
+    return walk(params, ())

@@ -38,13 +38,20 @@ def quant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
     """The kernel's function in plain PyTorch (same rounding points)."""
     from whisper_mlx_tpu_torch.ops.quant import unpack
 
+    return group_matmul_plain(x, unpack(w_q, bits), scales, biases, group_size)
+
+
+def group_matmul_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                       biases: torch.Tensor, group_size: int) -> torch.Tensor:
+    """``x @ (scales * codes + biases).T`` for unpacked codes ``(N, K)``
+    with the kernels' rounding points: the function of K5 and K6."""
     *lead, k = x.shape
-    n = w_q.shape[0]
+    n = codes.shape[0]
     g = k // group_size
     x2 = x.reshape(-1, k)
     compute = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     s = scales.to(compute).float()
-    vals = unpack(w_q, bits).float().reshape(n, g, group_size)
+    vals = codes.float().reshape(n, g, group_size)
     w = (vals * s[..., None]).to(compute).float().reshape(n, k)
     acc = torch.matmul(x2.float(), w.T)
     xg = x2.float().reshape(-1, g, group_size).sum(-1)

@@ -1,0 +1,225 @@
+"""Multi-buffered transposed dequant-matmul (kernel K6), its weight layout
+and its plain PyTorch version.
+
+Counterpart of ``whisper_mlx_tpu/ops/quant_pallas_mb.py``.
+:func:`transpose_quant` turns a packed
+:class:`~whisper_mlx_tpu_torch.ops.quant.QuantTensor` into a
+:class:`QuantTensorT` once, at setup; ``quant_matmul_mbt(x, qt)`` then
+computes ``x @ dequant(qt).T`` with K5's function and rounding points
+(``ops/quant_matmul.py``): on a CUDA tensor it launches
+``csrc/quant_matmul_mb.cu``, on a CPU tensor it runs
+:func:`quant_matmul_mbt_plain`. :func:`quant_matmul_mb` transposes per call
+(the ``WTPU_QMM_MB`` route).
+
+The layouts hold the reference's values in one flat storage:
+- packed words ``(K / per_word, Np)`` (int32 with the bits of MLX's
+  uint32), or, with ``codes`` (``WTPU_MBT_DQ=i8``, 4-bit only), one code
+  per byte ``(K, Np)`` int8; scales and biases ``(G, Np)``;
+- N is padded with zeros to ``Np``, a ``tile_n`` multiple, at setup (the
+  reference pads per call), so each 16-byte copy of a weight slab on the
+  card is aligned.
+``contig`` (``WTPU_MBT_CONTIG=1``) is recorded as the reference's knob
+reads, but not stored: the reference pre-tiles to ``(n_tiles, rows,
+tile_n)`` for its DMAs, and on the card the tiled and the flat storage
+stream at the same rate (``PERF.md``).
+The reference's other dequantization orders (``WTPU_MBT_DQ=planar|u8``,
+``_planar_perm``, ``_u8_perm``) exist for Mosaic's tiling: they compute the
+same function, and on the card the packed layout runs K6.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+
+import torch
+
+from whisper_mlx_tpu_torch.ops import _build
+from whisper_mlx_tpu_torch.ops.quant import QuantTensor, dequantize, unpack
+from whisper_mlx_tpu_torch.ops.quant_matmul import GEMV_ROWS, group_matmul_plain
+
+LAUNCHES = 0
+MAX_STAGES = 8  # ring slots the kernel's shared memory holds
+# csrc/quant_matmul_mb.cu: a GEMV block owns 256 columns; a ring slot holds
+# 8 KB of codes, i.e. 8 rows of packed words or 32 rows of codes
+_BLOCK_COLS = 256
+_SLOT_ROWS = {False: 8, True: 32}  # by codes_resident
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass
+class QuantTensorT:
+    """A QuantTensor transposed for K6 (see the module docstring).
+
+    ``wqt`` ``(rows, Np)`` int32 words or int8 codes; ``scalest``/
+    ``biasest`` ``(G, Np)`` fp32; ``n_orig`` the unpadded N; ``depth`` the
+    ring's slots on the card; ``contig`` the reference's layout flag.
+    """
+
+    wqt: torch.Tensor
+    scalest: torch.Tensor
+    biasest: torch.Tensor
+    bits: int
+    group_size: int
+    tile_n: int
+    depth: int
+    contig: bool
+    n_orig: int
+
+    @property
+    def codes_resident(self) -> bool:
+        return self.wqt.dtype == torch.int8
+
+    @property
+    def shape(self) -> tuple[int, int]:  # natural (out, in), as QuantTensor
+        rows = self.wqt.shape[0]
+        return (self.n_orig, rows if self.codes_resident else rows * (32 // self.bits))
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """-> ``(out, in)`` weights, as the reference computes them."""
+        n, k = self.shape
+        sct, bit = self.scalest[:, :n], self.biasest[:, :n]
+        wqt = self.wqt[:, :n]
+        if self.codes_resident:
+            g = sct.shape[0]
+            codes = wqt.T.float().reshape(n, g, k // g)
+            return (codes * sct.T[..., None] + bit.T[..., None]).reshape(n, k).to(dtype)
+        return dequantize(wqt.T, sct.T, bit.T, self.bits, self.group_size, dtype)
+
+    def __repr__(self) -> str:
+        return (f"QuantTensorT{self.shape}[{self.bits}b/g{self.group_size} t{self.tile_n}"
+                f"d{self.depth}{'c' if self.contig else ''}{'i8' if self.codes_resident else ''}]")
+
+
+def transpose_quant(q: QuantTensor, tile_n: int | None = None, depth: int | None = None,
+                    codes: bool | None = None, contig: bool | None = None) -> QuantTensorT:
+    """One-time layout conversion for :func:`quant_matmul_mbt`, with the
+    reference's defaults and knobs: ``codes`` from ``WTPU_MBT_DQ=i8`` (4-bit
+    only, and only up to ``WTPU_MBT_I8_MAX_K`` = 8192 input columns),
+    ``contig`` (recorded only) from ``WTPU_MBT_CONTIG=1``, ``tile_n`` from ``WTPU_MBT_TILE``
+    (1024 for N >= 16384, else 512), ``depth`` from ``WTPU_MBT_DEPTH`` (8,
+    or 4 with codes, for N >= 16384, else 2)."""
+    if codes is None:
+        codes = os.environ.get("WTPU_MBT_DQ", "planar") == "i8" and q.bits == 4
+    if contig is None:
+        contig = os.environ.get("WTPU_MBT_CONTIG", "0") == "1"
+    if codes:
+        if q.bits != 4:
+            raise ValueError(f"transpose_quant: codes-resident needs 4-bit weights, got {q.bits}")
+        codes = q.shape[1] <= int(os.environ.get("WTPU_MBT_I8_MAX_K", "8192"))
+    n = q.shape[0]
+    if tile_n is None:
+        env = os.environ.get("WTPU_MBT_TILE", "")
+        tile_n = int(env) if env else (1024 if n >= 16384 else 512)
+    if depth is None:
+        env = os.environ.get("WTPU_MBT_DEPTH", "")
+        depth = int(env) if env else ((4 if codes else 8) if n >= 16384 else 2)
+    if tile_n < 16 or tile_n % 16:
+        raise ValueError(f"transpose_quant: tile_n {tile_n} is not a positive multiple of 16")
+    src = unpack(q.w_q, q.bits).to(torch.int8) if codes else q.w_q  # (N, rows)
+    np_ = _round_up(n, tile_n)
+
+    def padded_t(a: torch.Tensor) -> torch.Tensor:  # (N, c) -> (c, Np), zero columns
+        out = a.new_zeros((a.shape[1], np_))
+        out[:, :n] = a.T
+        return out
+
+    return QuantTensorT(padded_t(src), padded_t(q.scales), padded_t(q.biases), q.bits, q.group_size,
+                        tile_n, depth, contig, n)
+
+
+def quant_matmul_mbt_plain(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: K5's, on the unpacked codes."""
+    n, _ = qt.shape
+    wqt = qt.wqt[:, :n].T
+    codes = wqt if qt.codes_resident else unpack(wqt, qt.bits)
+    return group_matmul_plain(x, codes, qt.scalest[:, :n].T, qt.biasest[:, :n].T,
+                              qt.group_size)
+
+
+def _check_inputs(x: torch.Tensor, qt: QuantTensorT) -> None:
+    n, k = qt.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"quant_matmul_mbt: x {tuple(x.shape)} against weights {qt!r}")
+    if qt.bits not in (4, 8) or qt.group_size < 8 or qt.group_size % 8 or k % qt.group_size:
+        raise ValueError(f"quant_matmul_mbt: bits {qt.bits}, group_size {qt.group_size}, K {k}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quant_matmul_mbt: x must be bfloat16 or float32, got {x.dtype}")
+    for name, t in (("wqt", qt.wqt), ("scalest", qt.scalest), ("biasest", qt.biasest)):
+        if t.device != x.device:
+            raise ValueError(f"quant_matmul_mbt: {name} on {t.device}, x on {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gemv_splits(n: int, rows: int, slot_rows: int, sms: int) -> tuple[int, int]:
+    """K splits of the GEMV: enough blocks for about four per SM, each split
+    a whole number of ring slots. -> (splits, stored rows per split)."""
+    col_blocks = -(-n // _BLOCK_COLS)
+    slots = -(-rows // slot_rows)
+    splits = max(1, min(slots, -(-4 * sms // col_blocks)))
+    per = -(-slots // splits)
+    return -(-slots // per), per * slot_rows
+
+
+def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
+    """``x @ dequant(qt).T``: x ``(..., K)`` -> ``(..., N)`` in x's dtype;
+    kernel K6 on CUDA tensors (the ring GEMV for at most ``GEMV_ROWS`` rows
+    or fp32 x, the tiled tensor-core kernel for more bf16 rows)."""
+    _check_inputs(x, qt)
+    if x.device.type == "cpu":
+        return quant_matmul_mbt_plain(x, qt)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul_mbt: unsupported device {x.device}")
+    for name, t in (("wqt", qt.wqt), ("scalest", qt.scalest), ("biasest", qt.biasest)):
+        if not t.is_contiguous():
+            raise ValueError(f"quant_matmul_mbt: {name} must be contiguous")
+    *lead, k = x.shape
+    n = qt.n_orig
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:  # the kernels load x 16 bytes at a time
+        x2 = x2.clone()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*lead, n)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bits = 0 if qt.codes_resident else qt.bits
+    np_ = qt.scalest.shape[1]
+    if x.dtype == torch.float32 or m <= GEMV_ROWS or k % 64:
+        codes = qt.codes_resident
+        rows = k if codes else k // (32 // qt.bits)
+        splits, per_split = _gemv_splits(n, rows, _SLOT_ROWS[codes],
+                                         _sm_count(x.device.index or 0))
+        partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        rc = _build.lib().wmt_mbt_gemv(
+            x2.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(), qt.biasest.data_ptr(),
+            out.data_ptr(), None if partial is None else partial.data_ptr(), m, n, k, bits,
+            qt.group_size, np_, min(max(qt.depth, 1), MAX_STAGES), splits, per_split,
+            int(x.dtype == torch.bfloat16), stream)
+        _build.check(rc, "wmt_mbt_gemv")
+    else:
+        xg = x2.float().reshape(m, k // qt.group_size, qt.group_size).sum(-1)
+        rc = _build.lib().wmt_mbt_gemm(
+            x2.data_ptr(), xg.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(),
+            qt.biasest.data_ptr(), out.data_ptr(), m, n, k, bits, qt.group_size, np_, stream)
+        _build.check(rc, "wmt_mbt_gemm")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out.reshape(*lead, n)
+
+
+def quant_matmul_mb(x: torch.Tensor, q: QuantTensor, tile_n: int = 512,
+                    depth: int = 4) -> torch.Tensor:
+    """Drop-in QuantTensor wrapper that transposes per call (the
+    ``WTPU_QMM_MB`` route); decode loops transpose once with
+    :func:`transpose_quant` (``WTPU_MBT_RESIDENT``)."""
+    return quant_matmul_mbt(x, transpose_quant(q, tile_n=tile_n, depth=depth))

@@ -10,8 +10,10 @@ engine.
 
 The model lives on an explicit device, ``cuda`` by default (which raises
 when no GPU is present). On CUDA the model runs in bf16 with the flash
-prefill (kernel K4) and the quantized matmul (K5); on the CPU it keeps the
-reference's fp32 configuration. ``ChatService``, the prompt and tool
+prefill (kernel K4) and the quantized matmul (K5; K6 under
+``WTPU_MBT_RESIDENT=1`` or ``WTPU_QMM_MB``, K7 under ``WTPU_QWEN_A8=1``, which
+``LLMEngine`` reads); on the CPU it keeps the reference's fp32
+configuration. ``ChatService``, the prompt and tool
 helpers, profiles, tools and the server are ROADMAP.md M13.
 """
 
