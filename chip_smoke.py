@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only phase,phase]
 
 Phases, each printing its own lines; any failure raises, so the exit code
 is non-zero and the result line is not printed:
@@ -16,10 +16,15 @@ is non-zero and the result line is not printed:
 4. tiny model: the same weights and mel through decode() on CUDA (kernels)
    and on the CPU (plain versions), greedy and beam 3;
 5. main path: whisper large-v3 at full width with random bf16 weights,
-   through the CLI on a synthetic 65 s WAV, then an 8-window batch timed
-   through log_mel_spectrogram -> decode();
-6. beam main path: the same model through the CLI with --beam-size 5,
-   2-window beam runs under WTPU_BEAM_KV=flat, permp and permi (K9), then
+   through the CLI on a synthetic 65 s WAV (random weights fail every
+   fallback threshold, so each window walks the whole ladder, cut to three
+   rungs in every CLI run here: T = 0, then best_of 5 sampling at 0.5 and
+   1.0), then an 8-window batch timed through log_mel_spectrogram ->
+   decode();
+6. beam main path: the same model through the CLI with --beam-size 5 (the
+   same three rungs: beam at T = 0, then sampling at 0.5 and 1.0),
+   2-window beam runs of 16 steps under
+   WTPU_BEAM_KV=flat, permp and permi (K9), then
    an 8-window x beam 5 batch, timed, with a per-step breakdown;
 7. LLM kernels: the quantized matmul (K5) at the five Qwen3-32B linear
    shapes and the flash prefill (K4) against their plain versions;
@@ -33,12 +38,32 @@ is non-zero and the result line is not printed:
    shapes against their plain versions, and K6 at ring depth 2, 4 and 8
    beside K5 on the same packed weights;
 11. LLM residency main path, once under WTPU_MBT_RESIDENT=1 and once under
-   WTPU_QWEN_A8=1: phase 8 under the opt-in, then Qwen3-32B through chat
-   and the continuous-batching engine, then the timings.
+   WTPU_QWEN_A8=1: phase 8 under the opt-in, then Qwen3-32B (16 of its 64
+   layers, full width) through chat and the continuous-batching engine,
+   then the timings;
+12. probe kernels: the dequant-matmul variants (K10a-g) at the five
+   large-v3 decode-step shapes against their plain versions and against K5
+   on the same weights, the batched time-minor decode attention (K11)
+   against its plain version and K3, and the five ablation stages (K12);
+13. probe entry points: the three probes, each run once through its main();
+14. tiny 4-bit whisper: the tiny config quantized, exported as an
+   mlx-format directory and loaded on the card and on the CPU;
+15. whisper 4-bit main path: large-v3 at full width, bf16 weights from seed
+   0 quantized on the card (int4, group 64) and written as an mlx-format
+   directory, then the CLI with --model <dir> on the 65 s WAV (packed, fused
+   qkv: K5; the ladder cut to T = 0, 0.5 and 1.0), K5 and K6 against their
+   plain versions at the loaded leaves' shapes, 8 windows greedy (K5), the same under WTPU_FEWROW_MBT=1 (K6),
+   8 windows x beam 5 (40 rows: dequantized once, no K5/K6), a
+   WTPU_DEQUANT_AT_LOAD=1 load, and an encode under WTPU_DENSE_SOFTMAX=bf16
+   (K2's bf16-softmax mode).
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
-11 for K6 and K7), with every count set to 0 just before that run.
+11 for K6 and K7, 13 for K10-K12, 15 for K2's bf16-softmax
+mode), with every count set to 0 just before that run; phase 15 also
+prints and checks the launches of K1, K2, K3, K5 and K6 on the 4-bit path
+(the JSON line carries them as ``launches_4bit``, and K5's and K6's errors
+against their plain versions at the large-v3 shapes as ``max_abs_err_4bit``).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -46,6 +71,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import importlib.metadata
@@ -65,6 +91,8 @@ import torch.nn.functional as F
 
 from whisper_mlx_tpu_torch import cli
 from whisper_mlx_tpu_torch.audio.mel import N_SAMPLES, _frame_signal, log_mel_spectrogram
+from whisper_mlx_tpu_torch.checkpoint.io_util import save_safetensors_file
+from whisper_mlx_tpu_torch.checkpoint.quant_loader import export_mlx_whisper, load_mlx_whisper
 from whisper_mlx_tpu_torch.decoding.llm_tokenizer import ByteFallbackTokenizer
 from whisper_mlx_tpu_torch.decoding import beam as tb
 from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode, decode_setup
@@ -91,12 +119,16 @@ from whisper_mlx_tpu_torch.ops import dense_attention as dn
 from whisper_mlx_tpu_torch.ops import flash_attention as fa
 from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
+from whisper_mlx_tpu_torch.ops import probe_decode_attention as pda
+from whisper_mlx_tpu_torch.ops import probe_quant_matmul as pqm
 from whisper_mlx_tpu_torch.ops import quant as tq
 from whisper_mlx_tpu_torch.ops import quant_a8 as a8
 from whisper_mlx_tpu_torch.ops import quant_matmul as qm
 from whisper_mlx_tpu_torch.ops import quant_matmul_mb as mb
 from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
+from whisper_mlx_tpu_torch.probes import bench_da_ablation, bench_decode_attention, bench_quant_kernel
+from whisper_mlx_tpu_torch.probes.timing import profiled_us, time_us
 from whisper_mlx_tpu_torch.runtime.device import setup_device
 from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
 from whisper_mlx_tpu_torch.serving.chat import QwenModel, serving_config
@@ -134,48 +166,16 @@ def _smi() -> str:
 
 
 def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time per call of ``fn``: ``reps`` calls back to back between
-    two CUDA events, queued behind a spin kernel so that the host has
-    launched them all before the first one starts and its own work (checks,
-    allocation, the launch) stays off the clock. The spin grows until it
-    outlasts the host's queueing; if it never does, the device's own events
-    under torch.profiler give the time, and a line says so."""
-    for _ in range(warmup):
-        fn()
-    cycles = 10**8
-    for _ in range(3):
-        torch.cuda.synchronize()
-        queued, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        queued.record()
-        torch.cuda._sleep(cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        end.record()
-        torch.cuda.synchronize()
-        spin_ms = queued.elapsed_time(start)
-        if host_ms < spin_ms:
-            return start.elapsed_time(end) / reps
-        cycles = int(cycles * 2 * host_ms / spin_ms)
-    print(f"    (the host outran a {spin_ms:.1f} ms spin: {reps} calls took {host_ms:.1f} ms to "
-          f"queue; the time below is the sum of the device's own events under the profiler)")
-    return _profiled_ms(fn, reps)
+    """Device time per call of ``fn`` in ms, with the host's own work
+    (checks, allocation, the launch) off the clock: probes.timing.time_us
+    says how."""
+    return time_us(fn, torch.device("cuda"), reps, warmup) / 1e3
 
 
 def _profiled_ms(fn, reps: int = 20) -> float:
     """Device time per call of ``fn`` from the device's own events (kernels
-    and copies) under torch.profiler: the host's work is not on it."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us, _ = _kernel_us(prof)
-    if device_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return device_us / 1e3 / reps
+    and copies) under torch.profiler."""
+    return profiled_us(fn, reps) / 1e3
 
 
 def _cold_ms(fn, inputs: list, reps: int = 24) -> float:
@@ -281,6 +281,16 @@ def phase_kernels() -> dict:
         # q and k arrive pre-scaled by hd**-0.25, hence scale 1
         library_ms=_device_ms(lambda: F.scaled_dot_product_attention(*main, scale=1.0),
                               reps=10))
+    # K2's bf16-softmax mode (WTPU_DENSE_SOFTMAX=bf16): kernel vs plain in that mode
+    got = dn.dense_attention(*main, fast_softmax=True)
+    ref = dn.dense_attention_plain(*main, fast_softmax=True)
+    err = _check("dense_attention bf16-softmax mode B=8 H=20 T=1500", got, ref,
+                 ATTN_TOL * max(1.0, ref.float().abs().max().item()))
+    del got, ref
+    rows["dense_fast"] = dict(
+        rows["dense"], name="dense_attention_bf16_softmax", max_abs_err=err,
+        ms=_device_ms(lambda: dn.dense_attention(*main, fast_softmax=True), reps=10),
+        plain_ms=_device_ms(lambda: dn.dense_attention_plain(*main, fast_softmax=True), reps=10))
 
     # K3: self int8 (B=8, 20 heads, T_alloc 256) and cross int4 (Tk 1500)
     def cache(n, t, bits):
@@ -587,9 +597,13 @@ def phase_main_path() -> dict:
         _write_wav(wav, 65.0)
         mk.LAUNCHES = dn.LAUNCHES = da.LAUNCHES = 0
         t0 = time.perf_counter()
+        # random weights fail every fallback threshold, so each window walks
+        # the whole ladder, cut from the CLI's six rungs to three to keep the
+        # run short: T = 0, then best_of 5 sampling at 0.5 and 1.0
         rc = cli.main([wav, "-f", "txt", "--output-name", "out", "-o", tmp,
                        "--model", "large-v3", "--condition-on-previous-text", "False",
-                       "--hallucination-silence-threshold", "1", "--verbose", "False"])
+                       "--hallucination-silence-threshold", "1", "--verbose", "False",
+                       "--temperature-increment-on-fallback", "0.5"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES}
@@ -718,7 +732,11 @@ def phase_beam_main_path() -> dict:
         t0 = time.perf_counter()
         rc = cli.main([wav, "-f", "txt", "--output-name", "out", "-o", tmp,
                        "--model", "large-v3", "--condition-on-previous-text", "False",
-                       "--beam-size", "5", "--verbose", "False"])
+                       "--beam-size", "5", "--verbose", "False",
+                       # random weights fail every fallback threshold: the ladder
+                       # is cut to three rungs (beam at T = 0, then best_of 5
+                       # sampling at 0.5 and 1.0) to keep the run short
+                       "--temperature-increment-on-fallback", "0.5"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         txt = os.path.join(tmp, "out.txt")
@@ -738,7 +756,7 @@ def phase_beam_main_path() -> dict:
     with torch.inference_mode():
         mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
         states = encode(params, mel, config)
-    opts = DecodingOptions(sample_len=32, beam_size=5)
+    opts = DecodingOptions(sample_len=16, beam_size=5)
     by_scheme = {}
     for scheme in ("flat", "permp", "permi"):
         os.environ["WTPU_BEAM_KV"] = scheme
@@ -753,7 +771,7 @@ def phase_beam_main_path() -> dict:
             assert r.tokens and np.isfinite(r.avg_logprob), f"{scheme}: empty or non-finite"
         if scheme != "flat":
             same, total = _agreement(by_scheme["flat"], by_scheme[scheme])
-            print(f"  2 windows x beam 5, sample_len 32, WTPU_BEAM_KV={scheme}: K9 launches "
+            print(f"  2 windows x beam 5, sample_len 16, WTPU_BEAM_KV={scheme}: K9 launches "
                   f"permute +{lp.PERMUTE_LAUNCHES - before[0]}, move "
                   f"+{lp.MOVE_LAUNCHES - before[1]}; tokens agree with flat {same}/{total}")
     launches = {"decode_int": da.INT_DOT_LAUNCHES, "beamflat": bf.LAUNCHES,
@@ -798,8 +816,8 @@ def _time_beam_batch(params, config, tok, audio) -> None:
 
 def _beam_breakdown(params, config, tok, audio) -> None:
     """Per-step wall time, device busy time and kernel time by name of the
-    beam loop: two beam_decode runs of 16 and 48 steps (pools never fill
-    at random weights), the difference over 32 steps, without and with
+    beam loop: two beam_decode runs of 8 and 24 steps (pools never fill
+    at random weights), the difference over 16 steps, without and with
     torch.profiler."""
     dev = audio.device
     beam_cfg = dataclasses.replace(config, attn_mxu=True)
@@ -822,11 +840,13 @@ def _beam_breakdown(params, config, tok, audio) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    run(16)
-    step_ms = (wall(48) - wall(16)) / 32
+    short, long = 8, 24
+    span = long - short
+    run(short)
+    step_ms = (wall(long) - wall(short)) / span
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     by_name, host = {}, {}
-    for steps in (16, 48):
+    for steps in (short, long):
         with torch.profiler.profile(activities=activities) as prof:
             prof_ms = wall(steps)
         total, events = _kernel_us(prof)
@@ -834,8 +854,8 @@ def _beam_breakdown(params, config, tok, audio) -> None:
                                            for e in events})
         host[steps] = {e.key: (e.self_cpu_time_total, e.count) for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CPU}
-    prof_step = (by_name[48][0] - by_name[16][0]) / 32
-    dev_step = (by_name[48][1] - by_name[16][1]) / 1e3 / 32
+    prof_step = (by_name[long][0] - by_name[short][0]) / span
+    dev_step = (by_name[long][1] - by_name[short][1]) / 1e3 / span
     print(f"beam breakdown (8 windows x beam 5, 40 rows): decode step {step_ms:.3f} ms wall "
           f"(x224 = {step_ms * 224 / 1e3:.2f} s)")
     if dev_step > 0:
@@ -844,17 +864,17 @@ def _beam_breakdown(params, config, tok, audio) -> None:
     else:
         print("  under the profiler: no device time recorded (not measured)")
     diff = []
-    for key, (us, count) in by_name[48][2].items():
-        us0, count0 = by_name[16][2].get(key, (0.0, 0))
-        diff.append(((us - us0) / 32, (count - count0) / 32, key))
+    for key, (us, count) in by_name[long][2].items():
+        us0, count0 = by_name[short][2].get(key, (0.0, 0))
+        diff.append(((us - us0) / span, (count - count0) / span, key))
     for us, calls, key in sorted(diff, reverse=True)[:10]:
         print(f"  {key[:60]:60s} device {us:9.1f} us/step, calls {calls:.1f}/step")
     # host side: where the step's wall time goes (CPU self time under the
     # profiler), and any host waits on the device
     diff = []
-    for key, (us, count) in host[48].items():
-        us0, count0 = host[16].get(key, (0.0, 0))
-        diff.append(((us - us0) / 32, (count - count0) / 32, key))
+    for key, (us, count) in host[long].items():
+        us0, count0 = host[short].get(key, (0.0, 0))
+        diff.append(((us - us0) / span, (count - count0) / span, key))
     print(f"  host: {sum(c for _, c, _ in diff):.0f} CPU events/step")
     for us, calls, key in sorted(diff, reverse=True)[:8]:
         print(f"  {key[:60]:60s} host {us:9.1f} us/step, calls {calls:.1f}/step")
@@ -952,23 +972,6 @@ def phase_llm_kernels() -> dict:
     return rows
 
 
-def _write_safetensors(path, tensors: dict) -> None:
-    """The safetensors format by hand (the card's machine has no package):
-    8-byte header length, JSON header, raw little-endian bytes."""
-    codes = {np.dtype(np.uint32): "U32", np.dtype(np.float16): "F16",
-             np.dtype(np.float32): "F32"}
-    header, blobs, offset = {}, [], 0
-    for name, arr in tensors.items():
-        raw = np.ascontiguousarray(arr).tobytes()
-        header[name] = {"dtype": codes[arr.dtype], "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
-    head = json.dumps(header).encode()
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
-
-
 TINY_QWEN = dict(model_type="qwen3", vocab_size=512, hidden_size=256, intermediate_size=512,
                  num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
                  head_dim=64, rope_theta=1e6, rms_norm_eps=1e-6, tie_word_embeddings=False,
@@ -1010,7 +1013,7 @@ def _write_tiny_qwen(path) -> None:
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(c, f)
-    _write_safetensors(os.path.join(path, "model.safetensors"), state)
+    save_safetensors_file(os.path.join(path, "model.safetensors"), state)
 
 
 def phase_tiny_qwen() -> None:
@@ -1321,13 +1324,17 @@ RESIDENCY = {  # env var -> (its kernel's module, the JSON row's key, extra env)
 }
 
 
+RESIDENCY_LAYERS = 16  # of Qwen3-32B's 64: the depth is cut, every width is full
+
+
 def phase_llm_residency(env: str) -> dict:
     """One residency opt-in: the tiny Qwen card-vs-CPU check (phase 8) under
-    it, then Qwen3-32B at full width (random packed int4 weights built on
-    the card, converted by LLMEngine) through chat and the 4-slot
-    continuous-batching engine, each request checked for its token count,
-    then the prefill and decode rates with a profiled decode window.
-    Returns the opt-in's kernel launches over the chat and batch run."""
+    it, then Qwen3-32B at full width and RESIDENCY_LAYERS layers (random
+    packed int4 weights built on the card, converted by LLMEngine) through
+    chat and the 4-slot continuous-batching engine, each request checked for
+    its token count, then the prefill and decode rates with a profiled
+    decode window. Returns the opt-in's kernel launches over the chat and
+    batch run."""
     module, key, extra = RESIDENCY[env]
     settings = {env: "1", **extra}
     os.environ.update(settings)
@@ -1335,7 +1342,8 @@ def phase_llm_residency(env: str) -> dict:
         _timed_phase(f"tiny qwen {env}=1", phase_tiny_qwen)
         dev = torch.device("cuda")
         torch.cuda.reset_peak_memory_stats()
-        config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
+        config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True,
+                                     num_hidden_layers=RESIDENCY_LAYERS)
         params = qw.init_random_quant_params(config, seed=0, device=dev)
         t0 = time.perf_counter()
         tok = _CountingTokenizer()
@@ -1346,7 +1354,8 @@ def phase_llm_residency(env: str) -> dict:
                   for part, name in (("attn", "qkv"), ("attn", "o"), ("mlp", "gate_up"),
                                      ("mlp", "down"))}
         leaves["lm_head"] = type(engine.params["lm_head"]["w"]).__name__
-        print(f"llm {env}=1: converted in {time.perf_counter() - t0:.2f} s, "
+        print(f"llm {env}=1 ({RESIDENCY_LAYERS} layers): converted in "
+              f"{time.perf_counter() - t0:.2f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, "
               f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; leaves {leaves}")
         rng = np.random.default_rng(7)
@@ -1381,6 +1390,522 @@ def phase_llm_residency(env: str) -> dict:
             os.environ.pop(name, None)
 
 
+# ---------------------------------------------------------------------------
+# the probes (K10-K12) and whisper from a 4-bit checkpoint
+# ---------------------------------------------------------------------------
+
+PROBE_ROWS = 24  # the probes' default batch
+QUANT_VARIANTS = {  # K10a-g: name -> (row key, TPU function's line)
+    "accum": ("probe_accum", 78), "e1": ("probe_e1", 232), "e2": ("probe_e2", 247),
+    "e3": ("probe_e3", 281), "e5": ("probe_e5", 370), "e6": ("probe_e6", 446),
+    "e7": ("probe_e7", 558)}
+
+
+# K10 variant -> its name among the probe's own closures (make_variants)
+PROBE_FN = {"accum": "accum", "e1": "e1", "e2": "e2", "e3": "e3", "e5": "e5",
+            "e6": "e6-t256", "e7": "e7-t256"}
+
+
+def _variant_plain(name, x, q):
+    """The variant's plain version on the card's tensors (the wrapper would
+    launch the kernel there), over operands made from ``q`` as the probe
+    makes them."""
+    kw = {}
+    if name in ("e2", "e3"):
+        kw["scale_w"], bias_w = pqm.make_scale_words(q)
+        if name == "e2":
+            kw["bias_w"] = bias_w
+    if name in ("e3", "e6", "e7"):
+        kw["xg"] = pqm.group_sums(x, q.group_size, in_fp32=name != "e3")
+    w = {"e5": lambda: pqm.repack_strided(q).w_q, "e7": lambda: q.w_q.T.contiguous()}.get(
+        name, lambda: q.w_q)()
+    return pqm.variant_plain(name, x, w, q.scales, q.biases, q.bits, q.group_size, **kw)
+
+
+def _variant_bytes(name, q, m) -> int:
+    """Bytes the variant must move: its weight words, the affines it reads
+    (c: two bf16 per-word tables, d: one and the raw biases), x, xg, out."""
+    n, k = q.shape
+    words, affine = _nbytes(q.w_q), _nbytes(q.scales)
+    table = q.w_q.numel() * 2
+    weights = {"e2": words + 2 * table, "e3": words + table + affine}.get(
+        name, words + 2 * affine)
+    xg = m * (k // q.group_size) * 2 if name in ("e3", "e6", "e7") else 0
+    return weights + 2 * m * (k + n) + xg
+
+
+def phase_probe_kernels() -> dict:
+    """K10a-g at the five large-v3 decode-step shapes (24 rows, bf16, int4
+    group 64) against their plain versions and against K5 on the same
+    weights, with L2 cold as a decode step finds each layer; K11 at the
+    cross and self shapes against its plain version and K3 on the same
+    codes; K12's five stages. Returns the JSON rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    m = PROBE_ROWS
+    sums = {name: dict(ms=0.0, plain=0.0, nbytes=0, err=0.0, k5=0.0) for name in QUANT_VARIANTS}
+    lib_ms = k5_ms = ops = 0.0
+    for k, n, label in bench_quant_kernel.SHAPES:
+        q = tq.quantize(torch.randn((n, k), generator=gen, device=dev) * 0.02, 4, 64)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        fns = bench_quant_kernel.make_variants(q)  # each closes over its own operands
+        nbytes = _nbytes(q.w_q, q.scales, q.biases)
+        packed = _layer_copies(lambda: dataclasses.replace(
+            q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), nbytes)
+        copies = [bench_quant_kernel.make_variants(c) for c in packed]
+        w_bf = [c.dequantize(torch.bfloat16) for c in packed]
+        ref5 = tq.quant_matmul(x, q).float()
+        scale = max(1.0, ref5.abs().max().item())
+        line = []
+        for name, s in sums.items():
+            got, ref = fns[PROBE_FN[name]](x), _variant_plain(name, x, q)
+            tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+            s["err"] = max(s["err"], _check(f"probe {name} {label} K={k} N={n} M={m}", got, ref, tol))
+            rel5 = float((got.float() - ref5).abs().max() / ref5.abs().max())
+            s["k5"] = max(s["k5"], rel5)
+            if name != "e7" and rel5 > 2e-2:
+                raise AssertionError(f"probe {name} {label}: rel err {rel5} against K5")
+            del got, ref
+            ms = _cold_ms(lambda c: c[PROBE_FN[name]](x), copies)
+            s["ms"] += ms
+            s["plain"] += _device_ms(lambda: _variant_plain(name, x, q), reps=3, warmup=1)
+            s["nbytes"] += _variant_bytes(name, q, m)
+            line.append(f"{name} {ms * 1e3:.1f} us (vs K5 {rel5:.1e})")
+        k5 = _cold_ms(lambda c: tq.quant_matmul(x, c), packed)
+        lib = _cold_ms(lambda w: torch.matmul(x, w.T), w_bf)
+        k5_ms, lib_ms, ops = k5_ms + k5, lib_ms + lib, ops + 2 * m * n * k
+        print(f"    {label} at {m} rows, L2 cold: " + ", ".join(line)
+              + f"; K5 {k5 * 1e3:.1f} us, bf16 torch.matmul {lib * 1e3:.1f} us")
+        if label == "qkv-fused":  # the other side of K5's GEMV / tiled switch: 8 rows
+            x8 = x[:8].contiguous()
+            ref8 = tq.quant_matmul(x8, q).float()
+            for name in sums:
+                got = fns[PROBE_FN[name]](x8)
+                _check(f"probe {name} {label} M=8", got, _variant_plain(name, x8, q),
+                       QMM_TOL * scale)
+                rel8 = float((got.float() - ref8).abs().max() / ref8.abs().max())
+                assert name == "e7" or rel8 <= 2e-2, f"probe {name} M=8: {rel8} against K5"
+        del copies, packed, w_bf, fns
+        torch.cuda.empty_cache()
+    print(f"  K10 over the five shapes at {m} rows: K5 {k5_ms:.4f} ms, bf16 torch.matmul "
+          f"{lib_ms:.4f} ms; e7's error against K5 {sums['e7']['k5']:.3f} (relative: the "
+          "reference parks it as unsound in bf16)")
+    rows = {}
+    for name, (key, line_no) in QUANT_VARIANTS.items():
+        s = sums[name]
+        rows[key] = dict(
+            name=f"probe_quant_matmul_{name}", route="cuda",
+            source="whisper_mlx_tpu_torch/csrc/probe_quant_matmul.cu",
+            replaces=f"scripts/bench_quant_kernel.py:{line_no}", max_abs_err=s["err"],
+            ms=s["ms"], plain_ms=s["plain"], **_bound(s["nbytes"], ops, "bf16"),
+            library_ms=lib_ms, rel_err_vs_k5=s["k5"])
+    rows.update(_probe_attention_kernels(gen))
+    for key, r in rows.items():
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"))
+    return rows
+
+
+def _probe_attention_kernels(gen) -> dict:
+    """K11 and K12 at the probes' shapes: B 24, H 20, hd 64."""
+    dev = gen.device
+    b, h = PROBE_ROWS, 20
+    rows = {}
+    ms = plain = nbytes = ops = 0.0
+    errs = []
+    for label, tk_real, causal, pos in bench_decode_attention.CASES:
+        tk = -(-tk_real // 128) * 128
+        k8, ks = quantize_kv(torch.randn((b, h, tk, 64), generator=gen, device=dev))
+        v8, vs = quantize_kv(torch.randn((b, h, tk, 64), generator=gen, device=dev))
+        q = (torch.randn((b, h, 1, 64), generator=gen, device=dev) * 0.2).to(torch.bfloat16)
+        kw = dict(pos=pos, causal=causal, valid_len=tk_real)
+
+        def layer():
+            return (k8.transpose(2, 3).contiguous(), ks.float(), v8.clone(), vs.float())
+
+        c0 = layer()
+        ref = pda.batched_attention_plain(q, *c0, **kw)
+        tol = ATTN_TOL * max(1.0, ref.float().abs().max().item())
+        for tile in (8, 16, 32):
+            got = pda.batched_attention(q, *c0, bh_tile=tile, **kw)
+            errs.append(_check(f"batched_attention {label} Tk={tk} bh_tile={tile}", got, ref, tol))
+        _check(f"batched_attention {label} against K3 on the same codes", got,
+               da.decode_attention(q, k8, ks, v8, vs, **kw), tol)
+        copies = _layer_copies(layer, _nbytes(*c0))
+        times = {tile: _cold_ms(lambda c: pda.batched_attention(q, *c, bh_tile=tile, **kw), copies)
+                 for tile in (8, 16, 32)}
+        k3_copies = _layer_copies(lambda: (k8.clone(), ks.clone(), v8.clone(), vs.clone()),
+                                  _nbytes(k8, ks, v8, vs))
+        k3 = _cold_ms(lambda c: da.decode_attention(q, *c, **kw), k3_copies)
+        live = pos + 1 if causal else tk_real
+        print(f"    {label} Tk={tk} ({live} live keys): K11 "
+              + ", ".join(f"bh_tile {t} {v * 1e3:.1f} us" for t, v in times.items())
+              + f"; K3 {k3 * 1e3:.1f} us")
+        ms += times[16]
+        plain += _cold_ms(lambda c: pda.batched_attention_plain(q, *c, **kw), copies, reps=8)
+        # the live positions once: K and V codes, both fp32 scales; q in, out
+        nbytes += b * h * live * (64 + 64 + 4 + 4) + 2 * _nbytes(q)
+        ops += b * h * live * 2 * 2 * 64
+        del copies, k3_copies
+    rows["probe_batched"] = dict(
+        name="probe_batched_attention", route="cuda",
+        source="whisper_mlx_tpu_torch/csrc/probe_decode_attention.cu",
+        replaces="scripts/bench_decode_attention.py:87", max_abs_err=max(errs), ms=ms,
+        plain_ms=plain, **_bound(nbytes, ops, "fp32"), library_ms=None)
+
+    bh, tk, tile = b * h, bench_da_ablation.TK, 16
+    q = (torch.randn((bh, 1, 64), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+
+    def blocks():
+        return tuple(torch.randint(-127, 128, (bh, 64, tk), generator=gen, device=dev,
+                                   dtype=torch.int8) for _ in range(2))
+
+    copies = [blocks() for _ in range(3)]  # 94 MB each (47 MB of K): past the L2 at every stage
+    for stage in pda.STAGES:
+        got = pda.ablation_stage(q, *copies[0], stage, tile)
+        ref = pda.ablation_stage_plain(q, *copies[0], stage)
+        err = _check(f"ablation stage {stage} bh_tile={tile}", got, ref,
+                     ATTN_TOL * max(1.0, ref.float().abs().max().item()))
+        moved = (1 if stage == "dmak" else 2) * bh * 64 * tk
+        rows[f"probe_{stage}"] = dict(
+            name=f"probe_ablation_{stage}", route="cuda",
+            source="whisper_mlx_tpu_torch/csrc/probe_decode_attention.cu",
+            replaces="scripts/bench_da_ablation.py:65", max_abs_err=err,
+            ms=_cold_ms(lambda c: pda.ablation_stage(q, *c, stage, tile), copies),
+            plain_ms=_cold_ms(lambda c: pda.ablation_stage_plain(q, *c, stage), copies, reps=8),
+            # the blocks the stage moves, q in and out; both dots from `dots` on
+            **_bound(moved + 2 * _nbytes(q),
+                     bh * tk * 2 * 2 * 64 if stage in ("dots", "full") else 0, "fp32"),
+            library_ms=None)
+    return rows
+
+
+def phase_probe_mains() -> dict:
+    """The three probe entry points, each once through its main() as
+    ``python -m whisper_mlx_tpu_torch.probes.<name>`` runs it. Returns the
+    launches of K10a-g, K11 and K12's stages over these runs."""
+    for name in pqm.LAUNCHES:
+        pqm.LAUNCHES[name] = 0
+    for stage in pda.STAGE_LAUNCHES:
+        pda.STAGE_LAUNCHES[stage] = 0
+    pda.LAUNCHES = 0
+    for probe in (bench_quant_kernel, bench_decode_attention, bench_da_ablation):
+        print(f"  python -m {probe.__name__}:")
+        rc = probe.main([])
+        assert rc == 0, f"{probe.__name__} returned {rc}"
+    torch.cuda.synchronize()
+    launches = {QUANT_VARIANTS[name][0]: n for name, n in pqm.LAUNCHES.items()}
+    launches["probe_batched"] = pda.LAUNCHES
+    launches.update({f"probe_{stage}": n for stage, n in pda.STAGE_LAUNCHES.items()})
+    print(f"  launches over the three probes: {launches}")
+    for key, n in launches.items():
+        assert n > 0, f"kernel {key} was not launched by its probe"
+    return launches
+
+
+QUANT4 = {"bits": 4, "group_size": 64}
+
+
+def phase_tiny_quant() -> None:
+    """The tiny config quantized by quantize_params, exported by
+    export_mlx_whisper and loaded by load_mlx_whisper on both devices (bf16
+    serving config): prefill logits card (K2, K3, K5) vs CPU (plain
+    versions), then greedy token agreement."""
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    base = WHISPER_CONFIGS["tiny"]
+    tok = _bench_tokenizer(base.n_vocab)
+    rng = np.random.default_rng(1)
+    t = np.arange(N_SAMPLES) / 16000.0
+    audio = np.stack([(0.3 * np.sin(2 * np.pi * (150 + 100 * i) * t)
+                       * (1 + np.sin(2 * np.pi * 2.5 * t))
+                       + 0.02 * rng.standard_normal(N_SAMPLES)).astype(np.float32)
+                      for i in range(2)])
+    mel = torch.stack([log_mel_spectrogram(torch.from_numpy(a), base.n_mels) for a in audio])
+    logits, trees = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        export_mlx_whisper(tq.quantize_params(init_params(base, seed=0), **QUANT4), base, tmp,
+                           quantization=QUANT4)
+        for device in (cpu, dev):
+            params, config = load_mlx_whisper(tmp, device=device)
+            trees[device.type], config = apply_asr_serving_config(params, config, dev)
+    attn = trees["cuda"]["decoder"]["blocks"][0]["attn"]
+    print(f"tiny 4-bit: {attn['qkv']['w']!r} fused qkv, bias {attn['qkv']['b'].dtype}, token "
+          f"table {trees['cuda']['decoder']['token_emb']!r}")
+    before = qm.LAUNCHES
+    with torch.inference_mode():
+        for device in (cpu, dev):
+            params = trees[device.type]
+            states = encode(params, mel.to(device), config)
+            init = torch.tensor([tok.sot_sequence] * 2, device=device)
+            out, _ = decode_step(params, init, 0, init_kv_cache(config, 2, device, 8),
+                                 cross_kv(params, states, config), config)
+            logits[device.type] = out.float().cpu()
+    assert qm.LAUNCHES > before, "the packed prefill did not launch K5"
+    ref = logits["cpu"]
+    _check("tiny 4-bit prefill logits cuda vs cpu", logits["cuda"], ref,
+           TINY_LOGIT_TOL * max(1.0, ref.abs().max().item()))
+    opts = DecodingOptions(sample_len=32)
+    same, total = _agreement(decode(trees["cpu"], mel, tok, config, opts),
+                             decode(trees["cuda"], mel.to(dev), tok, config, opts))
+    print(f"  tiny 4-bit token agreement: {same}/{total}")
+
+
+def _zero_whisper_counts() -> None:
+    _zero_counts()
+    dn.FAST_LAUNCHES = qm.LAUNCHES = mb.LAUNCHES = 0
+
+
+def _whisper_counts() -> dict:
+    return {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES,
+            "decode_int": da.INT_DOT_LAUNCHES, "beamflat": bf.LAUNCHES, "quant": qm.LAUNCHES,
+            "mbt": mb.LAUNCHES}
+
+
+def _timed_decode(label, params, config, tok, audio, opts, runs: int = 2):
+    """A 16-step warm-up (the policy's conversion, cuBLAS handles, the
+    allocator), then ``runs`` timed passes of log_mel_spectrogram ->
+    decode() over the windows in ``audio``; prints the rate and the launches
+    of one pass; returns the last pass's results."""
+    def pipeline(options):
+        mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
+        return decode(params, mel, tok, config, options)
+
+    with torch.inference_mode():
+        pipeline(dataclasses.replace(opts, sample_len=16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        _zero_whisper_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            results = pipeline(opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    rows = audio.shape[0] * (opts.beam_size or 1)
+    print(f"{label}: {audio.shape[0]} windows x 30 s, {rows} rows, sample_len {opts.sample_len}: "
+          f"{times} s (best {best:.3f} s), {sum(len(r.tokens) for r in results)} tokens, "
+          f"{audio.shape[0] * 30.0 / best:.2f} audio-s/s; launches {_whisper_counts()}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return results
+
+
+def _check_whisper_linears(params) -> dict:
+    """K5 and K6 against their plain versions at the shapes the 4-bit main
+    path gives them: the loaded tree's own leaves (fused qkv 1280 -> 3840,
+    o 1280 -> 1280, fc1 1280 -> 5120, fc2 5120 -> 1280 and the ragged
+    logits 1280 -> 51866, which K6's policy leaves packed) at 1 and 8 rows
+    (a decode step of the CLI and of the 8-window batch) and 3 and 24 (their
+    prefills). K6's leaves are those that prepare_mbt_params makes of them.
+    Returns the largest error of each kernel."""
+    block = params["decoder"]["blocks"][0]
+    leaves = {"qkv": block["attn"]["qkv"]["w"], "o": block["attn"]["o"]["w"],
+              "fc1": block["mlp"]["fc1"]["w"], "fc2": block["mlp"]["fc2"]["w"],
+              "logits": params["decoder"]["token_emb"]}
+    transposed = tq.prepare_mbt_params({"decoder": {"token_emb": leaves["logits"]},
+                                        **{k: v for k, v in leaves.items() if k != "logits"}})
+    assert isinstance(transposed["decoder"]["token_emb"], tq.QuantTensor)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    errs = {"quant_err": 0.0, "mbt_err": 0.0}
+    for label, q in leaves.items():
+        assert isinstance(q, tq.QuantTensor), f"{label}: {type(q).__name__}"
+        n, k = q.shape
+        for m in (1, 3, 8, 24):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, q.bits, q.group_size)
+            tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+            errs["quant_err"] = max(errs["quant_err"], _check(
+                f"quant_matmul whisper {label} N={n} K={k} M={m}", tq.quant_matmul(x, q), ref, tol))
+            if label == "logits":
+                continue
+            qt = transposed[label]
+            assert isinstance(qt, mb.QuantTensorT), f"{label}: {type(qt).__name__}"
+            ref = mb.quant_matmul_mbt_plain(x, qt)
+            tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+            errs["mbt_err"] = max(errs["mbt_err"], _check(
+                f"quant_matmul_mbt whisper {label} N={n} K={k} M={m}", tq.quant_matmul(x, qt),
+                ref, tol))
+    return errs
+
+
+def _tokens(results) -> list:
+    return [r.tokens for r in results]
+
+
+def phase_quant_main_path() -> dict:
+    """Whisper large-v3 at full width from a 4-bit mlx-format checkpoint
+    written here (phase 15 of the module docstring). Returns the launch
+    counts of the 4-bit path: K1, K2, K3 and K5 on the CLI run, K6 under
+    WTPU_FEWROW_MBT=1, K2's bf16-softmax mode."""
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    tok = _bench_tokenizer(base.n_vocab)
+    audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
+    greedy = DecodingOptions(sample_len=224, without_timestamps=False)
+    beam = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
+
+    def load(**kw):
+        return apply_asr_serving_config(*load_mlx_whisper(ckpt, device=dev, **kw), dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "whisper-large-v3-4bit")
+        t0 = time.perf_counter()
+        export_mlx_whisper(
+            tq.quantize_params(init_params(base, seed=0, device=dev, dtype=torch.bfloat16),
+                               **QUANT4), base, ckpt, quantization=QUANT4)
+        size = os.path.getsize(os.path.join(ckpt, "weights.safetensors"))
+        print(f"4-bit checkpoint: large-v3 bf16 weights from seed 0 quantized on the card and "
+              f"written in {time.perf_counter() - t0:.2f} s, {size / 2**20:.0f} MiB")
+        torch.cuda.empty_cache()
+
+        # (a) the CLI on the 65 s WAV. Random weights fail every fallback
+        # threshold, so each window walks the ladder, cut to three rungs to
+        # keep the run short: 1 row at T = 0, then best_of 5 -> 5 rows at 0.5
+        # and 1.0. All stay packed (<= 16 rows), so no conversion is cached.
+        wav = os.path.join(tmp, "clip.wav")
+        _write_wav(wav, 65.0)
+        _zero_whisper_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([wav, "-f", "txt", "--output-name", "out", "-o", tmp, "--model", ckpt,
+                       "--condition-on-previous-text", "False", "--verbose", "False",
+                       "--temperature-increment-on-fallback", "0.5"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _whisper_counts()
+        assert not tq._DENSE_DECODE_CACHE, "a run of at most 5 rows converted the packed tree"
+        assert rc == 0 and os.path.exists(os.path.join(tmp, "out.txt")), "CLI wrote no .txt"
+        print(f"4-bit main path: CLI --model <mlx 4-bit dir> on a 65 s WAV in {seconds:.2f} s; "
+              f"launches {launches}")
+        for key in ("mel", "dense", "decode", "quant"):
+            assert launches[key] > 0, f"kernel {key} was not launched on the 4-bit CLI run"
+        assert launches["mbt"] == 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        params, config = load()
+        torch.cuda.synchronize()
+        print(f"  load_mlx_whisper onto the card: {time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        attn = params["decoder"]["blocks"][0]["attn"]
+        assert isinstance(attn["qkv"]["w"], tq.QuantTensor)
+        assert attn["qkv"]["b"].dtype == torch.bfloat16
+        with torch.inference_mode():
+            mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
+            states = encode(params, mel[:1], config)
+            cache = init_kv_cache(config, 1, dev, 8)
+            xkv = cross_kv(params, states, config)
+            logits, _ = decode_step(params, torch.tensor([tok.sot_sequence], device=dev), 0,
+                                    cache, xkv, config)
+            assert torch.isfinite(logits).all(), "non-finite 4-bit large-v3 logits"
+            before = qm.LAUNCHES
+            decode_step(params, torch.full((1, 1), tok.timestamp_begin, device=dev), 3, cache,
+                        xkv, config)
+            per_step = qm.LAUNCHES - before
+        print(f"  K5 launches in one decode step: {per_step} (6 linears x 32 layers + the logits)")
+        assert per_step == 6 * config.n_text_layer + 1, per_step
+        del states, cache, xkv, logits
+        launches.update(_check_whisper_linears(params))  # after the CLI run's counts were read
+
+        # (b) 8 windows greedy: 8 rows, packed, K5's GEMV at its widest
+        res_packed = _timed_decode("4-bit batch (packed, K5)", params, config, tok, audio, greedy,
+                                   runs=1)
+        assert qm.LAUNCHES > 0 and mb.LAUNCHES == 0
+        _breakdown(params, config, tok, audio)
+
+        # (c) the same under WTPU_FEWROW_MBT=1: the tree transposed once, K6
+        os.environ["WTPU_FEWROW_MBT"] = "1"
+        try:
+            res_mbt = _timed_decode("4-bit batch (WTPU_FEWROW_MBT=1, K6)", params, config, tok,
+                                    audio, greedy, runs=1)
+            launches["mbt"] = mb.LAUNCHES
+            assert mb.LAUNCHES > 0, "K6 was not launched under WTPU_FEWROW_MBT=1"
+            assert len(tq._DENSE_DECODE_CACHE) == 1, "the warm-up's conversion was not reused"
+            same, total = _agreement(res_packed, res_mbt)
+            print(f"  tokens agree with the packed run {same}/{total}")
+            _breakdown(tq.maybe_dense_decode_params(params, 8, config.dtype), config, tok, audio)
+        finally:
+            del os.environ["WTPU_FEWROW_MBT"]
+            tq._DENSE_DECODE_CACHE.clear()
+
+        # (d) 8 windows x beam 5: 40 rows, the dense route (unfused, dequantized once)
+        res_beam = _timed_decode("4-bit beam batch (dense route)", params, config, tok, audio,
+                                 beam, runs=1)
+        assert qm.LAUNCHES == 0 and mb.LAUNCHES == 0, "the 40-row route launched K5 or K6"
+        assert len(tq._DENSE_DECODE_CACHE) == 1, "the warm-up's conversion was not reused"
+        print(f"  policy cache: {len(tq._DENSE_DECODE_CACHE)} conversion(s); "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with the packed and "
+              "the dense tree on the card")
+        tq._DENSE_DECODE_CACHE.clear()
+        dense = tq.dequantize_params(load(fuse_qkv=False)[0], torch.bfloat16)
+        _encoder_dequant_cost(params, dense, config, mel)
+        res_dense = _timed_decode("the same model dequantized up front", dense, config, tok,
+                                  audio, beam, runs=1)
+        assert _tokens(res_beam) == _tokens(res_dense), \
+            "the 40-row route's tokens differ from the model dequantized up front"
+        print(f"  beam tokens equal the model dequantized up front: "
+              f"{sum(len(t) for t in _tokens(res_beam))} tokens")
+
+        # (e) WTPU_DEQUANT_AT_LOAD=1: dense at load, greedy tokens equal (d)'s dense model
+        os.environ["WTPU_DEQUANT_AT_LOAD"] = "1"
+        try:
+            at_load, _ = load()
+        finally:
+            del os.environ["WTPU_DEQUANT_AT_LOAD"]
+    assert not isinstance(at_load["decoder"]["token_emb"], tq.QuantTensor)
+    short = DecodingOptions(sample_len=64, without_timestamps=False)
+    with torch.inference_mode():
+        _zero_whisper_counts()
+        a, b = decode(at_load, mel, tok, config, short), decode(dense, mel, tok, config, short)
+    assert qm.LAUNCHES == 0 and _tokens(a) == _tokens(b), \
+        "WTPU_DEQUANT_AT_LOAD=1 tokens differ from the dequantized model"
+    print(f"  WTPU_DEQUANT_AT_LOAD=1: greedy tokens equal the dequantized model "
+          f"({sum(len(t) for t in _tokens(a))} tokens, no K5 launch)")
+    del at_load, dense
+
+    # (f) K2's bf16-softmax mode on the 8-window encode
+    os.environ["WTPU_DENSE_SOFTMAX"] = "bf16"
+    try:
+        dn.FAST_LAUNCHES = 0
+        with torch.inference_mode():
+            fast = encode(params, mel, config)
+        torch.cuda.synchronize()
+        launches["dense_fast"] = dn.FAST_LAUNCHES
+    finally:
+        del os.environ["WTPU_DENSE_SOFTMAX"]
+    with torch.inference_mode():
+        exact = encode(params, mel, config)
+    diff = (fast.float() - exact.float()).abs().max().item()
+    print(f"  WTPU_DENSE_SOFTMAX=bf16: {launches['dense_fast']} K2 launches in that mode on the "
+          f"8-window encode; encoder states differ from the exact softmax by {diff:.3e} "
+          f"(|states| max {exact.float().abs().max().item():.3e})")
+    assert launches["dense_fast"] == config.n_audio_layer and torch.isfinite(fast).all()
+    return launches
+
+
+def _encoder_dequant_cost(params, dense, config, mel) -> None:
+    """The encoder on packed weights dequantizes each of its linears at every
+    call (1500 rows a window is past the kernels' 512): its time beside the
+    same encoder on weights dequantized once."""
+    def timed(p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(p, mel, config)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        timed(params), timed(dense)
+        packed_ms, dense_ms = min(timed(params) for _ in range(2)), min(timed(dense) for _ in range(2))
+    print(f"  encoder, {mel.shape[0]} windows: {packed_ms:.1f} ms on packed weights (192 "
+          f"dequantizations a call), {dense_ms:.1f} ms on weights dequantized once: "
+          f"{packed_ms - dense_ms:.1f} ms of dequantization")
+
+
 def _timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1388,34 +1913,68 @@ def _timed_phase(name, fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
+    parser.add_argument("--only", default="", help="comma-separated phases to run after the "
+                        "device and build phases (a partial run prints no result line and exits 2): "
+                        "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
+                        "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
+                        "quant_main")
+    only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    rows, launches, on_4bit = {}, {}, {}
+
+    def residency():
+        out = {}
+        for env in RESIDENCY:
+            gc.collect()
+            torch.cuda.empty_cache()
+            out.update(_timed_phase(f"llm residency {env}", phase_llm_residency, env))
+        return out
+
+    # name -> (title, function, where its result goes)
+    phases = {
+        "kernels": ("kernels", phase_kernels, rows),
+        "tiny": ("tiny", phase_tiny, None),
+        "main": ("main path", phase_main_path, launches),
+        "beam": ("beam main path", phase_beam_main_path, launches),
+        "llm_kernels": ("llm kernels", phase_llm_kernels, rows),
+        "tiny_qwen": ("tiny qwen", phase_tiny_qwen, None),
+        "llm": ("llm main path", phase_llm_main_path, launches),
+        "residency_kernels": ("llm residency kernels", phase_residency_kernels, rows),
+        "residency": ("llm residency", residency, launches),
+        "probe_kernels": ("probe kernels", phase_probe_kernels, rows),
+        "probe_mains": ("probe entry points", phase_probe_mains, launches),
+        "tiny_quant": ("tiny 4-bit whisper", phase_tiny_quant, None),
+        "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
+    }
+    unknown = [name for name in only if name not in phases]
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
     _timed_phase("device", phase_device)
     _timed_phase("build", phase_build)
-    rows = _timed_phase("kernels", phase_kernels)
-    _timed_phase("tiny", phase_tiny)
-    launches = _timed_phase("main path", phase_main_path)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(_timed_phase("beam main path", phase_beam_main_path))
-    gc.collect()
-    torch.cuda.empty_cache()
-    rows.update(_timed_phase("llm kernels", phase_llm_kernels))
-    _timed_phase("tiny qwen", phase_tiny_qwen)
-    launches.update(_timed_phase("llm main path", phase_llm_main_path))
-    gc.collect()
-    torch.cuda.empty_cache()
-    rows.update(_timed_phase("llm residency kernels", phase_residency_kernels))
-    for env in RESIDENCY:
+    for name, (title, fn, sink) in phases.items():
+        if only and name not in only:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
-        launches.update(_timed_phase(f"llm residency {env}", phase_llm_residency, env))
+        out = _timed_phase(title, fn)
+        if sink is not None:
+            sink.update(out)
+    if only:
+        print(f"partial run ({', '.join(only)}): no result line, exit code 2")
+        return 2
+    launches["dense_fast"] = on_4bit["dense_fast"]
     kernels = []
     for key, mod_launches in launches.items():
         row = dict(rows[key])
         row["launches"] = mod_launches
+        if key in ("mel", "dense", "decode", "quant", "mbt"):
+            row["launches_4bit"] = on_4bit[key]
+        if key in ("quant", "mbt"):  # at the large-v3 shapes, beside the Qwen3-32B ones
+            row["max_abs_err_4bit"] = on_4bit[f"{key}_err"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(_smi())

@@ -1,7 +1,8 @@
 """The Hopper kernels of whisper_mlx_tpu_torch against their plain PyTorch
 versions, on a GPU, the beam path's kernels (K8, K3's integer-dot mode, K9)
 and the LLM's weight-residency kernels (K6, K7) on tiny models card
-against CPU.
+against CPU, the probe kernels (K10a-g, K11, K12) and the 4-bit whisper
+path card against CPU.
 
 Tests marked ``cuda`` skip without a GPU: a CUDA kernel has no CPU mode.
 This file imports neither jax nor the JAX package, so on a machine with a
@@ -20,7 +21,9 @@ fp32 products as its plain version, so one bf16 ulp in bf16 and ``1e-5 *
 max(1, |ref|max)`` in fp32. The integer-dot modes (K3, K8) take
 the attention tolerance too: the card's expf and the CPU's exp may differ
 in an ulp, which can move one dynamic w * vs code by one step, at most
-max(w * vs) on the output. The lane kernel (K9) moves bytes: exact.
+max(w * vs) on the output. The lane kernel (K9) moves bytes: exact. The
+probe matmuls (K10) take the quantized matmul's tolerances, the probe
+attention kernels (K11, K12) the attention tolerance.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from whisper_mlx_tpu_torch.ops import flash_attention as fa
 from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
+from whisper_mlx_tpu_torch.ops import probe_decode_attention as pda
+from whisper_mlx_tpu_torch.ops import probe_quant_matmul as pqm
 from whisper_mlx_tpu_torch.ops import quant as tq
 from whisper_mlx_tpu_torch.ops import quant_a8 as a8
 from whisper_mlx_tpu_torch.ops import quant_matmul as qm
@@ -73,8 +78,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert path.parent == tmp_path / "kernels" and path.suffix == ".so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "a8_matmul.cu", "beamflat_attention.cu", "decode_attention.cu", "dense_attention.cu",
-        "flash_attention.cu", "lane_permute.cu", "mel.cu", "quant_matmul.cu",
-        "quant_matmul_mb.cu"]
+        "flash_attention.cu", "lane_permute.cu", "mel.cu", "probe_decode_attention.cu",
+        "probe_quant_matmul.cu", "quant_matmul.cu", "quant_matmul_mb.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attend_row.cuh",
                                                                  "quant_tile.cuh"]
 
@@ -557,3 +562,208 @@ def _filter_cfg(tok):
 
     return FilterConfig(eot=tok.eot, no_timestamps=tok.no_timestamps,
                         timestamp_begin=tok.timestamp_begin, sample_begin=3)
+
+
+# ---------------------------------------------------------------------------
+# K2's bf16-softmax mode, the probe kernels, the 4-bit whisper path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk", [(2, 20, 1500, 1500), (1, 3, 130, 333)])
+def test_dense_kernel_fast_softmax_matches_plain(cuda, monkeypatch, b, h, tq, tk):
+    """K2 in its bf16-softmax mode against the plain version in that mode;
+    the mode is read from WTPU_DENSE_SOFTMAX when not given."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((b, h, t, 64), generator=gen, device=cuda).mul(s).bfloat16()
+               for t, s in ((tq, 0.35), (tk, 0.35), (tk, 1.0)))
+    got = dn.dense_attention(q, k, v, fast_softmax=True)
+    torch.cuda.synchronize()
+    ref = dn.dense_attention_plain(q, k, v, fast_softmax=True)
+    assert _max_err(got, ref) <= _attn_tol(ref)
+    assert not torch.equal(got, dn.dense_attention(q, k, v, fast_softmax=False))
+    monkeypatch.setenv("WTPU_DENSE_SOFTMAX", "bf16")
+    assert torch.equal(dn.dense_attention(q, k, v), got)
+
+
+PROBE_VARIANTS = ("accum", "e1", "e2", "e3", "e5", "e6-t256", "e6-t512", "e7-t256", "e7-t512")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PROBE_VARIANTS)
+@pytest.mark.parametrize("m,n,k,dtype", [
+    (24, 3840, 1280, torch.bfloat16),   # the probe's qkv-fused
+    (24, 1280, 5120, torch.bfloat16),   # fc2
+    (24, 51968, 1280, torch.bfloat16),  # logits
+    (3, 100, 128, torch.bfloat16),      # ragged: N not a multiple of a block's columns
+    (9, 72, 256, torch.float32),
+])
+def test_probe_quant_kernels_match_plain(cuda, variant, m, n, k, dtype):
+    """K10a-g, as the probe's entry point calls them (int4, group 64),
+    against their plain versions on the same operands."""
+    from whisper_mlx_tpu_torch.probes.bench_quant_kernel import make_variants
+
+    gen = torch.Generator(device=cuda).manual_seed(n + k + m)
+    q = tq.quantize(torch.randn((n, k), generator=gen, device=cuda) * k ** -0.5, 4)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    before = sum(pqm.LAUNCHES.values())
+    got = make_variants(q)[variant](x)
+    torch.cuda.synchronize()
+    assert sum(pqm.LAUNCHES.values()) == before + 1
+    cpu_q = tq.QuantTensor(q.w_q.cpu(), q.scales.cpu(), q.biases.cpu(), 4, 64)
+    ref = make_variants(cpu_q)[variant](x.cpu())
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, ref.float().abs().max().item())
+    assert got.dtype == dtype and _max_err(got.cpu(), ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["accum", "e1", "e2", "e3", "e5", "e6"])
+def test_probe_quant_kernels_int8_match_plain(cuda, variant):
+    """The variants that take 8-bit codes (e7 is an int4 function)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = tq.quantize(torch.randn((40, 128), generator=gen, device=cuda) * 0.1, 8)
+    x = torch.randn((5, 128), generator=gen, device=cuda).bfloat16()
+    sw, bw = pqm.make_scale_words(q)
+    calls = {"accum": lambda x, q, sw, bw: pqm.quant_matmul_variant(x, q, 128),
+             "e1": lambda x, q, sw, bw: pqm.quant_matmul_e1(x, q, 128),
+             "e2": lambda x, q, sw, bw: pqm.quant_matmul_e2(x, q, sw, bw, 128),
+             "e3": lambda x, q, sw, bw: pqm.quant_matmul_e3(x, q, sw, 128),
+             "e5": lambda x, q, sw, bw: pqm.quant_matmul_e5(x, pqm.repack_strided(q), 128),
+             "e6": lambda x, q, sw, bw: pqm.quant_matmul_e6(x, q, 128)}
+    got = calls[variant](x, q, sw, bw)
+    torch.cuda.synchronize()
+    cpu_q = tq.QuantTensor(q.w_q.cpu(), q.scales.cpu(), q.biases.cpu(), 8, 64)
+    ref = calls[variant](x.cpu(), cpu_q, sw.cpu(), bw.cpu())
+    assert _max_err(got.cpu(), ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tk,tq,kw,bh_tile", [
+    (24, 1536, 1, dict(valid_len=1500), 16),
+    (24, 512, 1, dict(valid_len=448, causal=True, pos=200), 8),
+    (24, 512, 1, dict(valid_len=448, causal=True, pos=200), 32),
+    (1, 132, 3, dict(valid_len=131, causal=True, pos=7), 7),  # ragged: 20 pairs, 7 a block
+])
+def test_batched_attention_kernel_matches_plain_and_k3(cuda, b, tk, tq, kw, bh_tile):
+    """K11 against its plain version and, for one query row, against K3 on
+    the same codes in K3's position-major layout."""
+    gen = torch.Generator(device=cuda).manual_seed(tk)
+    k = torch.randn((b, 20, tk, 64), generator=gen, device=cuda)
+    v = torch.randn((b, 20, tk, 64), generator=gen, device=cuda)
+    k8, ks = kq.quantize_kv(k)
+    v8, vs = kq.quantize_kv(v)
+    k8t = k8.transpose(2, 3).contiguous()
+    q = (torch.randn((b, 20, tq, 64), generator=gen, device=cuda) * 0.2).bfloat16()
+    before = pda.LAUNCHES
+    got = pda.batched_attention(q, k8t, ks.float(), v8, vs.float(), bh_tile=bh_tile, **kw)
+    torch.cuda.synchronize()
+    assert pda.LAUNCHES == before + 1
+    ref = pda.batched_attention_plain(q, k8t, ks.float(), v8, vs.float(), **kw)
+    assert _max_err(got, ref) <= _attn_tol(ref)
+    k3 = da.decode_attention(q, k8, ks, v8, vs, **kw)
+    assert _max_err(got, k3) <= _attn_tol(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", pda.STAGES)
+@pytest.mark.parametrize("bh,tk,bh_tile", [(480, 1536, 16), (10, 272, 4)])
+def test_ablation_kernel_matches_plain(cuda, stage, bh, tk, bh_tile):
+    """K12's five stages against their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(tk)
+    kt = torch.randint(-127, 128, (bh, 64, tk), generator=gen, device=cuda, dtype=torch.int8)
+    vt = torch.randint(-127, 128, (bh, 64, tk), generator=gen, device=cuda, dtype=torch.int8)
+    q = (torch.randn((bh, 1, 64), generator=gen, device=cuda) * 0.1).bfloat16()
+    before = pda.STAGE_LAUNCHES[stage]
+    got = pda.ablation_stage(q, kt, vt, stage, bh_tile)
+    torch.cuda.synchronize()
+    assert pda.STAGE_LAUNCHES[stage] == before + 1
+    ref = pda.ablation_stage_plain(q, kt, vt, stage)
+    assert _max_err(got, ref) <= _attn_tol(ref)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_raise_on_cuda_tensors_they_do_not_take(cuda):
+    """A wrapper launches its kernel or raises: no plain version on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = tq.quantize(torch.randn((64, 128), generator=gen, device=cuda), 4)
+    x = torch.randn((4, 128), generator=gen, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="x must be"):
+        pqm.quant_matmul_e6(x.half(), q)
+    with pytest.raises(ValueError, match="512 rows"):
+        pqm.quant_matmul_e1(x.repeat(200, 1), q)
+    with pytest.raises(ValueError, match="device"):
+        pqm.quant_matmul_e6(x, tq.QuantTensor(q.w_q.cpu(), q.scales.cpu(), q.biases.cpu(), 4, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        pqm.quant_matmul_e7(x, q.w_q.T, q.scales, q.biases, 4, 64)  # a transposed view
+    k8t = torch.zeros((1, 2, 64, 130), dtype=torch.int8, device=cuda)
+    v8 = torch.zeros((1, 2, 130, 64), dtype=torch.int8, device=cuda)
+    s = torch.ones((1, 2, 130), device=cuda)
+    aq = torch.zeros((1, 2, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pda.batched_attention(aq, k8t, s, v8, s)  # fp32 queries
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pda.batched_attention(aq.bfloat16(), k8t, s, v8, s)  # Tk 130
+    k8t, v8, s = k8t[..., :128].contiguous(), v8[:, :, :128].contiguous(), s[..., :128].contiguous()
+    with pytest.raises(ValueError, match="shared memory"):
+        pda.batched_attention(aq.bfloat16(), k8t.repeat(1, 1, 1, 16),
+                              s.repeat(1, 1, 16), v8.repeat(1, 1, 16, 1), s.repeat(1, 1, 16),
+                              bh_tile=32)  # 32 x 2048 scores
+    kt = torch.zeros((2, 64, 136), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pda.ablation_stage(aq.bfloat16().reshape(2, 1, 64), kt, kt, "full")
+    kt = torch.zeros((2, 64, 1536), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pda.ablation_stage(aq.bfloat16().reshape(2, 1, 64), kt, kt, "full", bh_tile=32)
+
+
+@pytest.mark.cuda
+def test_whisper_tiny_4bit_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The tiny config quantized, exported as an mlx-format directory and
+    loaded on both devices: prefill logits card vs CPU, K5 on the decode
+    linears, K6 under WTPU_FEWROW_MBT=1, no K5/K6 on the 20-row dense route."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.checkpoint.quant_loader import export_mlx_whisper, load_mlx_whisper
+    from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode
+    from whisper_mlx_tpu_torch.decoding.tokenizer import make_synthetic_tokenizer
+    from whisper_mlx_tpu_torch.models import whisper as tw
+    from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
+
+    tok = make_synthetic_tokenizer()
+    base = dataclasses.replace(tw.WHISPER_CONFIGS["tiny"], n_vocab=tok.n_vocab)
+    quant = {"bits": 4, "group_size": 64}
+    export_mlx_whisper(tq.quantize_params(tw.init_params(base, seed=0), **quant), base, tmp_path,
+                       quantization=quant)
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3000, 80))
+                           .astype(np.float32))
+    logits, trees = {}, {}
+    for dev in ("cpu", "cuda"):
+        params, config = load_mlx_whisper(tmp_path, device=dev)
+        params, config = apply_asr_serving_config(params, config, "cuda")
+        assert isinstance(params["decoder"]["blocks"][0]["attn"]["qkv"]["w"], tq.QuantTensor)
+        trees[dev] = params
+        with torch.inference_mode():
+            states = tw.encode(params, mel.to(dev), config)
+            init = torch.tensor([tok.sot_sequence] * 2, device=dev)
+            out, _ = tw.decode_step(params, init, 0, tw.init_kv_cache(config, 2, dev, 8),
+                                    tw.cross_kv(params, states, config), config)
+        logits[dev] = out.float().cpu()
+    ref = logits["cpu"]
+    assert torch.isfinite(logits["cuda"]).all()
+    assert _max_err(logits["cuda"], ref) <= 5e-2 * max(1.0, ref.abs().max().item())
+    opts = DecodingOptions(sample_len=12)
+    qm.LAUNCHES = mb.LAUNCHES = 0
+    res = decode(trees["cuda"], mel.to(cuda), tok, config, opts)
+    assert qm.LAUNCHES > 0 and mb.LAUNCHES == 0 and all(r.tokens for r in res)
+    monkeypatch.setenv("WTPU_FEWROW_MBT", "1")
+    qm.LAUNCHES = 0
+    decode(trees["cuda"], mel.to(cuda), tok, config, opts)
+    assert mb.LAUNCHES > 0
+    monkeypatch.delenv("WTPU_FEWROW_MBT")
+    with torch.inference_mode():
+        states = tw.encode(trees["cuda"], mel.to(cuda).repeat(2, 1, 1), config)
+    qm.LAUNCHES = mb.LAUNCHES = 0
+    dense = decode(trees["cuda"], states, tok, config, DecodingOptions(sample_len=8, beam_size=5),
+                   states_precomputed=True)  # 4 windows x beam 5 = 20 rows
+    assert qm.LAUNCHES == 0 and mb.LAUNCHES == 0 and len(dense) == 4
+    tq._DENSE_DECODE_CACHE.clear()

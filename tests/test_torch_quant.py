@@ -169,7 +169,7 @@ def test_quant_matmul_lower_row_bound_on_cpu(monkeypatch):
     np.testing.assert_allclose(got.numpy(), (x @ q.dequantize().T).numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("leaf,item", [("NativeQuantTensor", "M15"), ("DenseWeight", "M9")])
+@pytest.mark.parametrize("leaf,item", [("NativeQuantTensor", "M15"), ("DenseWeight", "M15")])
 def test_unported_leaf_types_raise(leaf, item):
     fake = type(leaf, (), {})()
     with pytest.raises(NotImplementedError, match=item):

@@ -65,7 +65,7 @@ def test_converter_layouts(pair):
 
 @pytest.mark.parametrize("mutate,error", [
     ("unknown_key", ValueError), ("missing", ValueError),
-    ("fused_qkv", NotImplementedError), ("int_leaf", NotImplementedError),
+    ("fused_qkv", ValueError), ("int_leaf", NotImplementedError),
 ])
 def test_converter_rejects_unknown(pair, mutate, error):
     tree, _, _, _, tcfg = pair
@@ -73,7 +73,7 @@ def test_converter_rejects_unknown(pair, mutate, error):
     attn = bad["decoder"]["blocks"][0]["attn"]
     if mutate == "unknown_key":
         bad["encoder"]["extra"] = np.zeros(3, np.float32)
-    elif mutate == "fused_qkv":
+    elif mutate == "fused_qkv":  # a fused projection beside the three it replaces
         attn["qkv"] = {"w": np.zeros((64, 192), np.float32)}
     elif mutate == "int_leaf":
         attn["q"]["w"] = np.zeros((64, 64), np.int8)

@@ -9,11 +9,12 @@ structure of torch tensors in PyTorch's layouts:
 - conv ``w`` ``(k, in, out)`` -> ``(out, in, k)``;
 - ``pos_emb``, ``token_emb`` and LayerNorm ``g``/``b`` as they are.
 
-An unknown or missing key raises ``ValueError``. A fused ``qkv``
-projection or a quantized weight in a whisper tree raises
-``NotImplementedError``: ``QuantTensor`` and ``quant_matmul`` (K5) exist
-(``ops/quant.py``), but whisper's quantized walkers, its fused ``qkv`` and
-the whisper loaders are ROADMAP.md M9.
+A quantized whisper tree converts too: ``QuantTensor`` leaves (already
+``(out, in)``; numpy children) at a linear's ``w`` or at ``token_emb``,
+``QuantTensorT`` leaves (the few-row transposed layout) and fused ``qkv``
+nodes (``ops/quant.py:fuse_whisper_qkv``) keep their codes, scales and
+biases bit for bit. An unknown or missing key raises ``ValueError``; a leaf
+type the port lacks (native-code residency) raises ``NotImplementedError``.
 
 ``qwen_params_from_jax`` converts a Qwen tree (``models/qwen.py``), whose
 ``QuantTensor``, ``QuantTensorT`` and ``A8Tensor`` leaves carry numpy
@@ -36,14 +37,15 @@ from whisper_mlx_tpu_torch.ops.quant_matmul_mb import QuantTensorT
 
 _LN = ("g", "b")
 _ATTN = ("q", "k", "v", "o")
+_FUSED_ATTN = ("qkv", "o")
 _DENSE = ("w", "b")
 
 
 def _tensor(a: Any, path: str, device, dtype, layout: str) -> torch.Tensor:
     if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
-        raise NotImplementedError(f"params_from_jax: {path} is {type(a).__name__}, not a "
-                                  "float numpy array: quantized whisper weights (walkers "
-                                  "and loaders) are ROADMAP.md M9")
+        raise NotImplementedError(f"params_from_jax: {path} is {type(a).__name__}: only float "
+                                  "numpy arrays and QuantTensor / QuantTensorT leaves are "
+                                  "ported (native-code residency: ROADMAP.md M15)")
     if layout == "linear":
         a = a.T
     elif layout == "conv":
@@ -55,9 +57,6 @@ def _keys(node: Any, allowed: tuple[str, ...], path: str, required=()) -> None:
     if not isinstance(node, dict):
         raise ValueError(f"params_from_jax: {path} is not a dict")
     unknown = set(node) - set(allowed)
-    if "qkv" in unknown:
-        raise NotImplementedError(f"params_from_jax: fused whisper qkv projection at "
-                                  f"{path}: ROADMAP.md M9")
     if unknown:
         raise ValueError(f"params_from_jax: unknown keys {sorted(unknown)} at {path}")
     missing = set(required) - set(node)
@@ -73,9 +72,13 @@ def params_from_jax(tree: Params, config: WhisperConfig, device="cpu",
     def t(a, path, layout="as_is"):
         return _tensor(a, path, device, dtype, layout)
 
+    def weight(a, path, layout):
+        q = _quant_leaf(a, device)
+        return t(a, path, layout) if q is None else q
+
     def dense(node, path):
         _keys(node, _DENSE, path, required=("w",))
-        out = {"w": t(node["w"], f"{path}.w", "linear")}
+        out = {"w": weight(node["w"], f"{path}.w", "linear")}
         if "b" in node:
             out["b"] = t(node["b"], f"{path}.b")
         return out
@@ -85,8 +88,9 @@ def params_from_jax(tree: Params, config: WhisperConfig, device="cpu",
         return {"g": t(node["g"], f"{path}.g"), "b": t(node["b"], f"{path}.b")}
 
     def attn(node, path):
-        _keys(node, _ATTN, path, required=_ATTN)
-        return {k: dense(node[k], f"{path}.{k}") for k in _ATTN}
+        names = _FUSED_ATTN if isinstance(node, dict) and "qkv" in node else _ATTN
+        _keys(node, names, path, required=names)
+        return {k: dense(node[k], f"{path}.{k}") for k in names}
 
     def block(node, path, cross: bool):
         names = ("attn_ln", "attn", "mlp_ln", "mlp")
@@ -127,7 +131,7 @@ def params_from_jax(tree: Params, config: WhisperConfig, device="cpu",
             "ln_post": ln(enc["ln_post"], "encoder.ln_post"),
         },
         "decoder": {
-            "token_emb": t(dec["token_emb"], "decoder.token_emb"),
+            "token_emb": weight(dec["token_emb"], "decoder.token_emb", "as_is"),
             "pos_emb": t(dec["pos_emb"], "decoder.pos_emb"),
             "blocks": [block(b, f"decoder.blocks.{i}", cross=True)
                        for i, b in enumerate(dec["blocks"])],
@@ -177,7 +181,8 @@ def _a8_leaf(a: Any, device) -> A8Tensor:
                     _f32(np.asarray(a.scale)[0, :n], device), int(a.tile_n), int(a.depth))
 
 
-def _qwen_leaf(a: Any, path: str, device, dtype, transpose: bool):
+def _quant_leaf(a: Any, device):
+    """A JAX quantized leaf -> the port's, or None for any other leaf."""
     kind = type(a).__name__
     if kind == "QuantTensor":
         return QuantTensor(torch.from_numpy(_words(a.w_q)).to(device), _f32(a.scales, device),
@@ -186,6 +191,13 @@ def _qwen_leaf(a: Any, path: str, device, dtype, transpose: bool):
         return _mbt_leaf(a, device)
     if kind == "A8Tensor":
         return _a8_leaf(a, device)
+    return None
+
+
+def _qwen_leaf(a: Any, path: str, device, dtype, transpose: bool):
+    q = _quant_leaf(a, device)
+    if q is not None:
+        return q
     if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
         raise NotImplementedError(f"qwen_params_from_jax: {path} is {type(a).__name__}: only "
                                   "float numpy arrays and QuantTensor, QuantTensorT and "

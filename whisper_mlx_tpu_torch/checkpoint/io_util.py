@@ -1,11 +1,11 @@
-"""Safetensors shards -> numpy dicts, read without the ``safetensors`` package.
+"""Safetensors files read and written without the ``safetensors`` package.
 
 Counterpart of ``whisper_mlx_tpu/checkpoint/io_util.py``, which goes
-through ``safetensors``; the port reads the format itself, so a machine
-without that package loads checkpoints too. The format: an 8-byte
-little-endian header length, a JSON header mapping each name to its
-``dtype``, ``shape`` and ``data_offsets`` (relative to the end of the
-header), then the raw little-endian bytes.
+through ``safetensors``; the port reads and writes the format itself, so a
+machine without that package loads and exports checkpoints too. The
+format: an 8-byte little-endian header length, a JSON header mapping each
+name to its ``dtype``, ``shape`` and ``data_offsets`` (relative to the end
+of the header), then the raw little-endian bytes.
 
 Results are the reference's values as numpy arrays in their stored dtype,
 except bf16, which numpy lacks: it comes back as fp32 (the reference's
@@ -24,6 +24,37 @@ import torch
 _NUMPY = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
           "I32": np.int32, "I16": np.int16, "I8": np.int8, "U64": np.uint64,
           "U32": np.uint32, "U16": np.uint16, "U8": np.uint8, "BOOL": np.bool_}
+
+
+_CODES = {np.dtype(v): k for k, v in _NUMPY.items()}
+
+
+def save_safetensors_file(path: str | Path, tensors: dict) -> None:
+    """Write numpy arrays or torch tensors (bf16 too, which numpy lacks) as
+    one safetensors file, in the order given; the header is padded with
+    spaces to a multiple of 8 bytes, as the format's own writer does."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            code, shape = "BF16", list(t.shape)
+            raw = t.detach().cpu().contiguous().view(torch.int16).numpy().tobytes()
+        else:
+            arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            if arr.dtype not in _CODES:
+                raise ValueError(f"{path}: tensor {name} has unsupported dtype {arr.dtype}")
+            code, shape = _CODES[arr.dtype], list(arr.shape)
+            raw = np.ascontiguousarray(arr.astype(arr.dtype.newbyteorder("<"))).tobytes()
+        header[name] = {"dtype": code, "shape": shape,
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
 
 
 def load_safetensors_dir(model_dir: str | Path) -> dict[str, np.ndarray]:

@@ -4,10 +4,14 @@
         --model large-v3 --condition-on-previous-text False \
         --hallucination-silence-threshold 1 [--device cuda]
 
-Counterpart of ``whisper_mlx_tpu/cli.py``. ``--model`` names a size in
+Counterpart of ``whisper_mlx_tpu/cli.py``. ``--model`` is a checkpoint: an
+OpenAI ``.pt`` file, an mlx-format directory (``n_audio_state`` in its
+``config.json``; 4/8-bit weights stay packed, with fused qkv) or an HF
+directory, given as a path or as a name under ``--model-dir``, with the
+tokenizer from the directory or the synthetic one; or a size in
 ``WHISPER_CONFIGS`` (random weights from seed 0, built on the device, with
 the synthetic tokenizer, as the JAX CLI does without a checkpoint) or
-``test-tiny``. Loading checkpoint directories is ROADMAP.md M9.
+``test-tiny``.
 ``--device`` defaults to ``cuda`` and raises when no GPU is present.
 ``--beam-size B`` (with ``--patience``) decodes the T=0 rung by beam search.
 """
@@ -15,11 +19,15 @@ the synthetic tokenizer, as the JAX CLI does without a checkpoint) or
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from pathlib import Path
 
-from whisper_mlx_tpu_torch.decoding.tokenizer import make_synthetic_tokenizer
+from whisper_mlx_tpu_torch.checkpoint.hf_loader import load_whisper
+from whisper_mlx_tpu_torch.checkpoint.openai_loader import load_openai_whisper
+from whisper_mlx_tpu_torch.checkpoint.quant_loader import load_mlx_whisper
+from whisper_mlx_tpu_torch.decoding.tokenizer import load_tokenizer, make_synthetic_tokenizer
 from whisper_mlx_tpu_torch.inference.transcribe import transcribe
 from whisper_mlx_tpu_torch.inference.writers import get_writer
 from whisper_mlx_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig, init_params
@@ -79,8 +87,20 @@ def build_parser() -> argparse.ArgumentParser:
 def load_model(model: str, model_dir: str | None, device):
     """Resolve --model to (params, config, tokenizer) on ``device``."""
     path = Path(model)
-    if path.exists() or (model_dir and (Path(model_dir) / model.replace("/", "--")).exists()):
-        raise NotImplementedError("loading checkpoints: ROADMAP.md M9")
+    if not path.exists() and model_dir:
+        path = Path(model_dir) / model.replace("/", "--")
+    if path.is_file() and path.suffix == ".pt":  # the original OpenAI release
+        params, config = load_openai_whisper(path, device=device)
+        return params, config, make_synthetic_tokenizer()
+    if path.exists():
+        cfg = json.loads((path / "config.json").read_text())
+        load = load_mlx_whisper if "n_audio_state" in cfg else load_whisper
+        params, config = load(path, device=device)
+        try:
+            tokenizer = load_tokenizer(path, num_languages=100 if config.n_vocab == 51866 else 99)
+        except FileNotFoundError:
+            tokenizer = make_synthetic_tokenizer()
+        return params, config, tokenizer
     if model == "test-tiny":
         tokenizer = make_synthetic_tokenizer()
         config = WhisperConfig(

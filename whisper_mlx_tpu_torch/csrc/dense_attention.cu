@@ -8,6 +8,10 @@
 //     s = q . k^T   (bf16 in, fp32 accumulate; keys >= Tk masked)
 //     w = softmax(s) in fp32, rounded to bf16
 //     out = w . v   (bf16 in, fp32 accumulate) -> bf16
+// and, in the TPU kernel's bf16-softmax mode (fast_softmax,
+// WTPU_DENSE_SOFTMAX=bf16), its rounding points instead: the scores rounded
+// to bf16, the row max taken over those, p = bf16(exp(bf16(s - max))), the
+// denominator the fp32 sum of those bf16 p, w = bf16(p * bf16(1 / denom)).
 //
 // What bounds it on the H100: tensor-core FLOPs and the fp32 softmax. At the
 // encoder shape (B*20 heads, T=1500, hd=64) one layer is 4*B*20*1500^2*64
@@ -21,7 +25,9 @@
 // denominator with tensor-core (wmma bf16 -> fp32) scores; pass 2 recomputes
 // the scores, forms the normalized weights, rounds them to bf16 exactly as
 // the reference does, and accumulates w . v in wmma fp32 accumulators. No
-// score matrix reaches device memory. Not yet wgmma/TMA: that is later work.
+// score matrix reaches device memory. The bf16-softmax mode needs the exact
+// row max before any exponential is rounded, so it takes one more pass over
+// the keys in front (scores and max only). Not yet wgmma/TMA: later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -86,6 +92,16 @@ __device__ __forceinline__ void score_tile(const Smem& sm, float* s_w,
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// p of the bf16-softmax mode: bf16(exp(bf16(bf16(s) - m))), m a bf16 value
+__device__ __forceinline__ float fast_p(float s, float m) {
+  return round_bf16(expf(round_bf16(round_bf16(s) - m)));
+}
+
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS)
 dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -117,6 +133,24 @@ dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run = NEG;
   float l_run = 0.f;
 
+  // bf16-softmax mode, pass 0: the row max of the bf16-rounded scores
+  if constexpr (FAST) {
+    for (int key0 = 0; key0 < tk; key0 += BK) {
+      __syncthreads();
+      load_tile(sm.k, kb, key0, tk);
+      __syncthreads();
+      score_tile(sm, s_w, qa);
+      __syncwarp();
+      const float* row = s_w + r * LDS + half * 32;
+      const int kbase = key0 + half * 32;
+      for (int c = 0; c < 32; ++c) {
+        if (kbase + c < tk) m_run = fmaxf(m_run, round_bf16(row[c]));
+      }
+      __syncwarp();
+    }
+    m_run = fmaxf(m_run, __shfl_xor_sync(FULL, m_run, 1));
+  }
+
   // pass 1: row max and softmax denominator
   for (int key0 = 0; key0 < tk; key0 += BK) {
     __syncthreads();
@@ -126,21 +160,29 @@ dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
     __syncwarp();
     const float* row = s_w + r * LDS + half * 32;
     const int kbase = key0 + half * 32;
-    float mt = NEG;
-    for (int c = 0; c < 32; ++c) {
-      if (kbase + c < tk) mt = fmaxf(mt, row[c]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-    const float m_new = fmaxf(m_run, mt);
     float sum = 0.f;
-    for (int c = 0; c < 32; ++c) {
-      if (kbase + c < tk) sum += expf(row[c] - m_new);
+    if constexpr (FAST) {
+      for (int c = 0; c < 32; ++c) {
+        if (kbase + c < tk) sum += fast_p(row[c], m_run);
+      }
+      l_run += sum + __shfl_xor_sync(FULL, sum, 1);
+    } else {
+      float mt = NEG;
+      for (int c = 0; c < 32; ++c) {
+        if (kbase + c < tk) mt = fmaxf(mt, row[c]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
+      const float m_new = fmaxf(m_run, mt);
+      for (int c = 0; c < 32; ++c) {
+        if (kbase + c < tk) sum += expf(row[c] - m_new);
+      }
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      l_run = l_run * expf(m_run - m_new) + sum;
+      m_run = m_new;
     }
-    sum += __shfl_xor_sync(FULL, sum, 1);
-    l_run = l_run * expf(m_run - m_new) + sum;
-    m_run = m_new;
     __syncwarp();
   }
+  const float inv_l = round_bf16(1.f / l_run);  // the bf16-softmax mode's factor
 
   // pass 2: normalized bf16 weights times V
   FragC o[HD / 16];
@@ -157,7 +199,10 @@ dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* prow = p_w + r * LDH + half * 32;
     const int kbase = key0 + half * 32;
     for (int c = 0; c < 32; ++c) {
-      const float w = (kbase + c < tk) ? expf(row[c] - m_run) / l_run : 0.f;
+      float w = 0.f;
+      if (kbase + c < tk) {
+        w = FAST ? fast_p(row[c], m_run) * inv_l : expf(row[c] - m_run) / l_run;
+      }
       prow[c] = __float2bfloat16(w);
     }
     __syncwarp();
@@ -193,14 +238,15 @@ dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" int wmt_dense_attention(const void* q, const void* k, const void* v,
                                    void* out, int bh, int tq, int tk,
-                                   void* stream) {
+                                   int fast_softmax, void* stream) {
   if (bh < 1 || tq < 1 || tk < 1 || bh > 65535) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
+  auto kernel = fast_softmax ? dense_attn_kernel<true> : dense_attn_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((tq + BQ - 1) / BQ, bh);
-  dense_attn_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, tq, tk);
   return (int)cudaGetLastError();

@@ -29,6 +29,7 @@ from whisper_mlx_tpu_torch.models.whisper import (
     encode,
     init_kv_cache,
 )
+from whisper_mlx_tpu_torch.ops.quant import maybe_dense_decode_params
 
 
 @dataclass(frozen=True)
@@ -202,7 +203,13 @@ def decode(
     ``mel_or_states``: (batch, 3000, n_mels) mel, or (batch, 1500, d)
     encoder states when ``states_precomputed``. ``generator`` drives the
     temperature > 0 draws.
+
+    A packed 4/8-bit tree goes through ``maybe_dense_decode_params`` first:
+    by the loop's matmul rows (windows x beam_size or best_of) it stays
+    packed for the fused kernels or is dequantized once, cached across calls.
     """
+    n_rows = mel_or_states.shape[0] * (options.beam_size or options.best_of or 1)
+    params = maybe_dense_decode_params(params, n_rows, dtype=config.dtype)
     if options.beam_size is not None:
         from whisper_mlx_tpu_torch.decoding.beam import beam_decode_task
 

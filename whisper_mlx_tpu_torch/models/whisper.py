@@ -47,7 +47,7 @@ from whisper_mlx_tpu_torch.ops.decode_attention import decode_attention
 from whisper_mlx_tpu_torch.ops.dense_attention import dense_attention
 from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
-from whisper_mlx_tpu_torch.ops.quant import quant_matmul
+from whisper_mlx_tpu_torch.ops.quant import quant_matmul, quant_rows
 
 Params = dict[str, Any]
 
@@ -78,6 +78,9 @@ class WhisperConfig:
     # integer-dot attention over the quantized caches (kernel K3's and K8's
     # int_dot mode): q and w * vs re-quantized per row, s8 x s8 -> s32 dots
     attn_mxu: bool = _ATTN_MXU_DEFAULT
+    # (layer, head) pairs for word-timestamp alignment, carried through an
+    # mlx-format checkpoint's config.json (word timestamps: ROADMAP.md M8)
+    alignment_heads: tuple[tuple[int, int], ...] | None = None
 
     @property
     def head_dim(self) -> int:
@@ -127,11 +130,21 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    b = p.get("b")
-    return F.linear(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype))
+    """``x @ w.T + b``; a quantized ``w`` (``QuantTensor``, ``QuantTensorT``)
+    goes through ``quant_matmul``: kernels K5 / K6 up to 512 rows,
+    dequantize + matmul above (the encoder's 1500 rows a window)."""
+    w, b = p["w"], p.get("b")
+    if not isinstance(w, torch.Tensor):
+        y = quant_matmul(x, w)
+        return y if b is None else y + b.to(x.dtype)
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
-def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def embed_tokens(emb, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Token embedding lookup; a quantized table dequantizes the rows it
+    gathers only."""
+    if not isinstance(emb, torch.Tensor):
+        return quant_rows(emb, tokens, dtype=dtype)
     return emb.to(dtype)[tokens]
 
 
@@ -180,9 +193,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _qkv_proj(h: torch.Tensor, attn: Params, n_head: int):
-    return (_split_heads(linear(h, attn["q"]), n_head),
-            _split_heads(linear(h, attn["k"]), n_head),
-            _split_heads(linear(h, attn["v"]), n_head))
+    """Self-attention q/k/v -> (b, h, t, hd) each. A quantized checkpoint
+    may carry one stacked ``qkv`` (``ops/quant.py:fuse_whisper_qkv``): one
+    dequant-matmul instead of three."""
+    if "qkv" in attn:
+        q, k, v = linear(h, attn["qkv"]).chunk(3, dim=-1)
+    else:
+        q, k, v = (linear(h, attn[name]) for name in ("q", "k", "v"))
+    return _split_heads(q, n_head), _split_heads(k, n_head), _split_heads(v, n_head)
 
 
 def mha(x: torch.Tensor, p: Params, n_head: int, use_flash: bool = False) -> torch.Tensor:

@@ -35,8 +35,8 @@ _I = ctypes.c_int
 SIGNATURES: dict[str, list] = {
     # frames, cos, sin, fbT, out, n_frames, n_bins, n_mels, stream
     "wmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, out, bh, tq, tk, stream
-    "wmt_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, out, bh, tq, tk, fast_softmax, stream
+    "wmt_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, ks, v, vs, out, bq, h, tq, t_alloc, group, pos, causal,
     # valid_len, bits, int_dot, stream
     "wmt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -62,6 +62,13 @@ SIGNATURES: dict[str, list] = {
     "wmt_a8_quantize": [_P, _P, _P, _I, _I, _I, _P],
     # xq, sx, codes, scale, out, m, n, k, out_bf16, stream
     "wmt_a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, xg, w, scales, biases, scale_w, bias_w, out, m, n, k, bits,
+    # group_size, variant, threads, x_bf16, stream
+    "wmt_probe_qmm": [_P] * 8 + [_I] * 8 + [_P],
+    # q, kt, ks, v, vs, out, bh, tq, tk, valid_len, causal, pos, bh_tile, stream
+    "wmt_probe_batched_attention": [_P] * 6 + [_I] * 7 + [_P],
+    # q, kt, vt, out, bh, tk, stage, bh_tile, stream
+    "wmt_probe_ablation": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

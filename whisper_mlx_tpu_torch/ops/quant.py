@@ -20,8 +20,15 @@ with ``WTPU_QMM_MB="depth[,tile_n]"`` to K6 transposing per call; a
 ``QuantTensorT`` (``prepare_mbt_params``, ``WTPU_MBT_RESIDENT``) to K6
 (``ops/quant_matmul_mb.py``); an ``A8Tensor`` (``ops/quant_a8.py``,
 ``WTPU_QWEN_A8``) to K7. The reference's other resident layouts
-(``NativeQuantTensor``, ``DenseWeight``) and the whisper walkers are not
-ported: ROADMAP.md M9 and M15.
+(``NativeQuantTensor``, ``DenseWeight``, both made by its
+``prepare_native_params``) are not ported: ROADMAP.md M15.
+
+The whisper walkers: :func:`quantize_params` (what an mlx-community 4-bit
+checkpoint quantizes), :func:`fuse_whisper_qkv` / :func:`unfuse_whisper_qkv`
+(one stacked self-attention projection for the packed path) and
+:func:`maybe_dense_decode_params`, the reference's serving policy by decode
+rows: at most ``WTPU_DENSE_ROWS_MIN`` (16) rows keep the packed tree on K5
+(on K6 with ``WTPU_FEWROW_MBT=1``), more rows unfuse and dequantize once.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from whisper_mlx_tpu_torch.ops.quant_matmul import quant_matmul_kernel
 # leaf types of the reference that the port does not have yet -> ROADMAP item
 _NOT_PORTED = {
     "NativeQuantTensor": "M15 (native-code residency)",
-    "DenseWeight": "M9 (dequantize-once residency)",
+    "DenseWeight": "M15 (dequantize-once native residency)",
 }
 
 
@@ -179,6 +186,147 @@ def dequantize_params(params: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
     if isinstance(params, list):
         return [dequantize_params(v, dtype) for v in params]
     return params
+
+
+def quantize_params(params: dict, bits: int = 4, group_size: int = 64) -> dict:
+    """Quantize every eligible linear of a whisper tree, as mlx-community
+    checkpoints do: each 2-D ``w`` whose input dim is a multiple of
+    ``group_size``, and the token embedding. The conv stem, LayerNorms and
+    position tables stay as they are."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.dim() == 2:
+                if w.shape[1] % group_size:
+                    return node
+                new = {"w": quantize(w, bits, group_size)}
+                if "b" in node:
+                    new["b"] = node["b"]
+                return new
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    out = {"encoder": walk(params["encoder"]), "decoder": {}}
+    for name, val in params["decoder"].items():
+        if name == "token_emb":
+            ok = val.shape[1] % group_size == 0
+            out["decoder"][name] = quantize(val, bits, group_size) if ok else val
+        else:
+            out["decoder"][name] = walk(val)
+    return out
+
+
+def _map_attn(params: dict, fn) -> dict:
+    """A copy of a whisper tree with ``fn`` applied to every block's
+    self-attention node (cross-attention K/V are computed once per window,
+    so only self-attention shares activations across q, k and v)."""
+    out = dict(params)
+    for part in ("encoder", "decoder"):
+        if isinstance(out.get(part), dict) and "blocks" in out[part]:
+            out[part] = dict(out[part])
+            out[part]["blocks"] = [
+                {**blk, "attn": fn(blk["attn"])} if "attn" in blk else blk
+                for blk in out[part]["blocks"]]
+    return out
+
+
+def fuse_whisper_qkv(params: dict) -> dict:
+    """Replace q/k/v of every self-attention block whose three weights are
+    QuantTensors by one stacked ``qkv`` (one dequant-matmul instead of
+    three). Whisper's k projection has no bias: the fused bias carries fp32
+    zeros there, which adds nothing."""
+
+    def fuse(attn: dict) -> dict:
+        if not all(k in attn and isinstance(attn[k]["w"], QuantTensor) for k in ("q", "k", "v")):
+            return attn
+        qw, kw, vw = (attn[k]["w"] for k in ("q", "k", "v"))
+        zeros = torch.zeros(qw.shape[0], dtype=torch.float32, device=qw.w_q.device)
+        bias = torch.cat([attn["q"].get("b", zeros).to(torch.float32), zeros,
+                          attn["v"].get("b", zeros).to(torch.float32)])
+        return {"qkv": {"w": stack_quant([qw, kw, vw]), "b": bias}, "o": attn["o"]}
+
+    return _map_attn(params, fuse)
+
+
+def unfuse_whisper_qkv(params: dict) -> dict:
+    """Inverse of :func:`fuse_whisper_qkv`, exact: the stacked QuantTensor's
+    rows and per-row affines are sliced. Only whisper's equal-width
+    ``(3d, d)`` projections are split; k gets no bias back."""
+
+    def split(attn: dict) -> dict:
+        qkv = attn.get("qkv")
+        if qkv is None or not isinstance(qkv.get("w"), QuantTensor):
+            return attn
+        w = qkv["w"]
+        d = w.shape[1]
+        if w.shape[0] != 3 * d:
+            return attn
+
+        def rows(lo, hi):
+            return QuantTensor(w.w_q[lo:hi], w.scales[lo:hi], w.biases[lo:hi],
+                               w.bits, w.group_size)
+
+        out = {"q": {"w": rows(0, d)}, "k": {"w": rows(d, 2 * d)},
+               "v": {"w": rows(2 * d, 3 * d)}, "o": attn["o"]}
+        if qkv.get("b") is not None:
+            out["q"]["b"] = qkv["b"][:d]
+            out["v"]["b"] = qkv["b"][2 * d:]
+        return out
+
+    return _map_attn(params, split)
+
+
+def _has_quant(node: Any) -> bool:
+    if isinstance(node, QuantTensor):
+        return True
+    if isinstance(node, dict):
+        return any(_has_quant(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return any(_has_quant(v) for v in node)
+    return False
+
+
+# id(packed tree) -> (packed tree, converted tree): the strong reference to
+# the packed tree keeps its id stable, so the temperature ladder and the
+# windows of a file reuse one conversion
+_DENSE_DECODE_CACHE: dict = {}
+
+
+def maybe_dense_decode_params(params: Any, rows: int,
+                              dtype: torch.dtype = torch.bfloat16) -> Any:
+    """The serving policy for packed 4/8-bit whisper checkpoints by the
+    decode loop's matmul rows (windows x beam or best_of), as the reference
+    sets it:
+
+    - ``rows <= WTPU_DENSE_ROWS_MIN`` (16): the packed tree as it is (the
+      fused kernel K5 streams a quarter of the weight bytes), or with
+      ``WTPU_FEWROW_MBT=1`` the tree transposed once to K6's layout;
+    - more rows: the tree unfused and dequantized once to ``dtype``; the
+      loop then runs plain matmuls.
+
+    Conversions are cached by the packed tree's identity (at most three
+    entries; both trees stay on the device while cached)."""
+    few = rows <= int(os.environ.get("WTPU_DENSE_ROWS_MIN", "16"))
+    if few and os.environ.get("WTPU_FEWROW_MBT", "0") != "1":
+        return params
+    key = ("mbt", id(params)) if few else id(params)
+    hit = _DENSE_DECODE_CACHE.get(key)
+    if hit is not None and hit[0] is params:
+        return hit[1]
+    if few:
+        out = prepare_mbt_params(params)
+    elif not _has_quant(params):
+        return params
+    else:
+        # fused qkv only helps the packed path: split it back first
+        out = dequantize_params(unfuse_whisper_qkv(params), dtype=dtype)
+        if len(_DENSE_DECODE_CACHE) > 2:
+            _DENSE_DECODE_CACHE.clear()
+    _DENSE_DECODE_CACHE[key] = (params, out)
+    return out
 
 
 def _check_leaf(q: Any) -> None:

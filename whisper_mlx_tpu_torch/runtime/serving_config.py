@@ -37,7 +37,9 @@ def _env_choice(name: str, default: str, allowed: tuple[str, ...]) -> str:
 def apply_asr_serving_config(params: Any, config: Any,
                              device: torch.device | str) -> tuple[Any, Any]:
     """(params, config) -> serving-configured (params, config) for
-    ``device``; float weights are cast to the serving dtype."""
+    ``device``; float weights are cast to the serving dtype, quantized
+    leaves stay as they are (their fp32 scales and biases are the fused
+    kernels' accuracy contract)."""
     on_cuda = torch.device(device).type == "cuda"
     precision = _env_choice("WTPU_SERVE_PRECISION", "bfloat16" if on_cuda else "",
                             ("bfloat16", "float32", ""))
@@ -62,6 +64,8 @@ def apply_asr_serving_config(params: Any, config: Any,
                 return {k: walk(v) for k, v in node.items()}
             if isinstance(node, list):
                 return [walk(v) for v in node]
+            if not isinstance(node, torch.Tensor):  # QuantTensor and its kin
+                return node
             if node.dtype in (torch.float32, torch.float16):
                 return node.to(torch.bfloat16)
             return node
