@@ -13,7 +13,9 @@ GPU and without jax it runs on its own:
 Tolerances: 2e-4 absolute for the mel (fp32 FMA in another order);
 ``2e-2 * max(1, |ref|max)`` for the attention kernels, which round the
 softmax weights to bf16 (K2, K3 as the TPU kernels did; K4 where the TPU
-kernel kept fp32); for the quantized matmul ``1e-2 * max(1, |ref|max)`` in
+kernel kept fp32), and for K2 and K4 ``2e-2`` times each query row's own
+``|ref|max`` (a row that averages many keys has small values); for the
+quantized matmul ``1e-2 * max(1, |ref|max)`` in
 bf16 (sums in another order can move a result by one bf16 ulp) and
 ``1e-4 * max(1, |ref|max)`` in fp32, the same for the transposed
 dequant-matmul (K6); the W8A8 matmul (K7) computes the same int32 sums and
@@ -66,6 +68,16 @@ def _attn_tol(ref) -> float:
     return 2e-2 * max(1.0, ref.float().abs().max().item())
 
 
+def _assert_rows_close(got, ref):
+    """K2 and K4: each query row's largest error within 2e-2 times that
+    row's largest |ref|. Rows that average many keys have small values, so
+    a limit over the whole output would leave them unchecked; this one is
+    also within ``_attn_tol``."""
+    err = (got.float() - ref.float()).abs().amax(-1)
+    row_ref = ref.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    assert (err / row_ref).max().item() <= 2e-2
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """The build names the missing toolkit instead of failing obscurely;
     the library is named by a hash of the sources under build/kernels."""
@@ -81,6 +93,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         "flash_attention.cu", "lane_permute.cu", "mel.cu", "probe_decode_attention.cu",
         "probe_quant_matmul.cu", "quant_matmul.cu", "quant_matmul_mb.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attend_row.cuh",
+                                                                 "attn_tile.cuh",
                                                                  "quant_tile.cuh"]
 
 
@@ -99,7 +112,12 @@ def test_mel_kernel_matches_plain(cuda, n_mels, seconds):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,tq,tk", [(2, 20, 1500, 1500), (1, 3, 200, 200), (1, 3, 130, 333)])
+@pytest.mark.parametrize("b,h,tq,tk", [
+    (2, 20, 1500, 1500), (1, 3, 200, 200), (1, 3, 130, 333),
+    # ragged edges of the 128-row q-tile and the 128-key tile
+    (1, 2, 1, 1), (1, 2, 63, 1500), (1, 2, 64, 1500), (1, 2, 65, 1500), (1, 20, 1500, 1500),
+    (1, 3, 1, 65), (1, 3, 63, 64), (1, 3, 64, 63), (1, 3, 65, 1), (1, 2, 129, 128),
+])
 def test_dense_kernel_matches_plain(cuda, b, h, tq, tk):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((b, h, t, 64), generator=g, device=cuda) * s
@@ -109,8 +127,7 @@ def test_dense_kernel_matches_plain(cuda, b, h, tq, tk):
     got = dn.dense_attention(q, k, v)
     torch.cuda.synchronize()
     assert dn.LAUNCHES == before + 1
-    ref = dn.dense_attention_plain(q, k, v)
-    assert _max_err(got, ref) <= _attn_tol(ref)
+    _assert_rows_close(got, dn.dense_attention_plain(q, k, v))
 
 
 @pytest.mark.cuda
@@ -197,6 +214,13 @@ def test_quant_matmul_kernel_matches_plain(cuda, m, n, k, bits, dtype):
     (1, 3, 3, 100, 2100, 64, False),
     (1, 4, 2, 70, 70, 16, True),
     (1, 4, 2, 70, 90, 32, False),
+    # the LLM phase's prefill lengths (not multiples of the tile), GQA rep 8 and 1
+    (1, 64, 8, 295, 295, 128, True), (1, 8, 8, 384, 384, 128, True),
+    (1, 16, 2, 1536, 1536, 128, True),
+    # tq and tk in {1, 63, 64, 65}, hd 16-128, rep 1 and 8, causal and not
+    (1, 8, 1, 1, 1, 128, True), (1, 8, 1, 63, 63, 64, True), (1, 8, 8, 64, 64, 32, True),
+    (1, 8, 1, 65, 65, 16, True), (1, 8, 8, 1, 65, 128, False), (1, 8, 1, 63, 64, 64, False),
+    (1, 8, 8, 64, 1, 16, False), (1, 8, 1, 65, 63, 32, False), (2, 16, 2, 65, 65, 128, False),
 ])
 def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
     gen = torch.Generator(device=cuda).manual_seed(tq_ + tk)
@@ -208,8 +232,27 @@ def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
-    ref = fa.flash_attention_plain(q, k, v, causal=causal)
-    assert _max_err(got, ref) <= _attn_tol(ref)
+    _assert_rows_close(got, fa.flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dense", "dense_bf16_softmax", "flash_causal", "flash"])
+def test_attention_kernels_repeat_bit_equal(cuda, kernel):
+    """Two launches of K2 (either mode) or K4 on the same inputs agree bit
+    for bit: no atomics, one fixed order of sums."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    hd, t, kvh = (64, 1500, 4) if kernel.startswith("dense") else (128, 640, 2)
+    q, k, v = (torch.randn((2, 4 if i == 0 else kvh, t, hd), generator=gen, device=cuda)
+               .mul(0.35 if i < 2 else 1.0).bfloat16() for i in range(3))
+    if kernel.startswith("dense"):
+        def run():
+            return dn.dense_attention(q, k, v, fast_softmax=kernel == "dense_bf16_softmax")
+    else:
+        def run():
+            return fa.flash_attention(q, k, v, causal=kernel == "flash_causal")
+    first = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, run())
 
 
 @pytest.mark.cuda
@@ -570,7 +613,8 @@ def _filter_cfg(tok):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,tq,tk", [(2, 20, 1500, 1500), (1, 3, 130, 333)])
+@pytest.mark.parametrize("b,h,tq,tk", [(2, 20, 1500, 1500), (1, 3, 130, 333),
+                                       (1, 2, 65, 1500), (1, 3, 63, 129), (1, 3, 64, 65)])
 def test_dense_kernel_fast_softmax_matches_plain(cuda, monkeypatch, b, h, tq, tk):
     """K2 in its bf16-softmax mode against the plain version in that mode;
     the mode is read from WTPU_DENSE_SOFTMAX when not given."""
@@ -579,8 +623,7 @@ def test_dense_kernel_fast_softmax_matches_plain(cuda, monkeypatch, b, h, tq, tk
                for t, s in ((tq, 0.35), (tk, 0.35), (tk, 1.0)))
     got = dn.dense_attention(q, k, v, fast_softmax=True)
     torch.cuda.synchronize()
-    ref = dn.dense_attention_plain(q, k, v, fast_softmax=True)
-    assert _max_err(got, ref) <= _attn_tol(ref)
+    _assert_rows_close(got, dn.dense_attention_plain(q, k, v, fast_softmax=True))
     assert not torch.equal(got, dn.dense_attention(q, k, v, fast_softmax=False))
     monkeypatch.setenv("WTPU_DENSE_SOFTMAX", "bf16")
     assert torch.equal(dn.dense_attention(q, k, v), got)

@@ -13,225 +13,180 @@
 // to bf16, the row max taken over those, p = bf16(exp(bf16(s - max))), the
 // denominator the fp32 sum of those bf16 p, w = bf16(p * bf16(1 / denom)).
 //
-// What bounds it on the H100: tensor-core FLOPs and the fp32 softmax. At the
-// encoder shape (B*20 heads, T=1500, hd=64) one layer is 4*B*20*1500^2*64
-// FLOPs and B*20*1500^2 exponentials; the TPU kernel kept a whole 1500-key
-// fp32 score row in VMEM, which does not fit the 227 KB of shared memory a
-// block may use (64 rows x 1500 keys x 4 B = 384 KB).
+// What bounds it on the H100: tensor-core operations. At the encoder shape
+// (B*20 heads, T = 1500, hd = 64) one call is 4*B*20*1500^2*64 FLOPs over
+// 4*B*20*1500*64*2 bytes.
 //
-// Simple design: one block of 4 warps per (b*h, 64-query tile); each warp
-// owns 16 query rows. K and V stream through shared memory in 64-key tiles.
-// Two passes over the keys: pass 1 computes each row's max and softmax
-// denominator with tensor-core (wmma bf16 -> fp32) scores; pass 2 recomputes
-// the scores, forms the normalized weights, rounds them to bf16 exactly as
-// the reference does, and accumulates w . v in wmma fp32 accumulators. No
-// score matrix reaches device memory. The bf16-softmax mode needs the exact
-// row max before any exponential is rounded, so it takes one more pass over
-// the keys in front (scores and max only). Not yet wgmma/TMA: later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+// Design (attn_tile.cuh, shared with K4): a block of two consumer warpgroups
+// (64 query rows each) and one producer warpgroup that streams 128-key tiles by
+// TMA into a 4-stage ring. S = Q . K^T runs on wgmma into registers, the
+// softmax runs there, and P . V runs on wgmma with the bf16 weights as the
+// register operand and V read MN-major from the ring; the output
+// accumulator stays in registers. The reference rounds the *normalized*
+// weights to bf16, which needs each row's final max and denominator before
+// the first weight, so the keys are walked twice: pass 1 (K only) computes
+// each row's max and denominator by the online recurrence, pass 2 (K and V)
+// recomputes S and forms w = bf16(exp(s - max) / denom). The bf16-softmax
+// mode needs the exact bf16 max before any rounded exponential, so it walks
+// a pass 0 (K only, max of bf16(s)) in front, and pass 1 sums the rounded p.
+// The q-tile is the fast grid index, so the blocks of one (b, h) run
+// together and share K and V in L2.
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int HD = 64;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = HD + 8;  // bf16 row stride in shared memory
-constexpr int LDS = BK + 4;  // fp32 score row stride in shared memory
-constexpr float NEG = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace attn;
 
-struct Smem {
-  __nv_bfloat16 q[BQ * LDH];
-  __nv_bfloat16 k[BK * LDH];
-  __nv_bfloat16 v[BK * LDH];
-  float s[WARPS][16 * LDS];
-  __nv_bfloat16 p[WARPS][16 * LDH];
-};
+constexpr int HDP = 64;
+constexpr int STAGES = 4;
+using R = Ring<HDP, STAGES>;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 64 rows x 64 bf16 from a (rows, 64) row-major matrix; rows past n are 0.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int n) {
-  for (int i = threadIdx.x; i < 64 * 8; i += THREADS) {
-    const int r = i >> 3;
-    const int c = i & 7;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c * 8) = val;
-  }
-}
-
-// This warp's 16 x 64 score tile (its query rows x the staged keys).
-__device__ __forceinline__ void score_tile(const Smem& sm, float* s_w,
-                                           const FragA (&qa)[HD / 16]) {
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      FragBc kb;
-      wmma::load_matrix_sync(kb, sm.k + (j * 16) * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, qa[kk], kb, acc);
-    }
-    wmma::store_matrix_sync(s_w + j * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// p of the bf16-softmax mode: bf16(exp(bf16(bf16(s) - m))), m a bf16 value
-__device__ __forceinline__ float fast_p(float s, float m) {
-  return round_bf16(expf(round_bf16(round_bf16(s) - m)));
+// p of the bf16-softmax mode for two scores of one row: bf16(exp(bf16(bf16(s)
+// - m))), m a bf16 value, each rounding one conversion for the pair. The
+// exponential is exp2f of one product: the mode's rounding points, with an
+// fp32 exponential that may differ from expf in its last bits.
+__device__ __forceinline__ float2 fast_p2(float s0, float s1, float m) {
+  float2 r = round2_bf16(s0, s1);
+  r = round2_bf16(r.x - m, r.y - m);
+  return round2_bf16(exp2f(r.x * LOG2E), exp2f(r.y * LOG2E));
 }
 
 template <bool FAST>
-__global__ void __launch_bounds__(THREADS)
-dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int tq, int tk) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+__global__ void __launch_bounds__(THREADS, 1)
+dense_attn_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                  int tq, int tk) {
+  constexpr int PASSES = FAST ? 3 : 2;
+  extern __shared__ unsigned char smem_raw[];
+  R& ring = R::at(smem_raw);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* qb = q + (size_t)bh * tq * HD;
-  const __nv_bfloat16* kb = k + (size_t)bh * tk * HD;
-  const __nv_bfloat16* vb = v + (size_t)bh * tk * HD;
-  float* s_w = sm.s[warp];
-  __nv_bfloat16* p_w = sm.p[warp];
-
-  load_tile(sm.q, qb, q0, tq);
+  const int ntiles = (tk + BK - 1) / BK;
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
-  FragA qa[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], sm.q + (warp * 16) * LDH + kk * 16, LDH);
-  }
 
-  // two lanes per query row, 32 key columns each
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  float m_run = NEG;
-  float l_run = 0.f;
-
-  // bf16-softmax mode, pass 0: the row max of the bf16-rounded scores
-  if constexpr (FAST) {
-    for (int key0 = 0; key0 < tk; key0 += BK) {
-      __syncthreads();
-      load_tile(sm.k, kb, key0, tk);
-      __syncthreads();
-      score_tile(sm, s_w, qa);
-      __syncwarp();
-      const float* row = s_w + r * LDS + half * 32;
-      const int kbase = key0 + half * 32;
-      for (int c = 0; c < 32; ++c) {
-        if (kbase + c < tk) m_run = fmaxf(m_run, round_bf16(row[c]));
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      ring.load_q(&qmap, q0, bh);
+      for (int pass = 0, n = 0; pass < PASSES; ++pass) {
+        const CUtensorMap* v = pass == PASSES - 1 ? &vmap : nullptr;
+        for (int t = 0; t < ntiles; ++t, ++n) ring.load_kv(n, &kmap, v, t * BK, bh);
       }
-      __syncwarp();
     }
-    m_run = fmaxf(m_run, __shfl_xor_sync(FULL, m_run, 1));
-  }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const Place me(q0);
+    const bool ragged = tk % BK != 0;
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+    float s[BK / 2];
+    int n = 0;
+    mbar_wait(&ring.qbar, 0);
 
-  // pass 1: row max and softmax denominator
-  for (int key0 = 0; key0 < tk; key0 += BK) {
-    __syncthreads();
-    load_tile(sm.k, kb, key0, tk);
-    __syncthreads();
-    score_tile(sm, s_w, qa);
-    __syncwarp();
-    const float* row = s_w + r * LDS + half * 32;
-    const int kbase = key0 + half * 32;
-    float sum = 0.f;
+    // bf16-softmax mode, pass 0: the row max of the bf16-rounded scores,
+    // which is the rounded max of the scores (rounding is monotone)
     if constexpr (FAST) {
-      for (int c = 0; c < 32; ++c) {
-        if (kbase + c < tk) sum += fast_p(row[c], m_run);
+      for (int t = 0; t < ntiles; ++t, ++n) {
+        const int stage = ring.wait_full(n);
+        qk_tile<HDP>(s, ring.q[me.wg], ring.k[stage]);
+        ring.release(stage);
+        if (ragged && t == ntiles - 1) mask_tile(s, t * BK, tk, false, 0, 0, me.lane);
+        float t0, t1;
+        tile_max(s, t0, t1);
+        m0 = fmaxf(m0, t0);
+        m1 = fmaxf(m1, t1);
       }
-      l_run += sum + __shfl_xor_sync(FULL, sum, 1);
-    } else {
-      float mt = NEG;
-      for (int c = 0; c < 32; ++c) {
-        if (kbase + c < tk) mt = fmaxf(mt, row[c]);
-      }
-      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-      const float m_new = fmaxf(m_run, mt);
-      for (int c = 0; c < 32; ++c) {
-        if (kbase + c < tk) sum += expf(row[c] - m_new);
-      }
-      sum += __shfl_xor_sync(FULL, sum, 1);
-      l_run = l_run * expf(m_run - m_new) + sum;
-      m_run = m_new;
+      m0 = round_bf16(m0);
+      m1 = round_bf16(m1);
     }
-    __syncwarp();
-  }
-  const float inv_l = round_bf16(1.f / l_run);  // the bf16-softmax mode's factor
 
-  // pass 2: normalized bf16 weights times V
-  FragC o[HD / 16];
+    // pass 1: the denominator (and, in the exact mode, the max, online)
+    for (int t = 0; t < ntiles; ++t, ++n) {
+      const int stage = ring.wait_full(n);
+      qk_tile<HDP>(s, ring.q[me.wg], ring.k[stage]);
+      ring.release(stage);
+      if (ragged && t == ntiles - 1) mask_tile(s, t * BK, tk, false, 0, 0, me.lane);
+      float sum0 = 0.f, sum1 = 0.f;
+      if constexpr (FAST) {
 #pragma unroll
-  for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  for (int key0 = 0; key0 < tk; key0 += BK) {
-    __syncthreads();
-    load_tile(sm.k, kb, key0, tk);
-    load_tile(sm.v, vb, key0, tk);
-    __syncthreads();
-    score_tile(sm, s_w, qa);
-    __syncwarp();
-    const float* row = s_w + r * LDS + half * 32;
-    __nv_bfloat16* prow = p_w + r * LDH + half * 32;
-    const int kbase = key0 + half * 32;
-    for (int c = 0; c < 32; ++c) {
-      float w = 0.f;
-      if (kbase + c < tk) {
-        w = FAST ? fast_p(row[c], m_run) * inv_l : expf(row[c] - m_run) / l_run;
-      }
-      prow[c] = __float2bfloat16(w);
-    }
-    __syncwarp();
+        for (int i = 0; i < BK / 2; i += 2) {
+          const float2 p = fast_p2(s[i], s[i + 1], (i & 2) ? m1 : m0);
+          if (i & 2) sum1 += p.x + p.y; else sum0 += p.x + p.y;
+        }
+        l0 += quad_sum(sum0);
+        l1 += quad_sum(sum1);
+      } else {
+        float t0, t1;
+        tile_max(s, t0, t1);
+        const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+        const float b0 = n0 * LOG2E, b1 = n1 * LOG2E;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, p_w + kk * 16, LDH);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        FragBr vf;
-        wmma::load_matrix_sync(vf, sm.v + (kk * 16) * LDH + n * 16, LDH);
-        wmma::mma_sync(o[n], pa, vf, o[n]);
+        for (int i = 0; i < BK / 2; ++i) {
+          if (i & 2) sum1 += exp2f(fmaf(s[i], LOG2E, -b1));
+          else sum0 += exp2f(fmaf(s[i], LOG2E, -b0));
+        }
+        l0 = l0 * exp2f((m0 - n0) * LOG2E) + quad_sum(sum0);
+        l1 = l1 * exp2f((m1 - n1) * LOG2E) + quad_sum(sum1);
+        m0 = n0;
+        m1 = n1;
       }
     }
-  }
+    // the factor each weight takes: bf16(1 / denom) in the bf16-softmax mode
+    const float inv0 = FAST ? round_bf16(1.f / l0) : 1.f / l0;
+    const float inv1 = FAST ? round_bf16(1.f / l1) : 1.f / l1;
+    const float b0 = m0 * LOG2E, b1 = m1 * LOG2E;
 
-  __syncwarp();
+    // pass 2: the normalized weights, rounded to bf16 as P, times V
+    float o[HDP / 2];
 #pragma unroll
-  for (int n = 0; n < HD / 16; ++n) {
-    wmma::store_matrix_sync(s_w + n * 16, o[n], LDS, wmma::mem_row_major);
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    for (int t = 0; t < ntiles; ++t, ++n) {
+      const int stage = ring.wait_full(n);
+      qk_tile<HDP>(s, ring.q[me.wg], ring.k[stage]);
+      if (ragged && t == ntiles - 1) mask_tile(s, t * BK, tk, false, 0, 0, me.lane);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        if constexpr (FAST) {
+          if (i & 1) continue;
+          const float2 p = fast_p2(s[i], s[i + 1], (i & 2) ? m1 : m0);
+          const float inv = (i & 2) ? inv1 : inv0;
+          s[i] = p.x * inv;
+          s[i + 1] = p.y * inv;
+        } else {
+          s[i] = (i & 2) ? exp2f(fmaf(s[i], LOG2E, -b1)) * inv1
+                         : exp2f(fmaf(s[i], LOG2E, -b0)) * inv0;
+        }
+      }
+      uint32_t p[BK / 16][4];
+      pack_p(s, p);
+      pv_tile<HDP>(o, p, ring.v[stage]);
+      ring.release(stage);
+    }
+    store_out<HDP>(o, 1.f, 1.f, ring.q[me.wg], out + (size_t)bh * tq * HDP, me.row_base, tq,
+                   HDP, me.wg);
   }
-  __syncwarp();
-  __nv_bfloat16* ob = out + (size_t)bh * tq * HD;
-  for (int i = lane; i < 16 * HD; i += 32) {
-    const int rr = i / HD;
-    const int c = i - rr * HD;
-    const int qrow = q0 + warp * 16 + rr;
-    if (qrow < tq) ob[(size_t)qrow * HD + c] = __float2bfloat16(s_w[rr * LDS + c]);
+}
+
+template <bool FAST>
+int launch(const void* q, const void* k, const void* v, void* out, int bh, int tq, int tk,
+           cudaStream_t stream) {
+  auto kernel = dense_attn_kernel<FAST>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<R>());
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
   }
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(&qm, q, bh, tq, HDP, 64) || !tensor_map(&km, k, bh, tk, HDP, BK) ||
+      !tensor_map(&vm, v, bh, tk, HDP, BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((tq + BQ - 1) / BQ, bh);
+  kernel<<<grid, THREADS, smem_bytes<R>(), stream>>>(qm, km, vm, (__nv_bfloat16*)out, tq, tk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,14 +195,7 @@ extern "C" int wmt_dense_attention(const void* q, const void* k, const void* v,
                                    void* out, int bh, int tq, int tk,
                                    int fast_softmax, void* stream) {
   if (bh < 1 || tq < 1 || tk < 1 || bh > 65535) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  auto kernel = fast_softmax ? dense_attn_kernel<true> : dense_attn_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + BQ - 1) / BQ, bh);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, tq, tk);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return fast_softmax ? launch<true>(q, k, v, out, bh, tq, tk, s)
+                      : launch<false>(q, k, v, out, bh, tq, tk, s);
 }

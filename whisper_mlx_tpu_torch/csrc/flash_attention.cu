@@ -12,188 +12,119 @@
 // The TPU kernel multiplies p . v in fp32; this one rounds p to bf16 for the
 // tensor cores (the tolerance against the fp32 plain version says so).
 //
-// What bounds it on the H100: at the prefill shapes (B = 1, H = 64, hd =
-// 128, T <= 4096) it is small work (69 GFLOP causal at T = 2048), so the
-// per-block latency and occupancy matter more than the tensor-core peak.
+// What bounds it on the H100: tensor-core operations. A causal prefill at
+// H = 64, KV = 8, hd = 128, T = 2048 is 69 GFLOP over 76 MB of q, k, v and out.
 //
-// Simple design: one block of 4 warps per (b*h, 64-query tile); each warp
-// owns 16 query rows. K and V stream through shared memory in 64-key tiles;
-// key tiles wholly after the query tile are skipped when causal. wmma bf16
-// -> fp32 computes the scores and p . v; each warp keeps its 16 x hd output
-// accumulator in shared memory, so the rescale by exp(m_old - m_new) is a
-// plain per-row multiply. Two lanes own each row's softmax statistics.
-// Not yet wgmma/TMA or a pipelined K/V ring: that is later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+// Design (attn_tile.cuh): a block of two consumer warpgroups (64 query rows
+// each, 128 a block) and one producer warpgroup. The producer streams 128-key K
+// and V tiles by TMA into a ring of 3 (hd 128) or 4 stages; the consumers
+// compute S = Q . K^T by wgmma from shared memory into registers, run the
+// online softmax there (exp2 with log2(e) folded into one FMA, row max and
+// sum over the four lanes of a row by two shuffles), rescale the fp32 output
+// accumulator, which stays in registers, and add P . V by wgmma with P as
+// the register operand and V read MN-major from the ring. Causal: key tiles
+// past the block's last row are never loaded, only tiles that cross the
+// diagonal or the end of the keys are masked, and the grid's slow index runs
+// the q-tiles backwards so the heaviest blocks start first. GQA: the H / KV
+// query heads of one KV head are adjacent blocks (the fast grid index), so
+// their K and V tiles come from L2.
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = BK + 4;  // fp32 score row stride
-constexpr int LDP = BK + 8;  // bf16 probability row stride
-constexpr float NEG = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace attn;
 
-template <int HD>
-struct Smem {
-  static constexpr int LDH = HD + 8;  // bf16 q/k/v row stride
-  static constexpr int LDO = HD + 4;  // fp32 output accumulator row stride
-  __nv_bfloat16 q[BQ * LDH];
-  __nv_bfloat16 k[BK * LDH];
-  __nv_bfloat16 v[BK * LDH];
-  float s[WARPS][16 * LDS];
-  __nv_bfloat16 p[WARPS][16 * LDP];
-  float o[WARPS][16 * LDO];
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 64 rows x HD bf16 from a (rows, HD) row-major matrix; rows past n are 0.
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int n) {
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += THREADS) {
-    const int r = i / CH;
-    const int c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Smem<HD>::LDH + c * 8) = val;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                  int h, int kvh, int tq, int tk, int causal) {
-  constexpr int LDH = Smem<HD>::LDH;
-  constexpr int LDO = Smem<HD>::LDO;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
-  const int bh = blockIdx.y;
-  const int kv_row = (bh / h) * kvh + (bh % h) / (h / kvh);
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* qb = q + (size_t)bh * tq * HD;
-  const __nv_bfloat16* kb = k + (size_t)kv_row * tk * HD;
-  const __nv_bfloat16* vb = v + (size_t)kv_row * tk * HD;
-  float* s_w = sm.s[warp];
-  __nv_bfloat16* p_w = sm.p[warp];
-  float* o_w = sm.o[warp];
-
-  load_tile<HD>(sm.q, qb, q0, tq);
-  for (int i = lane; i < 16 * LDO; i += 32) o_w[i] = 0.f;
-  __syncthreads();
-  FragA qa[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], sm.q + (warp * 16) * LDH + kk * 16, LDH);
-  }
-
-  // two lanes per query row: 32 key columns and HD/2 output columns each
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int qpos = q0 + warp * 16 + r;
-  float m_run = NEG;
-  float l_run = 0.f;
+template <int HDP, int STAGES>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                  int h, int kvh, int tq, int tk, int hd, int causal) {
+  using R = Ring<HDP, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  R& ring = R::at(smem_raw);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q-tile first
   const int key_end = causal ? min(tk, q0 + BQ) : tk;
+  const int ntiles = (key_end + BK - 1) / BK;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  for (int key0 = 0; key0 < key_end; key0 += BK) {
-    __syncthreads();
-    load_tile<HD>(sm.k, kb, key0, tk);
-    load_tile<HD>(sm.v, vb, key0, tk);
-    __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      const int kv_row = (bh / h) * kvh + (bh % h) / (h / kvh);
+      ring.load_q(&qmap, q0, bh);
+      for (int n = 0; n < ntiles; ++n) ring.load_kv(n, &kmap, &vmap, n * BK, kv_row);
+    }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const Place me(q0);
+    float o[HDP / 2];
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        FragBc kf;
-        wmma::load_matrix_sync(kf, sm.k + (j * 16) * LDH + kk * 16, LDH);
-        wmma::mma_sync(acc, qa[kk], kf, acc);
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+    mbar_wait(&ring.qbar, 0);
+    for (int n = 0; n < ntiles; ++n) {
+      const int stage = ring.wait_full(n);
+      const int key0 = n * BK;
+      float s[BK / 2];
+      qk_tile<HDP>(s, ring.q[me.wg], ring.k[stage]);
+      if (key0 + BK > tk || (causal && key0 + BK - 1 > me.row_base)) {
+        mask_tile(s, key0, tk, causal, me.row0, me.row1, me.lane);
       }
-      wmma::store_matrix_sync(s_w + j * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    const float* row = s_w + r * LDS + half * 32;
-    __nv_bfloat16* prow = p_w + r * LDP + half * 32;
-    const int kbase = key0 + half * 32;
-    float mt = NEG;
-    for (int c = 0; c < 32; ++c) {
-      const int kpos = kbase + c;
-      if (kpos < tk && (!causal || kpos <= qpos)) mt = fmaxf(mt, row[c]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-    const float m_new = fmaxf(m_run, mt);
-    float sum = 0.f;
-    for (int c = 0; c < 32; ++c) {
-      const int kpos = kbase + c;
-      const bool valid = kpos < tk && (!causal || kpos <= qpos);
-      const float pv = valid ? expf(row[c] - m_new) : 0.f;
-      sum += pv;
-      prow[c] = __float2bfloat16_rn(pv);
-    }
-    sum += __shfl_xor_sync(FULL, sum, 1);
-    const float alpha = expf(m_run - m_new);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    float* orow = o_w + r * LDO + half * (HD / 2);
-    for (int c = 0; c < HD / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    FragA pa[BK / 16];
+      float t0, t1;
+      tile_max(s, t0, t1);
+      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+      const float a0 = exp2f((m0 - n0) * LOG2E), a1 = exp2f((m1 - n1) * LOG2E);
+      const float b0 = n0 * LOG2E, b1 = n1 * LOG2E;
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wmma::load_matrix_sync(pa[kk], p_w + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, o_w + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragBr vf;
-        wmma::load_matrix_sync(vf, sm.v + (kk * 16) * LDH + n * 16, LDH);
-        wmma::mma_sync(acc, pa[kk], vf, acc);
+      for (int i = 0; i < BK / 2; ++i) {
+        if (i & 2) {
+          s[i] = exp2f(fmaf(s[i], LOG2E, -b1));
+          sum1 += s[i];
+        } else {
+          s[i] = exp2f(fmaf(s[i], LOG2E, -b0));
+          sum0 += s[i];
+        }
       }
-      wmma::store_matrix_sync(o_w + n * 16, acc, LDO, wmma::mem_row_major);
+      l0 = l0 * a0 + quad_sum(sum0);
+      l1 = l1 * a1 + quad_sum(sum1);
+      m0 = n0;
+      m1 = n1;
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+      uint32_t p[BK / 16][4];
+      pack_p(s, p);
+      pv_tile<HDP>(o, p, ring.v[stage]);
+      ring.release(stage);
     }
-    __syncwarp();
-  }
-
-  if (qpos < tq) {
-    const float inv = 1.f / fmaxf(l_run, 1e-30f);
-    const float* orow = o_w + r * LDO + half * (HD / 2);
-    __nv_bfloat16* ob = out + ((size_t)bh * tq + qpos) * HD + half * (HD / 2);
-    for (int c = 0; c < HD / 2; ++c) ob[c] = __float2bfloat16_rn(orow[c] * inv);
+    store_out<HDP>(o, 1.f / l0, 1.f / l1, ring.q[me.wg], out + (size_t)bh * tq * hd,
+                   me.row_base, tq, hd, me.wg);
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
-           int kvh, int tq, int tk, int causal, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem<HD>);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + BQ - 1) / BQ, b * h);
-  flash_attn_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, h, kvh, tq, tk, causal);
+template <int HDP, int STAGES>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int h, int kvh,
+           int tq, int tk, int hd, int causal, cudaStream_t stream) {
+  using R = Ring<HDP, STAGES>;
+  auto kernel = flash_attn_kernel<HDP, STAGES>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<R>());
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(&qm, q, b * h, tq, hd, 64) || !tensor_map(&km, k, b * kvh, tk, hd, BK) ||
+      !tensor_map(&vm, v, b * kvh, tk, hd, BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(b * h, (tq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, smem_bytes<R>(), stream>>>(qm, km, vm, (__nv_bfloat16*)out, h, kvh,
+                                                     tq, tk, hd, causal);
   return (int)cudaGetLastError();
 }
 
@@ -202,15 +133,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
 extern "C" int wmt_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, int b, int h, int kvh, int tq, int tk,
                                    int hd, int causal, void* stream) {
-  if (b < 1 || h < 1 || kvh < 1 || h % kvh || tq < 1 || tk < 1 || b * h > 65535) {
+  if (b < 1 || h < 1 || kvh < 1 || h % kvh || tq < 1 || tk < 1 ||
+      (tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, b, h, kvh, tq, tk, causal, s);
-    case 32: return launch<32>(q, k, v, out, b, h, kvh, tq, tk, causal, s);
-    case 64: return launch<64>(q, k, v, out, b, h, kvh, tq, tk, causal, s);
-    case 128: return launch<128>(q, k, v, out, b, h, kvh, tq, tk, causal, s);
+    case 16:
+    case 32:
+    case 64: return launch<64, 4>(q, k, v, out, b, h, kvh, tq, tk, hd, causal, s);
+    case 128: return launch<128, 3>(q, k, v, out, b, h, kvh, tq, tk, hd, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

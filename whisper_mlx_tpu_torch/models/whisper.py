@@ -56,6 +56,9 @@ Params = dict[str, Any]
 _ATTN_MXU_DEFAULT = os.environ.get("WTPU_ATTN_MXU") == "1"
 
 
+_TMAJOR_OPT_INS = ("WTPU_SELF_KV_LAYOUT", "WTPU_KV_LAYOUT")
+
+
 @dataclasses.dataclass(frozen=True)
 class WhisperConfig:
     n_mels: int = 80
@@ -81,6 +84,15 @@ class WhisperConfig:
     # (layer, head) pairs for word-timestamp alignment, carried through an
     # mlx-format checkpoint's config.json (word timestamps: ROADMAP.md M8)
     alignment_heads: tuple[tuple[int, int], ...] | None = None
+
+    def __post_init__(self):
+        # the reference's time-major cache layouts (read at its import): the
+        # port keeps position-major caches only until ROADMAP M15 collapses
+        # them onto K3, so an opt-in raises instead of being ignored
+        for name in _TMAJOR_OPT_INS:
+            if os.environ.get(name, "tminor") == "tmajor":
+                raise NotImplementedError(
+                    f"{name}=tmajor: the time-major KV layout is not ported (ROADMAP.md M15)")
 
     @property
     def head_dim(self) -> int:

@@ -67,6 +67,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype != torch.bfloat16 or t.shape[-1] != HEAD_DIM:
             raise ValueError(f"dense_attention: the kernel takes (B, H, T, {HEAD_DIM}) "
                              f"bfloat16, got {name} {tuple(t.shape)} {t.dtype}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("dense_attention: q, k and v must be 16-byte aligned")
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     fast = _fast_softmax(q, fast_softmax)

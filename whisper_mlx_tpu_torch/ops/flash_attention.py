@@ -8,7 +8,8 @@ by ``hd**-0.25``; no further scale is applied. ``causal`` masks keys after
 the query's index (a prefill at position 0). The result has q's dtype.
 
 On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu`` (bf16,
-hd in 16, 32, 64, 128); on a CPU tensor it runs
+hd in 16, 32, 64, 128; wgmma over a TMA ring, ``csrc/attn_tile.cuh``); on a
+CPU tensor it runs
 :func:`flash_attention_plain`, which computes in fp32 as the TPU kernel did.
 Counterpart of ``whisper_mlx_tpu/ops/flash_attention.py:flash_attention``.
 """
