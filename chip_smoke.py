@@ -12,7 +12,9 @@ is non-zero and the result line is not printed:
    main path's shapes (max error beside its tolerance, device time per call
    with the host's launch work off the clock, the least time the card could
    take, and one PyTorch call computing the same function where one exists):
-   K1-K3, then the beam path's K3 integer-dot mode, K8 and K9; K2 also at
+   K1-K3, then the beam path's K3 integer-dot mode, K8 and K9 (K3 and the
+   beam kernels L2 cold over copies of one layer's caches, K3's warm reading
+   and its launcher's host cost beside); K2 also at
    the ragged edges of its 128-row q-tile and 128-key tile, in both softmax
    modes, with its TFLOP/s, share of the bound, the first (wmma) form's
    time and the launcher's host cost a call;
@@ -30,7 +32,8 @@ is non-zero and the result line is not printed:
    WTPU_BEAM_KV=flat, permp and permi (K9), then
    an 8-window x beam 5 batch, timed, with a per-step breakdown;
 7. LLM kernels: the quantized matmul (K5) at the five Qwen3-32B linear
-   shapes and the flash prefill (K4) against their plain versions, K4 also
+   shapes (M = 1 L2 cold over copies of each linear, the warm reading and the
+   host cost beside) and the flash prefill (K4) against their plain versions, K4 also
    at the LLM phase's prefill lengths at GQA rep 8 and rep 1, with the
    same rate, first-form and host-cost lines as K2;
 8. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
@@ -57,18 +60,25 @@ is non-zero and the result line is not printed:
    0 quantized on the card (int4, group 64) and written as an mlx-format
    directory, then the CLI with --model <dir> on the 65 s WAV (packed, fused
    qkv: K5; the ladder cut to T = 0, 0.5 and 1.0), K5 and K6 against their
-   plain versions at the loaded leaves' shapes, 8 windows greedy (K5), the same under WTPU_FEWROW_MBT=1 (K6),
+   plain versions at the loaded leaves' shapes, K5 summed over a decode
+   step's 193 calls at 1 and 8 rows, L2 cold, beside bf16 torch.matmul on
+   the leaves dequantized once (a yardstick, not the same function), 8
+   windows greedy (K5), the same under WTPU_FEWROW_MBT=1 (K6),
    8 windows x beam 5 (40 rows: dequantized once, no K5/K6), a
    WTPU_DEQUANT_AT_LOAD=1 load, and an encode under WTPU_DENSE_SOFTMAX=bf16
-   (K2's bf16-softmax mode).
+   (K2's bf16-softmax mode);
+16. batches, run only when named in --only: phase 5's dense greedy batch
+   and phase 15's 4-bit packed one, two timed runs each with the per-step
+   breakdown, to set two trees side by side in one call (run in turn).
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
 11 for K6 and K7, 13 for K10-K12, 15 for K2's bf16-softmax
 mode), with every count set to 0 just before that run; phase 15 also
 prints and checks the launches of K1, K2, K3, K5 and K6 on the 4-bit path
-(the JSON line carries them as ``launches_4bit``, and K5's and K6's errors
-against their plain versions at the large-v3 shapes as ``max_abs_err_4bit``).
+(the JSON line carries them as ``launches_4bit``, K5's and K6's errors
+against their plain versions at the large-v3 shapes as ``max_abs_err_4bit``,
+and K5's 8-row large-v3 step as ``ms_4bit_step_8rows``).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -139,7 +149,7 @@ from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_confi
 from whisper_mlx_tpu_torch.serving.chat import QwenModel, serving_config
 
 MEL_TOL = 2e-4
-ATTN_TOL = 2e-2  # times max(1, |ref|max)
+ATTN_TOL = 2e-2  # times max(1, |ref|max); K2, K3, K4: times each query row's max|ref|
 TINY_LOGIT_TOL = 5e-2  # times max(1, |ref|max)
 QMM_TOL = 1e-2  # times max(1, |ref|max): one bf16 ulp of the output
 QWEN32 = qw.QWEN_CONFIGS["qwen3-32b"]
@@ -378,15 +388,19 @@ def phase_kernels() -> dict:
     for name, q, c, kw in cases:
         got = da.decode_attention(q, *c, **kw)
         ref = da.decode_attention_plain(q, *c, **kw)
-        tol = ATTN_TOL * max(1.0, ref.float().abs().max().item())
-        errs.append(_check(f"decode_attention {name}", got, ref, tol))
+        errs.append(_check_rows(f"decode_attention {name}", got, ref))
     q1 = query(8, 1)
-    k_ms = (_device_ms(lambda: da.decode_attention(q1, *self_c, pos=226, causal=True))
-            + _device_ms(lambda: da.decode_attention(q1, *cross_c, valid_len=1500)))
-    p_ms = (_device_ms(lambda: da.decode_attention_plain(q1, *self_c, pos=226, causal=True))
-            + _device_ms(lambda: da.decode_attention_plain(q1, *cross_c, valid_len=1500)))
-    print(f"  decode_attention one layer's step (self pos 226 + cross): "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    step = ((self_c, dict(pos=226, causal=True)), (cross_c, dict(valid_len=1500)))
+    k_ms = p_ms = warm = 0.0
+    for c0, kw in step:  # copies of one layer's caches, L2 cold as a decode step finds them
+        layers = _layer_copies(lambda: tuple(t.clone() for t in c0), _nbytes(*c0))
+        k_ms += _cold_ms(lambda c: da.decode_attention(q1, *c, **kw), layers)
+        p_ms += _cold_ms(lambda c: da.decode_attention_plain(q1, *c, **kw), layers, reps=8)
+        warm += _device_ms(lambda: da.decode_attention(q1, *c0, **kw))
+        del layers
+    host = _host_us(lambda: da.decode_attention(q1, *cross_c, valid_len=1500))
+    print(f"  decode_attention one layer's step (self pos 226 + cross), L2 cold: kernel "
+          f"{k_ms:.4f} ms (warm {warm:.4f} ms), plain {p_ms:.4f} ms; host {host:.1f} us a call")
     # live keys: 227 self positions (int8) and 1500 cross (int4), K and V
     # codes plus their scales, and q in / out bf16 for both calls
     live = [(227, 64 + 64 + 2 + 2), (1500, 32 + 32 + 2 + 2)]
@@ -443,10 +457,11 @@ def _beam_kernels(rng, cache, query) -> dict:
     for name, q, c, kw in cases:
         got = kq.attention_int8_mxu(q, *c, **kw)
         ref = da.decode_attention_plain(q, *c, int_dot=True, **kw)
-        tol = ATTN_TOL * max(1.0, ref.float().abs().max().item())
-        errs.append(_check(f"decode_attention int_dot {name}", got, ref, tol))
+        errs.append(_check_rows(f"decode_attention int_dot {name}", got, ref))
     cross_kw = dict(valid_len=1500, group=5)
     layers = _copies(cross_c)
+    print(f"  decode_attention int_dot cross g=5: host "
+          f"{_host_us(lambda: kq.attention_int8_mxu(q40, *cross_c, **cross_kw)):.1f} us a call")
     rows["decode_int"] = dict(
         name="decode_attention_int_dot", route="cuda",
         source="whisper_mlx_tpu_torch/csrc/decode_attention.cu",
@@ -967,6 +982,12 @@ def _time_quant(name, q, m, gen, errs, m1_ms, m1_plain):
     plain = _device_ms(lambda: qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, q.bits,
                                                      q.group_size), reps=3, warmup=1)
     nbytes = q.w_q.numel() * 4 + q.scales.numel() * 8
+    if m == 1 and q.bits == 4:  # the decode reading: L2 cold, the warm one beside it
+        warm = ms
+        ms = _cold_ms(lambda c: tq.quant_matmul(x, c), _layer_copies(lambda: dataclasses.replace(
+            q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), nbytes))
+        print(f"    L2 cold {ms:.4f} ms (warm {warm:.4f} ms); host "
+              f"{_host_us(lambda: tq.quant_matmul(x, q)):.1f} us a call")
     print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, weights+affines "
           f"{nbytes / ms / 1e6:.1f} GB/s")
     if m == 1 and q.bits == 4:
@@ -1795,6 +1816,50 @@ def _check_whisper_linears(params) -> dict:
     return errs
 
 
+def _time_whisper_step_linears(params, config) -> dict:
+    """K5 at 1 and 8 rows on the loaded large-v3 leaves, L2 cold, summed over
+    a decode step (each block's six linears x n_text_layer, plus the logits),
+    beside a yardstick: bf16 torch.matmul on the same leaves dequantized
+    once. The yardstick reads 4x the bytes and is not K5's function, so it
+    stays out of the ``library_ms`` field. Returns K5's 8-row step in ms."""
+    block = params["decoder"]["blocks"][0]
+    layers = config.n_text_layer
+    leaves = [(block["attn"]["qkv"]["w"], layers), (block["attn"]["o"]["w"], layers),
+              (block["cross_attn"]["q"]["w"], layers), (block["cross_attn"]["o"]["w"], layers),
+              (block["mlp"]["fc1"]["w"], layers), (block["mlp"]["fc2"]["w"], layers),
+              (params["decoder"]["token_emb"], 1)]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sums = {m: [0.0, 0.0, 0] for m in (1, 8)}  # K5 ms, yardstick ms, bytes
+    for q, count in leaves:
+        assert isinstance(q, tq.QuantTensor), type(q).__name__
+        n, k = q.shape
+        nbytes = _nbytes(q.w_q, q.scales, q.biases)
+        packed = _layer_copies(lambda: dataclasses.replace(
+            q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), nbytes)
+        dense = [c.dequantize(torch.bfloat16) for c in packed]
+        line = []
+        for m in (1, 8):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            k5 = _cold_ms(lambda c: tq.quant_matmul(x, c), packed)
+            lib = _cold_ms(lambda w: torch.matmul(x, w.T), dense)
+            sums[m][0] += count * k5
+            sums[m][1] += count * lib
+            sums[m][2] += count * (nbytes + 2 * m * (n + k))
+            line.append(f"{m} row(s) K5 {k5 * 1e3:.1f} us ({nbytes / k5 / 1e6:.0f} GB/s), "
+                        f"yardstick {lib * 1e3:.1f} us")
+            if m == 8 and count == 1:
+                host = _host_us(lambda: tq.quant_matmul(x, q))
+        print(f"    large-v3 leaf N={n} K={k} (x{count} a step), L2 cold: " + "; ".join(line))
+        del packed, dense
+    for m, (k5, lib, nbytes) in sums.items():
+        print(f"  K5 on a large-v3 decode step at {m} row(s) ({6 * layers + 1} calls, L2 cold): "
+              f"{k5:.4f} ms, bound {_bound(nbytes, 0, 'bf16')['bound_ms']:.4f} ms (bytes); "
+              f"yardstick, bf16 torch.matmul on the leaves dequantized once (4x the bytes, "
+              f"not the same function): {lib:.4f} ms")
+    print(f"  K5 host cost at 8 rows on the logits: {host:.1f} us a call")
+    return {"quant_step_8rows_ms": sums[8][0]}
+
+
 def _tokens(results) -> list:
     return [r.tokens for r in results]
 
@@ -1875,6 +1940,8 @@ def phase_quant_main_path() -> dict:
         assert per_step == 6 * config.n_text_layer + 1, per_step
         del states, cache, xkv, logits
         launches.update(_check_whisper_linears(params))  # after the CLI run's counts were read
+        launches.update(_time_whisper_step_linears(params, config))
+        torch.cuda.empty_cache()
 
         # (b) 8 windows greedy: 8 rows, packed, K5's GEMV at its widest
         res_packed = _timed_decode("4-bit batch (packed, K5)", params, config, tok, audio, greedy,
@@ -1952,6 +2019,29 @@ def phase_quant_main_path() -> dict:
     return launches
 
 
+def phase_batches() -> None:
+    """Phase 16: the 8-window greedy batches of phases 5 (dense bf16) and 15
+    (4-bit packed, K5), two timed runs each, each with its breakdown."""
+    _time_batch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "whisper-large-v3-4bit")
+        export_mlx_whisper(
+            tq.quantize_params(init_params(base, seed=0, device=dev, dtype=torch.bfloat16),
+                               **QUANT4), base, ckpt, quantization=QUANT4)
+        torch.cuda.empty_cache()
+        params, config = apply_asr_serving_config(*load_mlx_whisper(ckpt, device=dev), dev)
+    tok = _bench_tokenizer(config.n_vocab)
+    _timed_decode("4-bit batch (packed, K5)", params, config, tok, audio,
+                  DecodingOptions(sample_len=224, without_timestamps=False), runs=2)
+    _breakdown(params, config, tok, audio)
+
+
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
     call (1500 rows a window is past the kernels' 512): its time beside the
@@ -1984,7 +2074,7 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main")
+                        "quant_main, and batches, which runs only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2014,6 +2104,7 @@ def main(argv: list[str] | None = None) -> int:
         "probe_mains": ("probe entry points", phase_probe_mains, launches),
         "tiny_quant": ("tiny 4-bit whisper", phase_tiny_quant, None),
         "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
+        "batches": ("batches", phase_batches, None),
     }
     unknown = [name for name in only if name not in phases]
     if unknown:
@@ -2021,7 +2112,7 @@ def main(argv: list[str] | None = None) -> int:
     _timed_phase("device", phase_device)
     _timed_phase("build", phase_build)
     for name, (title, fn, sink) in phases.items():
-        if only and name not in only:
+        if name not in only and (only or name == "batches"):
             continue
         gc.collect()
         torch.cuda.empty_cache()
@@ -2040,6 +2131,8 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_4bit"] = on_4bit[key]
         if key in ("quant", "mbt"):  # at the large-v3 shapes, beside the Qwen3-32B ones
             row["max_abs_err_4bit"] = on_4bit[f"{key}_err"]
+        if key == "quant":  # a large-v3 decode step's K5 calls at 8 rows, L2 cold
+            row["ms_4bit_step_8rows"] = on_4bit["quant_step_8rows_ms"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(_smi())

@@ -69,10 +69,12 @@ def _attn_tol(ref) -> float:
 
 
 def _assert_rows_close(got, ref):
-    """K2 and K4: each query row's largest error within 2e-2 times that
+    """K2, K3 and K4: each query row's largest error within 2e-2 times that
     row's largest |ref|. Rows that average many keys have small values, so
-    a limit over the whole output would leave them unchecked; this one is
-    also within ``_attn_tol``."""
+    a limit over the whole output would leave them unchecked (a key dropped
+    or counted twice at each edge of K3's key slices over 1500 keys moves
+    the worst row by about 0.1 of its max|ref|, the whole output by about
+    1e-2); this one is also within ``_attn_tol``."""
     err = (got.float() - ref.float()).abs().amax(-1)
     row_ref = ref.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
     assert (err / row_ref).max().item() <= 2e-2
@@ -94,7 +96,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         "probe_quant_matmul.cu", "quant_matmul.cu", "quant_matmul_mb.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attend_row.cuh",
                                                                  "attn_tile.cuh",
-                                                                 "quant_tile.cuh"]
+                                                                 "quant_tile.cuh",
+                                                                 "sm90_async.cuh"]
 
 
 @pytest.mark.cuda
@@ -149,7 +152,52 @@ def test_decode_kernel_matches_plain(cuda, bits, n, g, tq, t, kw):
     torch.cuda.synchronize()
     assert da.LAUNCHES == before + 1
     ref = da.decode_attention_plain(q, k8, ks, v8, vs, group=g, **kw)
-    assert _max_err(got, ref) <= _attn_tol(ref)
+    _assert_rows_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_plain_row_quantizer_matches_cpu(cuda):
+    """The integer-dot plain version's row quantizer gives the same scales
+    and codes on the card as on the CPU: true division, where PyTorch on
+    CUDA divides by a Python number through its reciprocal."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4096, 64), generator=gen, device=cuda) * 0.35
+    codes, scale = da.quantize_rows(x)
+    codes_cpu, scale_cpu = da.quantize_rows(x.cpu())
+    assert torch.equal(scale.cpu(), scale_cpu) and torch.equal(codes.cpu(), codes_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("int_dot", [False, True])
+@pytest.mark.parametrize("n,g,tq,t,kw", [
+    # live lengths at the edges of the cluster's blocks (one per 256 keys)
+    # and of their slices and 16-key tiles
+    (2, 1, 1, 2048, dict(valid_len=1)), (2, 1, 1, 2048, dict(valid_len=187)),
+    (2, 1, 1, 2048, dict(valid_len=188)), (2, 1, 1, 2048, dict(valid_len=189)),
+    (2, 1, 1, 2048, dict(valid_len=256)), (2, 1, 1, 2048, dict(valid_len=257)),
+    (2, 5, 1, 1500, dict(valid_len=1500)), (2, 1, 1, 2048, dict(valid_len=2048)),
+    # causal: pos 0 (one live key for the first row), pos 447, Tq 3
+    (2, 1, 3, 512, dict(pos=0, causal=True)), (2, 1, 1, 512, dict(pos=447, causal=True)),
+    (2, 1, 3, 512, dict(pos=447, causal=True, valid_len=449)),
+    # g 5 x Tq 3 = 15 rows a KV row, and 18: more than one pass of 8 rows
+    (2, 5, 3, 1500, dict(valid_len=1500)), (1, 3, 6, 256, dict(pos=100, causal=True)),
+])
+def test_decode_kernel_cluster_edges_match_plain(cuda, bits, int_dot, n, g, tq, t, kw):
+    """K3's cluster design at the edges of its key slices, live lengths 1
+    to 2048, both code widths, both modes."""
+    gen = torch.Generator(device=cuda).manual_seed(tq * 13 + t + kw.get("pos", 0))
+    kx, vx = (torch.randn((n, 20, t, 64), generator=gen, device=cuda) for _ in range(2))
+    k8, ks = kq.quantize_kv(kx * 0.35, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    q = (torch.randn((n * g, 20, tq, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+    before = (da.LAUNCHES, da.INT_DOT_LAUNCHES)
+    got = da.decode_attention(q, k8, ks, v8, vs, group=g, int_dot=int_dot, **kw)
+    torch.cuda.synchronize()
+    assert (da.LAUNCHES, da.INT_DOT_LAUNCHES) == (before[0] + (not int_dot),
+                                                  before[1] + int_dot)
+    ref = da.decode_attention_plain(q, k8, ks, v8, vs, group=g, int_dot=int_dot, **kw)
+    _assert_rows_close(got, ref)
 
 
 @pytest.mark.cuda
@@ -207,6 +255,32 @@ def test_quant_matmul_kernel_matches_plain(cuda, m, n, k, bits, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("n,k,gs", [
+    # whisper large-v3's decode linears and logits; Qwen3-32B's down
+    (1280, 1280, 64), (3840, 1280, 64), (5120, 1280, 64), (1280, 5120, 64),
+    (51866, 1280, 64), (5120, 25600, 64),
+    # K splits that leave the cluster's blocks ragged (21 and 15 groups), other
+    # group sizes, one group
+    (3840, 1344, 64), (200, 960, 64), (1000, 1024, 32), (600, 2048, 128), (70, 64, 64),
+])
+def test_quant_matmul_gemv_matches_plain(cuda, m, n, k, gs):
+    """K5's tensor-core GEMV (int4, bf16 x, M <= 8) at the main paths'
+    widths and ragged splits of K across the cluster."""
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + n + k)
+    w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
+    q = tq.quantize(w, bits=4, group_size=gs)
+    del w
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    before = qm.LAUNCHES
+    got = tq.quant_matmul(x, q)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES == before + 1
+    ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, 4, gs)
+    assert _max_err(got, ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kvh,tq_,tk,hd,causal", [
     (1, 8, 2, 130, 130, 128, True),
     (1, 64, 8, 256, 256, 128, True),
@@ -236,11 +310,19 @@ def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dense", "dense_bf16_softmax", "flash_causal", "flash"])
+@pytest.mark.parametrize("kernel", ["dense", "dense_bf16_softmax", "flash_causal", "flash",
+                                    "decode_self", "decode_cross", "decode_int_dot",
+                                    "quant_gemv", "quant_gemv_8rows"])
 def test_attention_kernels_repeat_bit_equal(cuda, kernel):
-    """Two launches of K2 (either mode) or K4 on the same inputs agree bit
-    for bit: no atomics, one fixed order of sums."""
+    """Two launches of K2 (either mode), K4, K3 (either mode, its cluster
+    reduction across 2 and 8 blocks) or K5's GEMV (a cluster split of K) on
+    the same inputs agree bit for bit: no atomics, one fixed order of sums."""
     gen = torch.Generator(device=cuda).manual_seed(7)
+    if kernel.startswith(("decode", "quant")):
+        first, run = _repeat_case(cuda, gen, kernel)
+        torch.cuda.synchronize()
+        assert torch.equal(first, run())
+        return
     hd, t, kvh = (64, 1500, 4) if kernel.startswith("dense") else (128, 640, 2)
     q, k, v = (torch.randn((2, 4 if i == 0 else kvh, t, hd), generator=gen, device=cuda)
                .mul(0.35 if i < 2 else 1.0).bfloat16() for i in range(3))
@@ -253,6 +335,34 @@ def test_attention_kernels_repeat_bit_equal(cuda, kernel):
     first = run()
     torch.cuda.synchronize()
     assert torch.equal(first, run())
+
+
+def _repeat_case(cuda, gen, kernel):
+    """K3's or K5's inputs for the repeat test: (first output, rerun); K3's
+    first output is also held to its plain version row by row."""
+    if kernel.startswith("quant"):
+        m = 8 if kernel.endswith("8rows") else 1
+        q = tq.quantize(torch.randn((1280, 5120), generator=gen, device=cuda) * 0.02, 4, 64)
+        x = torch.randn((m, 5120), generator=gen, device=cuda).to(torch.bfloat16)
+
+        def run():
+            return tq.quant_matmul(x, q)
+        return run(), run
+    bits, t, kw = ((8, 448, dict(pos=300, causal=True)) if kernel == "decode_self"
+                   else (4, 1500, dict(valid_len=1500)))
+    g = 5 if kernel == "decode_int_dot" else 1
+    kx, vx = (torch.randn((2, 20, t, 64), generator=gen, device=cuda) for _ in range(2))
+    k8, ks = kq.quantize_kv(kx * 0.35, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    q = (torch.randn((2 * g, 20, 1, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+
+    def run():
+        return da.decode_attention(q, k8, ks, v8, vs, group=g,
+                                   int_dot=kernel == "decode_int_dot", **kw)
+    first = run()
+    _assert_rows_close(first, da.decode_attention_plain(q, k8, ks, v8, vs, group=g,
+                                                        int_dot=kernel == "decode_int_dot", **kw))
+    return first, run
 
 
 @pytest.mark.cuda
@@ -481,7 +591,7 @@ def test_decode_kernel_int_dot_matches_plain(cuda, bits, n, g, tq, t, kw):
     torch.cuda.synchronize()
     assert (da.LAUNCHES, da.INT_DOT_LAUNCHES) == (before[0], before[1] + 1)
     ref = da.decode_attention_plain(q, k8, ks, v8, vs, group=g, int_dot=True, **kw)
-    assert _max_err(got, ref) <= _attn_tol(ref)
+    _assert_rows_close(got, ref)
 
 
 def _beam_ancestry(gen, n, g, t_pos, device):

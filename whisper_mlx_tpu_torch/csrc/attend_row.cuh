@@ -1,15 +1,12 @@
-// One query row's attention over a quantized cache, shared by the decode
-// attention kernel (K3, decode_attention.cu) and the beam-flat kernel (K8,
-// beamflat_attention.cu). A block of THREADS threads serves one (row, head);
-// the caller says which cache row holds key t (`row_of`): K3 reads rows
-// 0..limit-1 in order, K8 gathers one row per position through the beam
-// ancestry.
+// One query row's attention over a quantized cache, the row loop of the
+// beam-flat kernel (K8, beamflat_attention.cu). A block of THREADS threads
+// serves one (row, head); the caller says which cache row holds key t
+// (`row_of`): K8 gathers one row per position through the beam ancestry.
 //
 // Two modes:
 //   fp (INT_DOT = false)  s_t = (q . k_t) * ks_t in fp32; w = softmax(s);
-//                         out = sum_t (w_t vs_t) v_t in fp32, with w_t vs_t
-//                         rounded to bf16 when ROUND_WV (K3, as the TPU
-//                         kernel did) and kept fp32 otherwise (K8)
+//                         out = sum_t (w_t vs_t) v_t in fp32, w_t vs_t kept
+//                         fp32
 //   int (INT_DOT = true)  whisper_mlx_tpu/ops/kv_quant.py:attention_int8_mxu:
 //                         q re-quantized per row over d (absmax/127, round
 //                         half to even, clip +-127); s_t = s32 * qs * ks_t
@@ -36,11 +33,6 @@ constexpr int KEY_LANES = THREADS / 4;
 constexpr int MAX_T = 2048;
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// Cache row of key t: K3 reads keys in place.
-struct InOrder {
-  __device__ __forceinline__ int operator()(int t) const { return t; }
-};
 
 template <int BITS>
 __device__ __forceinline__ void load_codes(const uint8_t* row, int part,
@@ -123,7 +115,7 @@ struct Smem {
 // Attend one query row `qrow` (HD bf16) over keys t < limit, key t at cache
 // row row_of(t) of the head's codes (kh, vh) and scales (ksh, vsh); writes
 // HD bf16 to orow. Every thread of the block calls it.
-template <int BITS, bool INT_DOT, bool ROUND_WV, class RowOf>
+template <int BITS, bool INT_DOT, class RowOf>
 __device__ __forceinline__ void attend_row(
     const __nv_bfloat16* __restrict__ qrow, const uint8_t* __restrict__ kh,
     const __nv_bfloat16* __restrict__ ksh, const uint8_t* __restrict__ vh,
@@ -202,8 +194,7 @@ __device__ __forceinline__ void attend_row(
   const float l = block_reduce<false>(l_loc, sm.red);
   float a_loc = 0.f;
   for (int t = tid; t < limit; t += THREADS) {
-    float wv = sm.w[t] / l * __bfloat162float(vsh[row_of(t)]);
-    if constexpr (ROUND_WV) wv = __bfloat162float(__float2bfloat16(wv));
+    const float wv = sm.w[t] / l * __bfloat162float(vsh[row_of(t)]);
     sm.w[t] = wv;
     a_loc = fmaxf(a_loc, fabsf(wv));
   }

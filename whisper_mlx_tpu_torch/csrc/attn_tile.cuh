@@ -33,6 +33,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90_async.cuh"
+
 namespace attn {
 
 constexpr int BQ = 128;            // query rows a block (two warpgroups)
@@ -50,35 +52,14 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------- PTX
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
+using wmt_async::mbar_expect_tx;
+using wmt_async::mbar_fence_init;
+using wmt_async::mbar_init;
+using wmt_async::mbar_wait;
+using wmt_async::smem_u32;
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
 }
 
 // One box of a 3-D tensor map (columns, rows, batch) into shared memory,
@@ -366,7 +347,7 @@ struct Ring {
       mbar_init(&empty[s], CONSUMERS / 32);
     }
     mbar_init(&qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
 
   // producer lane: both warpgroups' 64-row Q tiles from row q0

@@ -25,8 +25,8 @@
 //
 // Simple design: one block of 128 threads per (lane, head), the row loop of
 // attend_row.cuh with the ancestry gather as its row map. Lanes of a window
-// gather mostly the same rows (their shared prefix), which L2 serves after the
-// first lane, so device memory sees the live cache about once.
+// gather mostly the same rows (their shared prefix), which L2 serves after
+// the first lane, so device memory sees the live cache about once.
 #include "attend_row.cuh"
 
 namespace {
@@ -56,7 +56,7 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.y;
   const size_t head = ((size_t)(b / group) * n_head + h) * rows;
   const size_t qoff = ((size_t)b * n_head + h) * HD;
-  attend_row<BITS, INT_DOT, false>(q + qoff, k + head * ROWB, ks + head,
+  attend_row<BITS, INT_DOT>(q + qoff, k + head * ROWB, ks + head,
                                    v + head * ROWB, vs + head, limit,
                                    AncestryRow{anc + (size_t)b * t_anc, group},
                                    out + qoff, sm);

@@ -172,13 +172,8 @@ template <bool FAST>
 int launch(const void* q, const void* k, const void* v, void* out, int bh, int tq, int tk,
            cudaStream_t stream) {
   auto kernel = dense_attn_kernel<FAST>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<R>());
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  const cudaError_t err = wmt_async::allow_smem<dense_attn_kernel<FAST>>(smem_bytes<R>());
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap qm, km, vm;
   if (!tensor_map(&qm, q, bh, tq, HDP, 64) || !tensor_map(&km, k, bh, tk, HDP, BK) ||
       !tensor_map(&vm, v, bh, tk, HDP, BK)) {

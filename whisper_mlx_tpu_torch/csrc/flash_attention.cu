@@ -110,13 +110,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
            int tq, int tk, int hd, int causal, cudaStream_t stream) {
   using R = Ring<HDP, STAGES>;
   auto kernel = flash_attn_kernel<HDP, STAGES>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<R>());
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  const cudaError_t err = wmt_async::allow_smem<flash_attn_kernel<HDP, STAGES>>(smem_bytes<R>());
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap qm, km, vm;
   if (!tensor_map(&qm, q, b * h, tq, hd, 64) || !tensor_map(&km, k, b * kvh, tk, hd, BK) ||
       !tensor_map(&vm, v, b * kvh, tk, hd, BK)) {

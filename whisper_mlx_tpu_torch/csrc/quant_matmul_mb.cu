@@ -17,8 +17,7 @@
 // Qwen3-32B layer's four linears: 304.7 MB of int4 codes and fp32 affines,
 // 0.091 ms at 3.35 TB/s). Dequantizing in SIMT does not get there: int ->
 // float and float -> bf16 conversions issue at 16 a clock per SM, an eighth
-// of the fp32 rate, and two per value cap the stream near 0.9 TB/s (K5's
-// GEMV measures about 1 TB/s).
+// of the fp32 rate, and two per value cap the stream near 0.9 TB/s.
 //
 // Design, two routes:
 // - mbt_gemv_kernel (M <= 8, or fp32 x), the TPU kernel's ring on the card:
@@ -52,10 +51,12 @@
 #include <stdint.h>
 
 #include "quant_tile.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
 using namespace wmt_quant;
+using namespace wmt_async;
 
 constexpr int MB_THREADS = 256;  // columns of a block
 constexpr int MB_CODES = 8192;   // code bytes of one ring slot
@@ -65,52 +66,6 @@ constexpr int MB_XS = MB_ROWS * 64 * 2;     // the slot's x (bf16, at most 64 k)
 constexpr int MB_SLOT = MB_CODES + MB_AFF + MB_XS;
 constexpr int MB_MAX_STAGES = 8;
 constexpr int XG_LANES = 8;    // threads that sum one (row, group) of x
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are filled with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most `pending` of this thread's copy groups are in flight
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
-  }
-}
-
-// two 4-bit codes in bits 0-3 and 16-19 of v -> bf16x2 round_bf16(c * s):
-// (128 + c) from a mask-and-or, then one bf16x2 FMA with s2 = (s, s) and
-// ns2 = (-128 s, -128 s) (bf16x2 bit patterns), exact before its one rounding
-__device__ __forceinline__ uint32_t dequant_bf16x2(uint32_t v, uint32_t s2, uint32_t ns2) {
-  const uint32_t pair = (v & 0x000F000Fu) | 0x43004300u;
-  uint32_t w;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(w) : "r"(pair), "r"(s2), "r"(ns2));
-  return w;
-}
-
-// c += a @ b for one m16n8k16 bf16 tile with fp32 accumulate; rows 8-15 of
-// a are zero (at most 8 rows of x)
-__device__ __forceinline__ void mma_rows8(float (&c)[4], uint32_t a0, uint32_t a2, uint32_t b0,
-                                          uint32_t b1) {
-  const uint32_t z = 0u;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(z), "r"(a2), "r"(z), "r"(b0), "r"(b1));
-}
 
 // BITS 4 or 8: packed words; 0: int8 codes, one per byte
 template <int BITS, bool BF16>
@@ -262,11 +217,7 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
           const float bb[4] = {b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
-            const float sr = round_bf16(sa[t]);
-            const uint32_t hi = __float_as_uint(sr) >> 16;
-            const uint32_t nhi = __float_as_uint(-128.f * sr) >> 16;  // exact: 2^7 s
-            s2[t] = hi | (hi << 16);
-            ns2[t] = nhi | (nhi << 16);
+            scale_pairs(sa[t], s2[t], ns2[t]);
             acc[t][0] = fmaf(xg, ba[t], acc[t][0]);
             acc[t][1] = fmaf(xg, bb[t], acc[t][1]);
           }
@@ -305,8 +256,8 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
         }
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          mma_rows8(acc[t], a0, a2, dequant_bf16x2(v0[t], s2[t], ns2[t]),
-                    dequant_bf16x2(v1[t], s2[t], ns2[t]));
+          mma_16816(acc[t], a0, 0u, a2, 0u, dequant_bf16x2(v0[t], s2[t], ns2[t]),
+                    dequant_bf16x2(v1[t], s2[t], ns2[t]));  // rows 8-15 of a: zero
         }
       }
     }
@@ -470,13 +421,8 @@ int launch_gemv(dim3 grid, int smem, cudaStream_t s, const void* x, const void* 
                 const void* scales, const void* biases, void* out, void* partial, int m, int n,
                 int k, int group_size, int np, int stages, int rows_per_split,
                 int xg_stride) {
-  static int smem_allowed = 48 * 1024;  // raised as a launch needs it
-  if (smem > smem_allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(mbt_gemv_kernel<BITS, BF16>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_allowed = smem;
-  }
+  const cudaError_t e = wmt_async::allow_smem<mbt_gemv_kernel<BITS, BF16>>(smem);
+  if (e != cudaSuccess) return (int)e;
   mbt_gemv_kernel<BITS, BF16><<<grid, MB_THREADS, smem, s>>>(
       x, (const unsigned char*)w, (const float*)scales, (const float*)biases, out,
       (float*)partial, m, n, k, group_size, np, stages, rows_per_split, xg_stride);

@@ -1,6 +1,7 @@
 // Group-affine dequant-matmul pieces shared by kernel K5 (quant_matmul.cu,
 // weights (N, K / per_word) row-major) and kernel K6 (quant_matmul_mb.cu,
-// weights N-contiguous): the bf16 helpers, the x loader, and the tiled
+// weights N-contiguous): the bf16 helpers, the bf16x2 dequantization and
+// the m16n8k16 mma of their few-row routes, the x loader, and the tiled
 // tensor-core GEMM that serves bf16 x with more than 8 rows.
 //
 // The GEMM reads its weights through a policy W:
@@ -32,6 +33,41 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
+}
+
+// Two 4-bit codes in bits 0-3 and 16-19 of v -> bf16x2 round_bf16(c * s):
+// a mask-and-or forms bf16x2 (128 + c) (0x4300 is 128, whose ulp is 1), then
+// one bf16x2 FMA with s2 = (s, s) and ns2 = (-128 s, -128 s), s already
+// rounded to bf16 (bit patterns), is exact before its one rounding: the
+// TPU kernels' round_bf16(c * s) without a conversion unit (K5 and K6).
+__device__ __forceinline__ uint32_t dequant_bf16x2(uint32_t v, uint32_t s2, uint32_t ns2) {
+  const uint32_t pair = (v & 0x000F000Fu) | 0x43004300u;
+  uint32_t w;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(w) : "r"(pair), "r"(s2), "r"(ns2));
+  return w;
+}
+
+// bf16x2 (s, s) and (-128 s, -128 s) of an fp32 scale, s rounded to bf16
+// first (-128 s is exact: a power of two)
+__device__ __forceinline__ void scale_pairs(float scale, uint32_t& s2, uint32_t& ns2) {
+  const float s = round_bf16(scale);
+  const uint32_t hi = __float_as_uint(s) >> 16;
+  const uint32_t nhi = __float_as_uint(-128.f * s) >> 16;
+  s2 = hi | (hi << 16);
+  ns2 = nhi | (nhi << 16);
+}
+
+// c += a @ b for one m16n8k16 tile, bf16 in, fp32 accumulate (mma.sync's
+// register layout: a0 row g k 2t..2t+1, a1 row g + 8, a2 row g k 2t+8..,
+// a3 row g + 8 k 2t+8..; b0 k 2t.. column g, b1 k 2t+8..; c0, c1 row g
+// columns 2t, 2t+1, c2, c3 row g + 8; g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // VALS consecutive x values of one row, as floats; x + off 16-byte aligned

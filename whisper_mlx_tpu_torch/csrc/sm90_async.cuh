@@ -1,0 +1,141 @@
+// Asynchronous copies and thread-block clusters on Hopper (sm_90a), shared by
+// the few-row dequant-matmul (K5, quant_matmul.cu), the transposed
+// dequant-matmul (K6, quant_matmul_mb.cu), the decode attention (K3,
+// decode_attention.cu) and the attention core of K2 and K4 (attn_tile.cuh):
+// - cp.async of 16 bytes into shared memory, committed and waited on in
+//   groups (a ring of stages);
+// - one-dimensional bulk copies (cp.async.bulk, no tensor map) completing
+//   their bytes on an mbarrier;
+// - allow_smem: a kernel's dynamic shared-memory limit, raised once a device;
+// - launch_cluster: a launch through cudaLaunchKernelEx with a cluster
+//   attribute.
+// Cluster barriers and reads of a neighbour's shared memory go through
+// cooperative_groups::this_cluster() (sync, map_shared_rank).
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wmt_async {
+
+namespace cg = cooperative_groups;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; when !valid the 16 bytes are filled with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes));
+}
+
+// 16 bytes into shared memory from the first `src_bytes` (0..16) at src,
+// the rest filled with zeros
+__device__ __forceinline__ void cp_async16_part(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `pending` of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make the barriers' initialisation visible to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) global ->
+// shared, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Allow Kernel `smem` bytes of dynamic shared memory on the current device.
+// The limit belongs to each device's context: it is raised the first time a
+// launch on that device needs more than 48 KB, and after that this costs a
+// cudaGetDevice, a read of the thread's current device.
+template <auto Kernel>
+cudaError_t allow_smem(int smem) {
+  static int allowed[MAX_DEVICES] = {};  // one for each kernel and device; 0: 48 KB
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < MAX_DEVICES && smem <= allowed[dev])) return e;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = smem;
+  return e;
+}
+
+// Launch Kernel on clusters of `cluster` blocks along grid.x (grid.x a
+// multiple of it), its shared-memory limit raised by allow_smem.
+template <auto Kernel, typename... Args>
+cudaError_t launch_cluster(dim3 grid, int threads, int smem, int cluster, cudaStream_t stream,
+                           Args... args) {
+  const cudaError_t e = allow_smem<Kernel>(smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, Kernel, args...);
+}
+
+}  // namespace wmt_async

@@ -62,9 +62,12 @@ def quantize_rows(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row (last axis) symmetric int8 of fp32 ``x32``: codes
     ``round_half_even(x / s)`` clipped to +-127 and the fp32 scale
     ``s = max(absmax, 1e-30) / 127`` (keepdim). The recipe of
-    ``whisper_mlx_tpu/ops/kv_quant.py:_quantize_rows``."""
+    ``whisper_mlx_tpu/ops/kv_quant.py:_quantize_rows``. The divisor is a
+    tensor: PyTorch divides by a Python number on CUDA as a product with its
+    reciprocal, an ulp off the true quotient at times, which would move
+    codes and the kernels' plain versions on the card."""
     absmax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(absmax, 1e-30) / 127.0
+    scale = torch.clamp_min(absmax, 1e-30) / torch.full_like(absmax, 127.0)
     return torch.clamp(torch.round(x32 / scale), -127.0, 127.0).to(torch.int8), scale
 
 
@@ -173,10 +176,14 @@ def decode_attention(q, k, ks, v, vs, *, pos: int = 0, causal: bool = False,
         raise ValueError(f"decode_attention: the kernel takes (B, H, Tq, {HEAD_DIM}) "
                          f"bfloat16 queries, got {tuple(q.shape)} {q.dtype}")
     bq, h, tq, _ = q.shape
+    ptrs = (k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16:  # the kernel bulk-copies from 16-byte
+        k, ks, v, vs = (t.clone() for t in (k, ks, v, vs))  # boundaries
+        ptrs = (k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr())
     out = torch.empty_like(q)
     rc = _build.lib().wmt_decode_attention(
-        q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
-        out.data_ptr(), bq, h, tq, k.shape[2], group, int(pos), int(causal), valid, bits,
+        q.data_ptr(), *ptrs, out.data_ptr(), bq, h, tq, k.shape[2], group, int(pos),
+        int(causal), valid, bits,
         int(int_dot), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "wmt_decode_attention")

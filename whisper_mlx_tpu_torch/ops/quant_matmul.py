@@ -17,8 +17,9 @@ Mosaic and is not ported):
 - the result is cast to x's dtype.
 
 On a CUDA tensor the wrapper launches ``csrc/quant_matmul.cu`` (a GEMV for
-at most ``GEMV_ROWS`` rows or fp32 x, a tiled tensor-core kernel for more
-bf16 rows); on a CPU tensor it runs :func:`quant_matmul_plain`.
+at most ``GEMV_ROWS`` rows or fp32 x: on tensor cores with a cluster split
+of K for int4 codes and bf16 x, else in SIMT; a tiled tensor-core kernel
+for more bf16 rows); on a CPU tensor it runs :func:`quant_matmul_plain`.
 Counterpart of ``whisper_mlx_tpu/ops/quant_pallas.py:quant_matmul_pallas``.
 """
 
@@ -92,8 +93,10 @@ def quant_matmul_kernel(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor
     *lead, k = x.shape
     n = w_q.shape[0]
     x2 = x.reshape(-1, k).contiguous()
-    if x2.data_ptr() % 16:  # the kernels load x 16 bytes at a time
+    if x2.data_ptr() % 16:  # the kernels load x and the codes 16 bytes at a time
         x2 = x2.clone()
+    if (w_q.data_ptr() | scales.data_ptr() | biases.data_ptr()) % 16:  # ... and the weights
+        w_q, scales, biases = w_q.clone(), scales.clone(), biases.clone()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
