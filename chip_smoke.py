@@ -42,9 +42,11 @@ is non-zero and the result line is not printed:
    built on the card, through LLMEngine.chat, stream_generate and the
    continuous-batching engine (4 slots, 6 requests), then the timings;
 10. LLM residency kernels: the transposed dequant-matmul (K6; packed int4,
-   codes-resident, int8) and the W8A8 matmul (K7) at the Qwen3-32B linear
-   shapes against their plain versions, and K6 at ring depth 2, 4 and 8
-   beside K5 on the same packed weights;
+   codes-resident, int8) and the W8A8 matmul (K7, bit-equal at M <= 8) at
+   the Qwen3-32B linear shapes against their plain versions, one device
+   kernel a call at M <= 8 (K6 on 4-bit codes, K7) from the profiler's
+   device events, the host cost a call, and K6 at ring depth 2, 4 and 8
+   and at M = 4 beside K5 on the same packed weights;
 11. LLM residency main path, once under WTPU_MBT_RESIDENT=1 and once under
    WTPU_QWEN_A8=1: phase 8 under the opt-in, then Qwen3-32B (16 of its 64
    layers, full width) through chat and the continuous-batching engine,
@@ -69,7 +71,12 @@ is non-zero and the result line is not printed:
    (K2's bf16-softmax mode);
 16. batches, run only when named in --only: phase 5's dense greedy batch
    and phase 15's 4-bit packed one, two timed runs each with the per-step
-   breakdown, to set two trees side by side in one call (run in turn).
+   breakdown, to set two trees side by side in one call (run in turn);
+17. residency_times, run only when named in --only: K6 and K7 at the
+   Qwen3-32B shapes at M = 1 and 4 beside K5 and torch._int_mm, their
+   device kernels and host cost a call, K6 and K5 over a large-v3 decode
+   step's leaves at 8 rows, with no check of either tree's design, for the
+   same use.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -1289,39 +1296,79 @@ def _random_quant(gen, n, k, bits=4):
 
 
 def _mbt_beside_k5(q, copies, gen, sums: dict) -> None:
-    """K6 on packed int4 at M = 1 with the ring 2, 4 and 8 deep, and K5 on
-    the same weights as they are packed, all with L2 cold: what the ring's
-    depth and the transposed layout buy. Adds each time to ``sums``."""
-    x = torch.randn((1, q.shape[1]), generator=gen, device=gen.device).to(torch.bfloat16)
+    """K6 on packed int4 at M = 1 with the ring 2, 4 and 8 deep and at M = 4
+    at the layout's depth, and K5 on the same weights as they are packed at
+    M = 1 and 4, all with L2 cold: what the ring's depth and the transposed
+    layout buy. Adds each time to ``sums``."""
+    n, k = q.shape
+    xs = {m: torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+          for m in (1, 4)}
     for depth in (2, 4, 8):
         sums[f"K6 depth {depth}"] += _cold_ms(
-            lambda c: tq.quant_matmul(x, c), [dataclasses.replace(c, depth=depth) for c in copies])
+            lambda c: tq.quant_matmul(xs[1], c), [dataclasses.replace(c, depth=depth) for c in copies])
+    sums["K6 M=4"] += _cold_ms(lambda c: tq.quant_matmul(xs[4], c), copies)
     nbytes = _nbytes(q.w_q, q.scales, q.biases)
     packed = _layer_copies(lambda: dataclasses.replace(
         q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), nbytes)
-    sums["K5"] += _cold_ms(lambda c: tq.quant_matmul(x, c), packed)
-    print("    at M = 1, L2 cold: " + ", ".join(f"{key} {ms:.4f} ms" for key, ms in sums.items())
-          + " (summed over the linears so far)")
+    for m in (1, 4):
+        sums["K5" if m == 1 else "K5 M=4"] += _cold_ms(lambda c: tq.quant_matmul(xs[m], c), packed)
+    print("    L2 cold: " + ", ".join(f"{key} {ms:.4f} ms" for key, ms in sums.items())
+          + " (M = 1 unless named; summed over the linears so far)")
 
 
-def _time_residency(label, leaf, call, plain, copies, nbytes, kind, gen, errs):
-    """One leaf against its plain version at M = 1, 4, 128 and 384; returns
-    the M = 1 (kernel ms, plain ms) with L2 cold."""
+def _device_kernels(fn, calls: int = 64) -> tuple[int, float]:
+    """The device kernels (and copies) of ``fn``'s calls, from the
+    profiler's device events over ``calls`` calls after one that warms
+    them: (distinct names, events a call). The window opens on a spin of
+    the device (left out of the count): without it the profiler dropped the
+    first kernels of short windows on the H100, often after earlier
+    profiled phases. A window that saw no kernel of ``fn`` measured nothing
+    and is taken again, at most twice; the events a call may still
+    undercount, a name seen in the window ran."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda._sleep(int(1e7))
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "spin" not in e.key]
+        if events:
+            break
+    return len(events), sum(e.count for e in events) / calls
+
+
+def _time_residency(label, leaf, call, plain, copies, nbytes, kind, gen, errs, exact=False,
+                    one_kernel=False):
+    """One leaf against its plain version at M = 1, 4, 128 and 384 (``exact``:
+    bit-equal at M <= 8; ``one_kernel``: one device kernel a call at M <=
+    8); returns the M = 1 (kernel ms, plain ms, host us a call) with L2
+    cold."""
     n, k = leaf.shape
     out = None
     for m in (1, 4, 128, 384):
         x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
         got, ref = call(x, leaf), plain(x, leaf)
-        tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+        tol = 0.0 if exact and m <= 8 else QMM_TOL * max(1.0, ref.float().abs().max().item())
         errs.append(_check(f"{label} N={n} K={k} M={m}", got, ref, tol))
         del got, ref
+        if one_kernel and m <= 8:
+            names, events = _device_kernels(lambda: call(x, leaf))
+            print(f"    device kernels: {names} by name, {events:g} events a call")
+            if names != 1 or events > 1:
+                raise AssertionError(f"{label} M={m}: {names} device kernels by name, "
+                                     f"{events} events a call; one kernel a call expected")
         ms = _cold_ms(lambda c: call(x, c), copies, reps=24 if m <= 4 else 8)
         bound = _bound(nbytes + 2 * m * (n + k), 2 * m * n * k, kind)
         print(f"    kernel {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s of weights; bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         if m == 1:
-            out = (ms, _device_ms(lambda: plain(x, leaf), reps=3, warmup=1))
-            print(f"    plain {out[1]:.4f} ms")
+            out = (ms, _device_ms(lambda: plain(x, leaf), reps=3, warmup=1),
+                   _host_us(lambda: call(x, leaf)))
+            print(f"    plain {out[1]:.4f} ms; host {out[2]:.1f} us a call")
     return out
 
 
@@ -1334,10 +1381,12 @@ def phase_residency_kernels() -> dict:
     the JSON rows: M = 1, L2 cold, bound from the run's bytes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    sums = {key: [0.0, 0.0, 0, 0] for key in ("mbt", "mbt_i8", "a8")}  # ms, plain, bytes, ops
+    # ms, plain, bytes, ops, host us
+    sums = {key: [0.0, 0.0, 0, 0, 0.0] for key in ("mbt", "mbt_i8", "a8")}
     errs = {"mbt": [], "a8": []}
     lib_ms, lib_bytes = 0.0, 0
-    beside = {key: 0.0 for key in ("K6 depth 2", "K6 depth 4", "K6 depth 8", "K5")}
+    beside = {key: 0.0 for key in ("K6 depth 2", "K6 depth 4", "K6 depth 8", "K6 M=4", "K5",
+                                   "K5 M=4")}
     for name, n, k in QWEN_LINEARS:
         q = _random_quant(gen, n, k)
         x1 = 2 * (n + k)  # bf16 x in and y out at M = 1
@@ -1347,10 +1396,11 @@ def phase_residency_kernels() -> dict:
                 nbytes = _nbytes(qt.wqt, qt.scalest, qt.biasest)
                 copies = _layer_copies(lambda: _mbt_copy(qt), nbytes)
                 print(f"  {qt!r}")
-                ms, plain = _time_residency(
+                ms, plain, host = _time_residency(
                     f"quant_matmul_mbt {name}{' i8' if codes else ''}", qt, tq.quant_matmul,
-                    mb.quant_matmul_mbt_plain, copies, nbytes, "bf16", gen, errs["mbt"])
-                for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k)):
+                    mb.quant_matmul_mbt_plain, copies, nbytes, "bf16", gen, errs["mbt"],
+                    one_kernel=True)
+                for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k, host)):
                     sums[key][i] += v
                 if not codes:
                     _mbt_beside_k5(q, copies, gen, beside)
@@ -1362,9 +1412,10 @@ def phase_residency_kernels() -> dict:
               f"{route[384]}; the kernel is timed at every M")
         nbytes = _nbytes(at.codes, at.scale)
         copies = _layer_copies(lambda: _a8_copy(at), nbytes)
-        ms, plain = _time_residency(f"a8_matmul {name}", at, a8.a8_matmul_kernel,
-                                    a8.a8_matmul_plain, copies, nbytes, "int8", gen, errs["a8"])
-        for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k)):
+        ms, plain, host = _time_residency(f"a8_matmul {name}", at, a8.a8_matmul_kernel,
+                                          a8.a8_matmul_plain, copies, nbytes, "int8", gen,
+                                          errs["a8"], exact=True, one_kernel=True)
+        for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k, host)):
             sums["a8"][i] += v
         # the library's int8 GEMM: the int32 product alone, at the fewest
         # rows torch._int_mm takes (17), without the activation
@@ -1383,25 +1434,90 @@ def phase_residency_kernels() -> dict:
                     nbytes, "bf16", gen, errs["mbt"])
     del qt
     torch.cuda.empty_cache()
-    for key, (ms, plain, nbytes, ops) in sums.items():
+    for key, (ms, plain, nbytes, ops, host) in sums.items():
         what = "the four linears and the head" if key == "a8" else "the four linears"
         print(f"  {key} at M = 1 over {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"{nbytes / 1e6:.1f} MB, bound "
-              f"{_bound(nbytes, ops, 'int8' if key == 'a8' else 'bf16')['bound_ms']:.4f} ms")
+              f"{_bound(nbytes, ops, 'int8' if key == 'a8' else 'bf16')['bound_ms']:.4f} ms, "
+              f"host {host:.1f} us over the calls")
     print(f"  torch._int_mm at M = 17 (the fewest rows it takes; the int32 product only) over "
           f"the same five: {lib_ms:.4f} ms ({lib_bytes / lib_ms / 1e6:.1f} GB/s of codes)")
-    ms, plain, nbytes, ops = sums["mbt"]
+    ms, plain, nbytes, ops, _ = sums["mbt"]
     rows = {"mbt": dict(
         name="quant_matmul_mbt", route="cuda",
         source="whisper_mlx_tpu_torch/csrc/quant_matmul_mb.cu",
         replaces="whisper_mlx_tpu/ops/quant_pallas_mb.py:354", max_abs_err=max(errs["mbt"]),
         ms=ms, plain_ms=plain, **_bound(nbytes, ops, "bf16"), library_ms=None)}
-    ms, plain, nbytes, ops = sums["a8"]
+    ms, plain, nbytes, ops, _ = sums["a8"]
     rows["a8"] = dict(
         name="a8_matmul", route="cuda", source="whisper_mlx_tpu_torch/csrc/a8_matmul.cu",
         replaces="whisper_mlx_tpu/ops/quant_a8.py:198", max_abs_err=max(errs["a8"]),
         ms=ms, plain_ms=plain, **_bound(nbytes, ops, "int8"), library_ms=lib_ms)
     return rows
+
+
+# whisper large-v3's decoder linears under WTPU_FEWROW_MBT=1, (N, K, calls a
+# decode step): fused self qkv, self o, cross q, cross o, fc1, fc2
+LARGE_V3_STEP = ((3840, 1280, 32), (1280, 1280, 32), (1280, 1280, 32), (1280, 1280, 32),
+                 (5120, 1280, 32), (1280, 5120, 32))
+
+
+def phase_residency_times() -> None:
+    """Phase 17, run only when named: K6 (four Qwen3-32B linears, packed
+    int4, the layout's default depth) and K7 (the five) at M = 1 and 4,
+    L2 cold, beside K5 on the same packed weights and torch._int_mm at 17
+    rows; each call's device kernels and host cost at M = 1; K6 and K5
+    over a large-v3 decode step's leaves at 8 rows. No check of one tree's
+    design, so that two trees run it in turn in one call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ms = {key: 0.0 for key in ("K6 M=1", "K6 M=4", "K5 M=1", "K5 M=4", "K7 M=1", "K7 M=4",
+                               "int_mm M=17", "K6 host us", "K7 host us")}
+    kernels = {"K6": [], "K7": []}
+    for name, n, k in QWEN_LINEARS:
+        q = _random_quant(gen, n, k)
+        xs = {m: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16) for m in (1, 4)}
+        if name != "lm_head":
+            qt = mb.transpose_quant(q)
+            leaves = {"K6": _layer_copies(lambda: _mbt_copy(qt), _nbytes(qt.wqt, qt.scalest,
+                                                                        qt.biasest)),
+                      "K5": _layer_copies(lambda: dataclasses.replace(
+                          q, w_q=q.w_q.clone(), scales=q.scales.clone(),
+                          biases=q.biases.clone()), _nbytes(q.w_q, q.scales, q.biases))}
+            for key, copies in leaves.items():
+                for m in (1, 4):
+                    ms[f"{key} M={m}"] += _cold_ms(lambda c: tq.quant_matmul(xs[m], c), copies)
+            ms["K6 host us"] += _host_us(lambda: tq.quant_matmul(xs[1], qt))
+            kernels["K6"].append(_device_kernels(lambda: tq.quant_matmul(xs[1], qt)))
+            del qt, leaves
+        at = a8.requant_a8(q)
+        del q
+        copies = _layer_copies(lambda: _a8_copy(at), _nbytes(at.codes, at.scale))
+        for m in (1, 4):
+            ms[f"K7 M={m}"] += _cold_ms(lambda c: a8.a8_matmul_kernel(xs[m], c), copies)
+        xq = torch.randint(-127, 128, (17, k), generator=gen, device=dev, dtype=torch.int8)
+        ms["int_mm M=17"] += _cold_ms(lambda c: torch._int_mm(xq, c.codes.t()), copies)
+        ms["K7 host us"] += _host_us(lambda: a8.a8_matmul_kernel(xs[1], at))
+        kernels["K7"].append(_device_kernels(lambda: a8.a8_matmul_kernel(xs[1], at)))
+        del at, copies
+        torch.cuda.empty_cache()
+    print("  Qwen3-32B, L2 cold, summed over K6's four linears and K7's five: "
+          + ", ".join(f"{key} {v:.4f}" + (" us" if "host" in key else " ms")
+                      for key, v in ms.items()))
+    print(f"  device kernels at M = 1, by linear (distinct names, events a call): {kernels}")
+    step = {"K6": 0.0, "K5": 0.0}
+    for n, k, calls in LARGE_V3_STEP:
+        q = _random_quant(gen, n, k)
+        qt = mb.transpose_quant(q)
+        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        step["K6"] += calls * _cold_ms(lambda c: tq.quant_matmul(x, c), _layer_copies(
+            lambda: _mbt_copy(qt), _nbytes(qt.wqt, qt.scalest, qt.biasest)))
+        step["K5"] += calls * _cold_ms(lambda c: tq.quant_matmul(x, c), _layer_copies(
+            lambda: dataclasses.replace(q, w_q=q.w_q.clone(), scales=q.scales.clone(),
+                                        biases=q.biases.clone()), _nbytes(q.w_q, q.scales,
+                                                                          q.biases)))
+    print(f"  large-v3 decode step's leaves at 8 rows (192 calls, the logits left out), L2 "
+          f"cold: K6 {step['K6']:.4f} ms, K5 {step['K5']:.4f} ms")
 
 
 RESIDENCY = {  # env var -> (its kernel's module, the JSON row's key, extra env)
@@ -2074,7 +2190,8 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, and batches, which runs only when named")
+                        "quant_main, and batches and residency_times, which run only when "
+                        "named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2105,6 +2222,7 @@ def main(argv: list[str] | None = None) -> int:
         "tiny_quant": ("tiny 4-bit whisper", phase_tiny_quant, None),
         "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
         "batches": ("batches", phase_batches, None),
+        "residency_times": ("llm residency times", phase_residency_times, None),
     }
     unknown = [name for name in only if name not in phases]
     if unknown:
@@ -2112,7 +2230,7 @@ def main(argv: list[str] | None = None) -> int:
     _timed_phase("device", phase_device)
     _timed_phase("build", phase_build)
     for name, (title, fn, sink) in phases.items():
-        if name not in only and (only or name == "batches"):
+        if name not in only and (only or name in ("batches", "residency_times")):
             continue
         gc.collect()
         torch.cuda.empty_cache()

@@ -378,3 +378,44 @@ def test_a8_then_mbt_when_both_are_set(monkeypatch):
     assert _types(eng.params)["embed"] == "QuantTensor"
     out = eng.generate("abc", max_tokens=6, temperature=0.0)
     assert out.generation_tokens > 0
+
+
+# the linears K7 runs at decode: Qwen3-32B's fused qkv, o, fused gate_up,
+# down (the VMEM rule sends it to dequantize + matmul at the defaults, but a
+# smaller depth keeps it on the kernel) and the head
+K7_SHAPES = [(10240, 5120), (5120, 8192), (51200, 5120), (5120, 25600), (151936, 5120)]
+
+
+@pytest.mark.parametrize("n,k", K7_SHAPES + [(200, 96), (130, 256), (1000, 1024)])
+def test_a8_gemv_plan_covers_every_chunk_once(n, k):
+    """The fused GEMV's launch plan on a 132-SM card, at 1 to 8 rows: the
+    cluster's blocks take every 256-k chunk exactly once, a cluster holds 1
+    to 8 blocks, the ring two stages, x's rows and the block's shared
+    memory fit."""
+    chunks = -(-k // ta8._KC)
+    for m in range(1, 9):
+        cluster, stages = ta8.a8_gemv_plan(m, n, k, 132)
+        assert 1 <= cluster <= 8 and cluster <= chunks and stages == 2
+        covered = np.zeros(chunks, np.int64)
+        for rank in range(cluster):
+            first, last = rank * chunks // cluster, (rank + 1) * chunks // cluster
+            assert last > first
+            covered[first:last] += 1
+        assert (covered == 1).all()
+        kcap = -(-chunks // cluster) * ta8._KC
+        assert m * (kcap + 16) <= ta8._XCAP
+        assert ta8._gemv_smem(stages, m, kcap) <= ta8._SMEM_TWO_A_SM
+        # the cheapest split: fewest waves of 264 blocks x (chunks a block + 1)
+        cost = [-(-(-(-n // 128)) * c // 264) * (-(-chunks // c) + 1)
+                for c in range(1, min(8, chunks) + 1) if m * (-(-chunks // c) * ta8._KC + 16) <= ta8._XCAP]
+        assert -(-(-(-n // 128)) * cluster // 264) * (-(-chunks // cluster) + 1) == min(cost)
+
+
+def test_a8_plain_divides_truly():
+    """The plain version's activation scale is amax / 127 as a true
+    division (the kernel's __fdiv_rn), not a product with 1/127: on CPU
+    tensors both agree, so the plain output keeps its values."""
+    x = torch.randn((64, 256), generator=torch.Generator().manual_seed(5))
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    assert torch.equal(torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0),
+                       torch.clamp(amax, min=1e-8) / 127.0)

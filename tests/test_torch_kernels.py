@@ -168,6 +168,33 @@ def test_plain_row_quantizer_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("what", ["quantize_kv8", "quantize_kv4", "a8_matmul_plain",
+                                  "requant_a8"])
+def test_plain_quantizers_match_cpu(cuda, what):
+    """The KV-cache quantizer, K7's plain version and the A8 weight
+    conversion give the same codes, scales and outputs on the card as on
+    the CPU: every quotient is a true division by a tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    if what.startswith("quantize_kv"):
+        x = torch.randn((2, 20, 512, 64), generator=gen, device=cuda) * 0.35
+        bits = int(what[-1])
+        got, ref = kq.quantize_kv(x, bits), kq.quantize_kv(x.cpu(), bits)
+    elif what == "requant_a8":
+        w = torch.randn((3000, 512), generator=gen, device=cuda) / 512 ** 0.5
+        got = a8.requant_a8(w)
+        ref = a8.requant_a8(w.cpu())
+        got, ref = (got.codes, got.scale), (ref.codes, ref.scale)
+    else:
+        at = a8.requant_a8(torch.randn((700, 512), generator=gen, device=cuda) / 512 ** 0.5)
+        x = torch.randn((64, 512), generator=gen, device=cuda)
+        at_cpu = a8.A8Tensor(at.codes.cpu(), at.scale.cpu(), at.tile_n, at.depth)
+        got = (a8.a8_matmul_plain(x, at), a8.a8_matmul_plain(x.bfloat16(), at))
+        ref = (a8.a8_matmul_plain(x.cpu(), at_cpu), a8.a8_matmul_plain(x.cpu().bfloat16(), at_cpu))
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("int_dot", [False, True])
 @pytest.mark.parametrize("n,g,tq,t,kw", [
@@ -312,13 +339,16 @@ def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["dense", "dense_bf16_softmax", "flash_causal", "flash",
                                     "decode_self", "decode_cross", "decode_int_dot",
-                                    "quant_gemv", "quant_gemv_8rows"])
+                                    "quant_gemv", "quant_gemv_8rows", "mbt_gemv",
+                                    "mbt_gemv_8rows", "mbt_gemv_cluster8", "a8_gemv",
+                                    "a8_gemv_8rows"])
 def test_attention_kernels_repeat_bit_equal(cuda, kernel):
     """Two launches of K2 (either mode), K4, K3 (either mode, its cluster
-    reduction across 2 and 8 blocks) or K5's GEMV (a cluster split of K) on
-    the same inputs agree bit for bit: no atomics, one fixed order of sums."""
+    reduction across 2 and 8 blocks), K5's or K6's GEMV (a cluster split of
+    K; K6 also across 8 blocks) or K7's fused GEMV on the same inputs agree
+    bit for bit: no atomics, one fixed order of sums."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    if kernel.startswith(("decode", "quant")):
+    if kernel.startswith(("decode", "quant", "mbt", "a8")):
         first, run = _repeat_case(cuda, gen, kernel)
         torch.cuda.synchronize()
         assert torch.equal(first, run())
@@ -340,10 +370,18 @@ def test_attention_kernels_repeat_bit_equal(cuda, kernel):
 def _repeat_case(cuda, gen, kernel):
     """K3's or K5's inputs for the repeat test: (first output, rerun); K3's
     first output is also held to its plain version row by row."""
-    if kernel.startswith("quant"):
+    if kernel.startswith(("quant", "mbt", "a8")):
         m = 8 if kernel.endswith("8rows") else 1
-        q = tq.quantize(torch.randn((1280, 5120), generator=gen, device=cuda) * 0.02, 4, 64)
-        x = torch.randn((m, 5120), generator=gen, device=cuda).to(torch.bfloat16)
+        n, k = (200, 4096) if kernel.endswith("cluster8") else (1280, 5120)
+        w = torch.randn((n, k), generator=gen, device=cuda) * 0.02
+        q = tq.quantize(w, 4, 64)
+        if kernel.startswith("mbt"):
+            q = mb.transpose_quant(q, tile_n=512, depth=2, codes=False)
+            if kernel.endswith("cluster8"):
+                assert mb.mbt_gemv_plan(m, n, k, False, 64, 2, _sms())[0] == 8
+        elif kernel.startswith("a8"):
+            q = a8.requant_a8(w)
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
 
         def run():
             return tq.quant_matmul(x, q)
@@ -485,6 +523,8 @@ def test_mbt_kernel_matches_plain(cuda, m, n, k, bits, codes, contig, depth, dty
     (1, 10240, 5120, 4, torch.bfloat16),  # Qwen3-32B qkv
     (4, 51200, 5120, 4, torch.bfloat16),  # gate_up
     (1, 5120, 25600, 1, torch.bfloat16),  # down (depth 1 keeps it under the VMEM rule)
+    (4, 5120, 8192, 4, torch.bfloat16),  # o
+    (8, 5120, 25600, 1, torch.float32),  # down, fp32 x, 8 rows
     (384, 10240, 5120, 4, torch.bfloat16),  # the 384-row prefill
 ])
 def test_a8_kernel_matches_plain(cuda, m, n, k, depth, dtype):
@@ -498,8 +538,100 @@ def test_a8_kernel_matches_plain(cuda, m, n, k, depth, dtype):
     torch.cuda.synchronize()
     assert a8.LAUNCHES == before + 1 and got.dtype == dtype and got.shape == (m, n)
     ref = a8.a8_matmul_plain(x, at)
+    if m <= a8.GEMV_ROWS:  # the fused GEMV: exact sums, the plain version's roundings
+        assert torch.equal(got, ref)
+        return
     rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("codes,n,k,gs,cluster", [
+    # K split into 1, 2, 7 and 8 blocks (stages of 256 k packed, 128 k
+    # codes-resident); N not a multiple of the block's 128 columns
+    (False, 200, 256, 64, 1), (False, 33800, 512, 64, 1), (False, 130, 512, 64, 2),
+    (False, 200, 1792, 64, 7), (False, 1000, 4096, 64, 8), (True, 200, 128, 64, 1),
+    (True, 200, 256, 64, 2), (True, 130, 896, 64, 7), (True, 1000, 2048, 32, 8),
+    # a group spanning a whole stage: both halves of a block's warps take
+    # parts of it, one adds its bias (a cluster's blocks split K on stage
+    # boundaries, which are group boundaries, so no group straddles them);
+    # groups of 32 and 128
+    (False, 200, 1792, 256, 7), (True, 200, 1024, 128, 8), (False, 300, 2048, 32, 8),
+])
+def test_mbt_gemv_cluster_edges_match_plain(cuda, m, codes, n, k, gs, cluster):
+    """K6's tensor-core GEMV (bf16 x, 4-bit codes) at the edges of its
+    cluster split of K, one launch a call."""
+    assert mb.mbt_gemv_plan(m, n, k, codes, gs, 2, _sms())[0] == cluster
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k + gs)
+    w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
+    qt = mb.transpose_quant(tq.quantize(w, bits=4, group_size=gs), tile_n=16, depth=2,
+                            codes=codes)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    before = mb.LAUNCHES
+    got = tq.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES == before + 1
+    ref = mb.quant_matmul_mbt_plain(x, qt)
+    assert _max_err(got, ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("n,k,cluster", [
+    # K in 256-k chunks split into 1, 2, 7 and 8 blocks; N not a multiple of
+    # the block's 128 channels; K not a multiple of the chunk or of a box
+    (200, 256, 1), (33800, 512, 1), (130, 512, 2), (200, 1792, 7), (1000, 4096, 8),
+    (200, 1824, 8), (300, 80, 1), (300, 384, 2),
+])
+def test_a8_gemv_cluster_edges_bit_equal(cuda, m, n, k, cluster):
+    """K7's fused GEMV at the edges of its cluster split of K: bit-equal to
+    the plain version, bf16 and fp32 x."""
+    assert a8.a8_gemv_plan(m, n, k, _sms())[0] == cluster
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    at = a8.requant_a8(torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        before = a8.LAUNCHES
+        got = a8.a8_matmul_kernel(x, at)
+        torch.cuda.synchronize()
+        assert a8.LAUNCHES == before + 1
+        assert torch.equal(got, a8.a8_matmul_plain(x, at))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stages,cluster", [
+    ("a8", 2, 1), ("a8", 2, 2), ("a8", 5, 4), ("mbt", 1, None), ("mbt", 2, None)])
+def test_gemv_ring_reuse_matches_plain(cuda, kernel, stages, cluster):
+    """K7's and K6's rings recycled many times over a grid of thousands of
+    blocks, 8 rows (a TMA box must not land over a stage before every
+    consumer has read it): K7 bit-equal to its plain version and K6 within
+    the quantized matmul's tolerance, twice over."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n, k, m = 65536, 5120, 8
+    w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    if kernel == "a8":
+        at = a8.requant_a8(w)
+        ref = a8.a8_matmul_plain(x, at)
+        for _ in range(2):
+            out = torch.empty((m, n), dtype=torch.bfloat16, device=cuda)
+            _build.check(_build.lib().wmt_a8_gemv(
+                x.data_ptr(), at.codes.data_ptr(), at.scale.data_ptr(), out.data_ptr(), m, n, k, 1,
+                cluster, stages, torch.cuda.current_stream().cuda_stream), "wmt_a8_gemv")
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref)
+        return
+    qt = mb.transpose_quant(tq.quantize(w, bits=4, group_size=64), depth=stages, codes=False)
+    ref = mb.quant_matmul_mbt_plain(x, qt)
+    first = tq.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert _max_err(first, ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+    assert torch.equal(first, tq.quant_matmul(x, qt))
 
 
 @pytest.mark.cuda

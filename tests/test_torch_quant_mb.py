@@ -357,3 +357,50 @@ def test_mbt_batch_engine_matches_single_request(mbt_engines):
     handles = [batch.submit(p, max_tokens=10, temperature=0.0) for p in prompts]
     for p, h in zip(prompts, handles):
         assert list(h.tokens()) == teng.generate(p, max_tokens=10, temperature=0.0).tokens
+
+
+# the linears that run K6 at decode: Qwen3-32B's fused qkv, o, fused gate_up
+# and down (WTPU_MBT_RESIDENT leaves the head packed) and whisper
+# large-v3's (WTPU_FEWROW_MBT=1: fused self qkv, the q, o and fc linears)
+K6_SHAPES = [(10240, 5120), (5120, 8192), (51200, 5120), (5120, 25600),
+             (3840, 1280), (1280, 1280), (5120, 1280), (1280, 5120)]
+
+
+@pytest.mark.parametrize("codes", [False, True], ids=["packed", "i8"])
+@pytest.mark.parametrize("depth", [2, 4, 8])
+@pytest.mark.parametrize("n,k", K6_SHAPES)
+def test_mbt_gemv_plan_covers_every_row_once(n, k, depth, codes):
+    """The tensor-core GEMV's launch plan on a 132-SM card, at 1 to 8 rows:
+    the cluster's blocks take every stored row exactly once, a cluster
+    holds 1 to 8 blocks, the ring is 1 to ``depth`` stages, and a block's
+    shared memory stays within the card's 227 KB."""
+    sk = tmb._MMA_STAGE_K[codes]
+    srows = sk if codes else sk // 8
+    rows = k if codes else k // 8
+    nst = -(-k // sk)
+    for m in range(1, 9):
+        cluster, stages = tmb.mbt_gemv_plan(m, n, k, codes, 64, depth, 132)
+        assert 1 <= cluster <= 8 and cluster <= nst and 1 <= stages <= depth
+        covered = np.zeros(rows, np.int64)
+        for rank in range(cluster):
+            first, last = rank * nst // cluster, (rank + 1) * nst // cluster
+            assert last > first
+            covered[first * srows:min(rows, last * srows)] += 1
+        assert (covered == 1).all()
+        kcap = -(-nst // cluster) * sk
+        assert m * (2 * kcap + 64) <= tmb._XCAP or cluster == min(8, nst)
+        assert tmb._mma_smem(codes, 64, stages, m, kcap) <= tmb._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,bits,codes,group_size,want", [
+    (torch.bfloat16, 4, False, 64, True), (torch.bfloat16, 4, True, 64, True),
+    (torch.bfloat16, 4, False, 256, True), (torch.bfloat16, 4, True, 128, True),
+    (torch.bfloat16, 4, True, 256, False), (torch.bfloat16, 4, False, 16, False),
+    (torch.bfloat16, 8, False, 64, False), (torch.float32, 4, False, 64, False)])
+def test_mbt_mma_route_by_shape(dtype, bits, codes, group_size, want):
+    """bf16 x with 4-bit codes whose groups (32 k or more) divide a stage
+    take the tensor-core GEMV; fp32 x, 8-bit codes and other group sizes
+    take the SIMT GEMV."""
+    q = tq.quantize(torch.zeros((16, 512)), bits=bits, group_size=group_size)
+    qt = tmb.transpose_quant(q, tile_n=16, depth=2, codes=codes)
+    assert tmb.mma_route(dtype, qt) is want

@@ -52,15 +52,12 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------- PTX
 
+using wmt_async::mbar_arrive;
 using wmt_async::mbar_expect_tx;
 using wmt_async::mbar_fence_init;
 using wmt_async::mbar_init;
 using wmt_async::mbar_wait;
 using wmt_async::smem_u32;
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
 
 // One box of a 3-D tensor map (columns, rows, batch) into shared memory,
 // completing `bytes` on the barrier.
@@ -409,31 +406,11 @@ struct Place {
 
 // ------------------------------------------------------------- host
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, looked up once
-// (so the library needs no -lcuda).
-static inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
 // A (batch, rows, hd) bf16 tensor as a 3-D map of boxes of `box_rows` x 64
 // columns, 128-byte swizzle; reads past rows or hd fill zeros.
 static inline bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows, int hd,
                               int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
+  wmt_async::EncodeTiledFn fn = wmt_async::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};

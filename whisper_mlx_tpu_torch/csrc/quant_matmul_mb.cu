@@ -15,40 +15,54 @@
 //
 // What bounds it on the H100: at decode the bytes of the weight stream (one
 // Qwen3-32B layer's four linears: 304.7 MB of int4 codes and fp32 affines,
-// 0.091 ms at 3.35 TB/s). Dequantizing in SIMT does not get there: int ->
-// float and float -> bf16 conversions issue at 16 a clock per SM, an eighth
-// of the fp32 rate, and two per value cap the stream near 0.9 TB/s.
+// 0.091 ms at 3.35 TB/s) should, but the dequantization's instruction
+// stream did. Kernels cut short on throwaway copies (PERF.md, section 6) showed
+// the first form bound by its loop, not bytes: without loads it took 78 %
+// of its full time, its stream alone ran at 1.9-2.5 TB/s. The redesign's
+// drafts were bound the same way, by what their SASS showed: generic loads
+// (an aligned pointer had lost the shared address space), a division by
+// the runtime group size every k step, and x as the mma's A with eight zero
+// rows, rebuilt in moved registers, for four mma a k step.
 //
-// Design, two routes:
-// - mbt_gemv_kernel (M <= 8, or fp32 x), the TPU kernel's ring on the card:
-//   a block owns 256 columns and one split of the stored rows. It streams
-//   the split through a ring of `stages` (the layout's `depth`, at most 8)
-//   shared-memory slots with 16-byte cp.async copies, so up to `stages - 1`
-//   slots are in flight while the block works on the slot that has landed.
-//   A slot holds 8 KB of codes (rows x 256 columns), the scales and biases
-//   of the (at most two) groups they touch, and the slot's x, so nothing in
-//   the loop waits on device memory. With bf16 x and 4-bit codes the tensor
-//   cores take the products: each warp owns 32 columns as four interleaved
-//   m16n8k16 tiles (x rows 0-7, zero rows 8-15; a lane's four columns are
-//   neighbours, one 16-byte load), and the mma's k order is permuted
-//   within each 16 k so that a lane's B pair is codes k and k + 4 of one
-//   word: a mask-and-or makes bf16x2 (128 + c), and one bf16x2 FMA computes
-//   (128 + c) * s - 128 * s, exact before its single rounding, i.e. the TPU
-//   kernel's round_bf16(c * round_bf16(s)) without a conversion unit. fp32
-//   x and 8-bit codes run one column per thread in registers. The bias
-//   enters once per group as xg * b, from the sums of x over each group's
-//   part in the split, taken when the block starts. Narrow linears split K
-//   over several blocks (about four per SM, the most that fit); a second
-//   kernel sums the fp32 partials in a fixed order.
+// Design, three routes:
+// - mbt_gemv_mma_kernel (bf16 x, 4-bit codes packed or one a byte, groups
+//   of 32-256 k dividing a stage; at most 8 rows a launch group): one
+//   launch a linear. A block owns 128 columns and a run of ring stages (16
+//   KB of codes: 256 k packed, 128 k codes-resident, and each group's
+//   scales and biases, once); a thread-block cluster of 1-8 blocks splits
+//   K (the wrapper's plan, ops/quant_matmul_mb.py:mbt_gemv_plan) and the
+//   blocks sum their fp32 partials in block order through distributed
+//   shared memory: no second kernel, no partial tensor. One producer lane
+//   keeps TMA boxes in a ring of `stages` (the layout's `depth`, capped so
+//   that two blocks share an SM) with full and empty mbarriers, fencing the
+//   async proxy after each empty wait. Packed words come as four 32-column
+//   boxes, 128-byte swizzled, one a consumer warp. Eight consumer warps:
+//   4 column groups of 32 x the two halves of a stage's k, summed at the
+//   end. A lane takes whole words of its four neighbouring columns (k = 16
+//   cq .. 16 cq + 15 of each 64 k, nibble pairs (s, s + 4) in k step s:
+//   shifts by constants), one lop3 and one bf16x2 FMA a pair of codes
+//   (round_bf16(c * round_bf16(s)), exact before its one rounding), and
+//   mma.sync m16n8k16 with the weights as A (two columns a tile: no zero
+//   rows) and x as B (its rows 0-7, the mma's n). The group size is a
+//   template parameter, so a group's scales and bias are found by shifts.
+//   x comes into shared memory once, in the mma's permuted k order, with
+//   its sums over each group (the bias term xg * b).
+// - mbt_gemv_kernel (fp32 x, 8-bit codes, other group sizes; at most 8
+//   rows or K not a multiple of 64): the first form without its tensor-core
+//   branch, one column a thread in SIMT through a cp.async ring of `depth`
+//   slots; a second kernel sums its K splits.
 // - quant_gemm_kernel (bf16, M > 8; quant_tile.cuh, shared with K5) reads
 //   the weights N-contiguous, four columns a load.
-// Measured on the card at M = 1: packed int4 1.0-1.1 TB/s, codes-resident
-// int8 1.3-1.8 TB/s; neither the ring's depth, the number of splits nor a
-// tiled layout (the reference's contig, 256-column tiles) lifts packed int4
-// further, and what holds it there is open (PERF.md).
+// Measured on the card at M = 1 (PERF.md): the tensor-core GEMV 0.175 ms
+// over the four linears packed (the first form 0.29), 1.7-2.6 TB/s; the
+// large linears now near their stream's rate, the small ones on a block's
+// fixed cost.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "quant_tile.cuh"
 #include "sm90_async.cuh"
@@ -62,8 +76,7 @@ constexpr int MB_THREADS = 256;  // columns of a block
 constexpr int MB_CODES = 8192;   // code bytes of one ring slot
 constexpr int MB_AFF = 4 * MB_THREADS * 4;  // scales and biases of two groups
 constexpr int MB_ROWS = 8;       // rows of x per block (grid.z walks the rest)
-constexpr int MB_XS = MB_ROWS * 64 * 2;     // the slot's x (bf16, at most 64 k)
-constexpr int MB_SLOT = MB_CODES + MB_AFF + MB_XS;
+constexpr int MB_SLOT = MB_CODES + MB_AFF;
 constexpr int MB_MAX_STAGES = 8;
 constexpr int XG_LANES = 8;    // threads that sum one (row, group) of x
 
@@ -83,11 +96,6 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
   constexpr int ROW_STEP = MB_THREADS / CPR;
   constexpr int COPIES = SR / ROW_STEP;        // code copies of a thread per slot
   constexpr uint32_t MASK = BITS ? (1u << BITS) - 1u : 0xffu;
-  // bf16 x with 4-bit codes (packed or one per byte): tensor cores
-  constexpr bool MMA = BF16 && BITS != 8;
-  constexpr int SLOT_K = SR * VPE;             // k values of a slot: 64 or 32
-  constexpr int XCH = SLOT_K * 2 / 16;         // 16-byte copies of a row of the slot's x
-  static_assert(MB_ROWS * SLOT_K * 2 <= MB_XS && MB_ROWS * XCH <= MB_THREADS, "slot x");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
   float* xg_s = reinterpret_cast<float*>(smem + stages * MB_SLOT);  // (MB_ROWS, xg_stride)
@@ -129,16 +137,6 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
       const bool ok = g < groups && acol < np;
       cp_async16(dst + MB_CODES + which * MB_THREADS * 4 + (tid % (MB_THREADS / 4)) * 16,
                  ok ? asrc + (size_t)g * np + acol : scales, ok);
-      if constexpr (MMA) {  // the slot's x: MB_ROWS rows of SLOT_K bf16
-        if (tid < MB_ROWS * XCH) {
-          const int xr = tid / XCH;
-          const int xk = r0 * VPE + (tid % XCH) * 8;
-          const bool xok = xr < mcount && xk < r_end * VPE;
-          cp_async16(dst + MB_CODES + MB_AFF + tid * 16,
-                     xok ? reinterpret_cast<const __nv_bfloat16*>(x) + (size_t)(m0 + xr) * k + xk
-                         : x, xok);
-        }
-      }
     }
     cp_async_commit();  // one group per call, empty or not, so the count holds
   };
@@ -173,194 +171,89 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
     }
   }
 
+  // one column per thread, in registers: fp32 x (no rounding), 8-bit
+  // codes and group sizes the tensor-core route does not take (int -> float
+  // and float -> bf16 conversions)
   int g_have = -1;
-  if constexpr (MMA) {
-    // each warp owns 32 columns as four n8 tiles, interleaved: column j of
-    // tile t is the warp's column 4 j + t, so the four tiles' columns of a
-    // lane are neighbours and one 16-byte load reads them. Lane (gq, cq)
-    // holds the B codes of column gq of each tile and the C sums of row gq,
-    // columns 2 cq and 2 cq + 1. The mma's k order is permuted within each
-    // 16 k so that the lane's B pair (k = 2 cq, 2 cq + 1) is the codes
-    // k = cq and cq + 4 of a word (or of two code rows): one dequant_bf16x2.
-    const int lane = tid & 31;
-    const int gq = lane >> 2;
-    const int cq = lane & 3;
-    const int wcol = (tid >> 5) * 32;  // the warp's first column in the block
-    float acc[4][4];
+  float acc[MB_ROWS];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-    uint32_t s2[4], ns2[4];  // bf16x2 (s, s), (-128 s, -128 s) of column gq of each tile
-    for (int slot = 0; slot < n_slots; ++slot) {
-      __syncthreads();  // every thread is done with the ring slot refilled now (and xg_s is in)
-      issue(slot + stages - 1);
-      cp_async_wait(stages - 1);  // this thread's copies of `slot` have landed
-      __syncthreads();            // ... and every thread's
-      const unsigned char* sl = ring + (slot % stages) * MB_SLOT;
-      const float* aff = reinterpret_cast<const float*>(sl + MB_CODES);
-      const uint16_t* xs = reinterpret_cast<const uint16_t*>(sl + MB_CODES + MB_AFF);
-      const int r0 = r_begin + slot * SR;
-      const int k0 = r0 * VPE;
-      const int g0 = k0 / group_size;
-      const int into = k0 - g0 * group_size;  // the slot's first k within group g0
-      const int ksteps = min(SR, r_end - r0) * VPE / 16;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        const int gi = into + 16 * ks >= group_size;  // 0 or 1: a slot spans two groups at most
-        if (g0 + gi != g_have) {
-          g_have = g0 + gi;
-          const float xg = gq < mcount ? xg_s[gq * xg_stride + g_have - g_begin] : 0.f;
-          const float4 sv = *reinterpret_cast<const float4*>(aff + gi * MB_THREADS + wcol + 4 * gq);
-          const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-          const float* bias = aff + (2 + gi) * MB_THREADS + wcol + 8 * cq;
-          const float4 b0 = *reinterpret_cast<const float4*>(bias);
-          const float4 b1 = *reinterpret_cast<const float4*>(bias + 4);
-          const float ba[4] = {b0.x, b0.y, b0.z, b0.w};
-          const float bb[4] = {b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            scale_pairs(sa[t], s2[t], ns2[t]);
-            acc[t][0] = fmaf(xg, ba[t], acc[t][0]);
-            acc[t][1] = fmaf(xg, bb[t], acc[t][1]);
-          }
-        }
-        uint32_t a0 = 0u, a2 = 0u;  // x (row gq) at k = cq, cq + 4 and 8 + cq, 12 + cq
-        if (gq < mcount) {
-          const uint16_t* xr = xs + gq * SLOT_K + 16 * ks;
-          a0 = xr[cq] | ((uint32_t)xr[cq + 4] << 16);
-          a2 = xr[cq + 8] | ((uint32_t)xr[cq + 12] << 16);
-        }
-        // codes k = cq, cq + 4 (v0) and 8 + cq, 12 + cq (v1) of the four
-        // columns, each pair in bits 0-3 and 16-19
-        uint32_t v0[4], v1[4];
-        if constexpr (BITS == 4) {
-          const uint32_t* wr = reinterpret_cast<const uint32_t*>(sl) + wcol + 4 * gq;
-          const uint4 w0 = *reinterpret_cast<const uint4*>(wr + (2 * ks) * MB_THREADS);
-          const uint4 w1 = *reinterpret_cast<const uint4*>(wr + (2 * ks + 1) * MB_THREADS);
-          const uint32_t wa[4] = {w0.x, w0.y, w0.z, w0.w};
-          const uint32_t wb[4] = {w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            v0[t] = wa[t] >> (4 * cq);
-            v1[t] = wb[t] >> (4 * cq);
-          }
-        } else {
-          const unsigned char* cr = sl + (16 * ks + cq) * MB_THREADS + wcol + 4 * gq;
-          const uint32_t q0 = *reinterpret_cast<const uint32_t*>(cr);
-          const uint32_t q4 = *reinterpret_cast<const uint32_t*>(cr + 4 * MB_THREADS);
-          const uint32_t q8 = *reinterpret_cast<const uint32_t*>(cr + 8 * MB_THREADS);
-          const uint32_t q12 = *reinterpret_cast<const uint32_t*>(cr + 12 * MB_THREADS);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {  // byte t of each row to bytes 0 and 2
-            v0[t] = __byte_perm(q0, q4, t | ((4 + t) << 8));
-            v1[t] = __byte_perm(q8, q12, t | ((4 + t) << 8));
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          mma_16816(acc[t], a0, 0u, a2, 0u, dequant_bf16x2(v0[t], s2[t], ns2[t]),
-                    dequant_bf16x2(v1[t], s2[t], ns2[t]));  // rows 8-15 of a: zero
-        }
+  for (int r = 0; r < MB_ROWS; ++r) acc[r] = 0.f;
+  float s = 0.f;  // the group's scale, rounded to bf16 with bf16 x
+  for (int slot = 0; slot < n_slots; ++slot) {
+    __syncthreads();  // every thread is done with the ring slot refilled now (and xg_s is in)
+    issue(slot + stages - 1);
+    cp_async_wait(stages - 1);  // this thread's copies of `slot` have landed
+    __syncthreads();            // ... and every thread's
+    if (!active) continue;
+    const unsigned char* sl = ring + (slot % stages) * MB_SLOT;
+    const float* aff = reinterpret_cast<const float*>(sl + MB_CODES);
+    const int r0 = r_begin + slot * SR;
+    const int units = min(SR, r_end - r0) / EPU;
+    const int k0 = r0 * VPE;
+    const int g0 = k0 / group_size;
+    int g = g0;
+    int left = group_size - (k0 - g0 * group_size);  // values of group g from k0 on
+    for (int u = 0; u < units; ++u) {
+      if (left == 0) {
+        ++g;
+        left = group_size;
       }
-    }
-    cp_async_wait(0);
-    if (gq >= mcount) return;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {  // C column 2 cq + j of tile t
-        const int cn = blockIdx.x * MB_THREADS + wcol + 8 * cq + 4 * j + t;
-        if (cn < n) {
-          const size_t o = (size_t)(m0 + gq) * n + cn;
-          if (partial != nullptr) {
-            partial[(size_t)blockIdx.y * m * n + o] = acc[t][j];
-          } else {
-            reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(acc[t][j]);
-          }
-        }
-      }
-    }
-  } else {
-    // one column per thread, in registers: fp32 x (no rounding) and 8-bit
-    // codes (int -> float and float -> bf16 conversions)
-    float acc[MB_ROWS];
-#pragma unroll
-    for (int r = 0; r < MB_ROWS; ++r) acc[r] = 0.f;
-    float s = 0.f;  // the group's scale, rounded to bf16 with bf16 x
-    for (int slot = 0; slot < n_slots; ++slot) {
-      __syncthreads();  // every thread is done with the ring slot refilled now (and xg_s is in)
-      issue(slot + stages - 1);
-      cp_async_wait(stages - 1);  // this thread's copies of `slot` have landed
-      __syncthreads();            // ... and every thread's
-      if (!active) continue;
-      const unsigned char* sl = ring + (slot % stages) * MB_SLOT;
-      const float* aff = reinterpret_cast<const float*>(sl + MB_CODES);
-      const int r0 = r_begin + slot * SR;
-      const int units = min(SR, r_end - r0) / EPU;
-      const int k0 = r0 * VPE;
-      const int g0 = k0 / group_size;
-      int g = g0;
-      int left = group_size - (k0 - g0 * group_size);  // values of group g from k0 on
-      for (int u = 0; u < units; ++u) {
-        if (left == 0) {
-          ++g;
-          left = group_size;
-        }
-        left -= 8;
-        if (g != g_have) {
-          s = aff[(g - g0) * MB_THREADS + tid];
-          const float b = aff[(2 + g - g0) * MB_THREADS + tid];
-#pragma unroll
-          for (int r = 0; r < MB_ROWS; ++r) {
-            if (r < mcount) acc[r] = fmaf(xg_s[r * xg_stride + g - g_begin], b, acc[r]);
-          }
-          if (BF16) s = round_bf16(s);
-          g_have = g;
-        }
-        float wv[8];  // round_bf16(code * s) with bf16 x, code * s with fp32 x
-        if constexpr (BITS == 4) {
-          const uint32_t word = reinterpret_cast<const uint32_t*>(sl)[u * MB_THREADS + tid];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) wv[e] = (float)((word >> (4 * e)) & MASK) * s;
-        } else if constexpr (BITS == 8) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint32_t word =
-                reinterpret_cast<const uint32_t*>(sl)[(2 * u + h) * MB_THREADS + tid];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) wv[4 * h + e] = (float)((word >> (8 * e)) & MASK) * s;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) wv[e] = (float)sl[(u * 8 + e) * MB_THREADS + tid] * s;
-        }
-        if (BF16) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) wv[e] = round_bf16(wv[e]);
-        }
-        const int kb = k0 + u * 8;
+      left -= 8;
+      if (g != g_have) {
+        s = aff[(g - g0) * MB_THREADS + tid];
+        const float b = aff[(2 + g - g0) * MB_THREADS + tid];
 #pragma unroll
         for (int r = 0; r < MB_ROWS; ++r) {
-          if (r < mcount) {
-            float xv[8];
-            load_x<BF16, 8>(x, (size_t)(m0 + r) * k + kb, xv);
+          if (r < mcount) acc[r] = fmaf(xg_s[r * xg_stride + g - g_begin], b, acc[r]);
+        }
+        if (BF16) s = round_bf16(s);
+        g_have = g;
+      }
+      float wv[8];  // round_bf16(code * s) with bf16 x, code * s with fp32 x
+      if constexpr (BITS == 4) {
+        const uint32_t word = reinterpret_cast<const uint32_t*>(sl)[u * MB_THREADS + tid];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[r] = fmaf(xv[e], wv[e], acc[r]);
-          }
+        for (int e = 0; e < 8; ++e) wv[e] = (float)((word >> (4 * e)) & MASK) * s;
+      } else if constexpr (BITS == 8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t word =
+              reinterpret_cast<const uint32_t*>(sl)[(2 * u + h) * MB_THREADS + tid];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wv[4 * h + e] = (float)((word >> (8 * e)) & MASK) * s;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) wv[e] = (float)sl[(u * 8 + e) * MB_THREADS + tid] * s;
+      }
+      if (BF16) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) wv[e] = round_bf16(wv[e]);
+      }
+      const int kb = k0 + u * 8;
+#pragma unroll
+      for (int r = 0; r < MB_ROWS; ++r) {
+        if (r < mcount) {
+          float xv[8];
+          load_x<BF16, 8>(x, (size_t)(m0 + r) * k + kb, xv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r] = fmaf(xv[e], wv[e], acc[r]);
         }
       }
     }
-    cp_async_wait(0);
-    if (!active) return;
+  }
+  cp_async_wait(0);
+  if (!active) return;
 #pragma unroll
-    for (int r = 0; r < MB_ROWS; ++r) {
-      if (r < mcount) {
-        const size_t o = (size_t)(m0 + r) * n + col;
-        if (partial != nullptr) {
-          partial[(size_t)blockIdx.y * m * n + o] = acc[r];
-        } else if (BF16) {
-          reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(acc[r]);
-        } else {
-          reinterpret_cast<float*>(out)[o] = acc[r];
-        }
+  for (int r = 0; r < MB_ROWS; ++r) {
+    if (r < mcount) {
+      const size_t o = (size_t)(m0 + r) * n + col;
+      if (partial != nullptr) {
+        partial[(size_t)blockIdx.y * m * n + o] = acc[r];
+      } else if (BF16) {
+        reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(acc[r]);
+      } else {
+        reinterpret_cast<float*>(out)[o] = acc[r];
       }
     }
   }
@@ -378,6 +271,427 @@ __global__ void mbt_reduce_kernel(const float* __restrict__ partial, void* __res
     reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
   } else {
     reinterpret_cast<float*>(out)[i] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMV on tensor cores: bf16 x, 4-bit codes (packed words or one a byte), at
+// most 8 rows a launch group; one launch a linear
+// ---------------------------------------------------------------------------
+
+constexpr int TV_COLS = 128;                   // columns of a block
+constexpr int TV_CONSUMERS = 256;              // 8 warps: 4 column groups x 2 halves of k
+constexpr int TV_THREADS = TV_CONSUMERS + 32;  // and one producer warp
+constexpr int TV_CODES = 16384;                // code bytes of a stage: one TMA box
+constexpr int TV_ROWS = 8;                     // rows of x (the mma's rows 0-7)
+constexpr int TV_MAX_STAGES = 8;
+constexpr int TV_MAX_CLUSTER = 8;              // the portable cluster size
+constexpr int TV_RED = TV_COLS * TV_ROWS + TV_MAX_CLUSTER;  // fp32 slots of the cluster sum
+
+// stored rows and k of a stage: 32 rows of packed words (256 k) or 128 rows
+// of codes (128 k), 128 columns either way
+__host__ __device__ constexpr int tv_srows(bool packed) {
+  return packed ? TV_CODES / (TV_COLS * 4) : TV_CODES / TV_COLS;
+}
+__host__ __device__ constexpr int tv_sk(bool packed) { return packed ? tv_srows(true) * 8 : tv_srows(false); }
+
+// x's row in shared memory, 2 kcap bytes and this pad: each quarter warp's
+// 16-byte reads (lanes gq = 0, 1 x cq = 0-3) then span all 32 banks
+__host__ __device__ constexpr int tv_xpad(bool packed) { return packed ? 16 : 64; }
+
+// Shared memory, from a 1024-byte boundary: the ring (a stage: codes | the
+// scales | the biases of its groups, 128 columns each) | x permuted, rows x
+// (2 kcap + 64) bytes | x's sums over each 32 k | over each group | the
+// partial outputs the other blocks of the cluster push here | full and
+// empty barriers.
+struct TvSmem {
+  int aff, stage, xs, xsum, xg, red, bars, bytes;
+  __host__ __device__ TvSmem(bool packed, int group_size, int stages, int rows, int kcap) {
+    aff = tv_sk(packed) / group_size * TV_COLS * 4;
+    stage = (TV_CODES + 2 * aff + 1023) & ~1023;
+    xs = stages * stage;
+    xsum = xs + rows * (2 * kcap + tv_xpad(packed));
+    xg = xsum + ((rows * (kcap / 32) * 4 + 15) & ~15);
+    red = xg + ((rows * (kcap / group_size) * 4 + 15) & ~15);
+    bars = red + TV_RED * 4;
+    bytes = bars + 2 * stages * 8 + 1024;  // and the room to align the base
+  }
+};
+
+__device__ __forceinline__ void consumers_sync() {  // the consumer warps alone
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TV_CONSUMERS) : "memory");
+}
+
+// quant_tile.cuh's dequant_bf16x2 with its mask-and-or in one lop3 (the
+// 0x4300 pair held in a register): bf16x2 round_bf16(c * s) of the codes in
+// bits 0-3 and 16-19 of v
+__device__ __forceinline__ uint32_t dq2(uint32_t v, uint32_t s2, uint32_t ns2) {
+  uint32_t pair, w;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(pair) : "r"(v), "n"(0x000F000F), "r"(0x43004300));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(w) : "r"(pair), "r"(s2), "r"(ns2));
+  return w;
+}
+
+// One k step of a warp's 32 columns as two m16n8k16 tiles: A the weights,
+// dequantized (tile T's row gq is column 4 gq + 2 T, row gq + 8 column 4 gq
+// + 2 T + 1: a lane's four columns are neighbours), B x (column gq is x's
+// row gq; b0, b1 its pairs at the step's k), C (column, x row) in fp32.
+// v0[t], v1[t]: codes of column 4 gq + t at B's k pairs, in bits 0-3 and
+// 16-19; s2, ns2: their scales as bf16x2 pairs.
+__device__ __forceinline__ void mma_step(float (&acc)[2][4], const uint32_t (&v0)[4],
+                                         const uint32_t (&v1)[4], const uint32_t (&s2)[4],
+                                         const uint32_t (&ns2)[4], uint32_t b0, uint32_t b1) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    mma_16816(acc[t], dq2(v0[2 * t], s2[2 * t], ns2[2 * t]),
+              dq2(v0[2 * t + 1], s2[2 * t + 1], ns2[2 * t + 1]),
+              dq2(v1[2 * t], s2[2 * t], ns2[2 * t]), dq2(v1[2 * t + 1], s2[2 * t + 1], ns2[2 * t + 1]),
+              b0, b1);
+  }
+}
+
+// Block (rank r of a cluster of C along grid.x, column block blockIdx.y,
+// row group blockIdx.z) owns 128 columns and the stages [r * S / C, (r + 1)
+// * S / C) of the stored rows. Warp 8's first lane keeps TMA boxes (the
+// stage's codes, 128 columns x 32 word rows or 128 code rows, the latter
+// 128-byte swizzled, and the rows of its groups' scales and biases: each
+// group's once) in a ring of `stages` with full and empty barriers. Warps
+// 0-7 consume: warp w owns the 32 columns 32 (w % 4) .. as four n8 tiles,
+// interleaved (column j of tile t is the warp's column 4 j + t, so a lane's
+// four columns are neighbours: one 16-byte load of words), over the half
+// w / 4 of each stage's k steps.
+template <bool PACKED, int GS>
+__global__ void __launch_bounds__(TV_THREADS, 2)  // two blocks an SM: at most 113 registers
+mbt_gemv_mma_kernel(const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap smap,
+                    const __grid_constant__ CUtensorMap bmap, const __nv_bfloat16* __restrict__ x,
+                    __nv_bfloat16* __restrict__ out, int m, int n, int k, int stages, int kcap) {
+  constexpr int SROWS = tv_srows(PACKED);
+  constexpr int SK = tv_sk(PACKED);
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from the array, so the compiler keeps the
+  // shared address space (LDS, not generic loads)
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.y * TV_COLS;
+  const int m0 = blockIdx.z * TV_ROWS;
+  const int mr = min(TV_ROWS, m - m0);
+  const int nst = (k + SK - 1) / SK;
+  const int s_begin = rank * nst / csize;
+  const int ns = (rank + 1) * nst / csize - s_begin;
+  const int kb = s_begin * SK;
+  const int ke = min(k, kb + ns * SK);
+  constexpr int GPS = SK / GS;  // groups of a stage
+  const TvSmem lay(PACKED, GS, stages, min(TV_ROWS, m), kcap);
+  const int xrow = 2 * kcap + tv_xpad(PACKED);
+  unsigned char* xs = smem + lay.xs;
+  float* xsum = reinterpret_cast<float*>(smem + lay.xsum);
+  float* xg = reinterpret_cast<float*>(smem + lay.xg);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + stages;
+  const bool producer = warp == TV_CONSUMERS / 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TV_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i) {  // stage i of the block's range into ring slot i % stages
+    const int s = i % stages;
+    unsigned char* st = smem + s * lay.stage;
+    mbar_expect_tx(&full[s], TV_CODES + 2 * lay.aff);
+    if constexpr (PACKED) {  // four 32-column boxes, one a consumer warp's columns
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        tma_load_2d(st + j * 4096, &wmap, &full[s], n0 + 32 * j, (s_begin + i) * SROWS);
+      }
+    } else {
+      tma_load_2d(st, &wmap, &full[s], n0, (s_begin + i) * SROWS);
+    }
+    tma_load_2d(st + TV_CODES, &smap, &full[s], n0, (s_begin + i) * GPS);
+    tma_load_2d(st + TV_CODES + lay.aff, &bmap, &full[s], n0, (s_begin + i) * GPS);
+  };
+  if (producer && lane == 0) {
+    for (int i = 0; i < min(stages, ns); ++i) issue(i);  // the stream starts now
+  }
+  __syncwarp();
+
+  // While the first stages land: x's rows over the block's k range into
+  // shared memory as the mma's A in the permuted k order below (packed:
+  // each 64 k as lane cq's 32 bytes, (x[16 cq + s], x[16 cq + s + 4]),
+  // (x[16 cq + 8 + s], x[16 cq + 12 + s]) for s = 0-3; codes: each 32 k as
+  // lane cq's 16 bytes (x[cq], x[cq + 4]), (x[8 + cq], x[12 + cq]) and the
+  // same 16 on), zeros past k; their sums over each 32 k, then over each
+  // group, in a fixed order.
+  const int nb = ns * SK / 32;
+  const int bstride = kcap / 32;
+  for (int p = tid; p < mr * nb; p += TV_THREADS) {
+    const int r = p / nb;
+    const int b = p % nb;
+    const int kk = kb + 32 * b;
+    uint32_t v[32];
+    float sum = 0.f;
+    if (kk < ke) {
+      const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * k + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint4 u = __ldg(src + j);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[8 * j + 2 * e] = w[e] & 0xffffu;
+          v[8 * j + 2 * e + 1] = w[e] >> 16;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sum += bf16_bits_to_float(v[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) v[e] = 0u;
+    }
+    uint4* dst = reinterpret_cast<uint4*>(xs + r * xrow + b * 64);
+    if constexpr (PACKED) {  // lane cq = 2 (b % 2) + j of the 64 k: 16 j + (s, s + 4), (8 + s, 12 + s)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t* u = v + 16 * j;
+        dst[2 * j] = make_uint4(u[0] | (u[4] << 16), u[8] | (u[12] << 16), u[1] | (u[5] << 16),
+                                u[9] | (u[13] << 16));
+        dst[2 * j + 1] = make_uint4(u[2] | (u[6] << 16), u[10] | (u[14] << 16),
+                                    u[3] | (u[7] << 16), u[11] | (u[15] << 16));
+      }
+    } else {  // lane cq: (c, c + 4), (c + 8, c + 12) and the same 16 on
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dst[c] = make_uint4(v[c] | (v[c + 4] << 16), v[c + 8] | (v[c + 12] << 16),
+                            v[c + 16] | (v[c + 20] << 16), v[c + 24] | (v[c + 28] << 16));
+      }
+    }
+    xsum[r * bstride + b] = sum;
+  }
+  __syncthreads();
+  const int ng = (ke - kb) / GS;
+  const int gstride = kcap / GS;
+  for (int p = tid; p < mr * ng; p += TV_THREADS) {
+    const int r = p / ng;
+    const int g = p % ng;
+    float sum = 0.f;
+#pragma unroll
+    for (int b = 0; b < GS / 32; ++b) sum += xsum[r * bstride + g * (GS / 32) + b];
+    xg[r * gstride + g] = sum;
+  }
+  __syncthreads();
+
+  // Lane (gq, cq) holds A (x row gq; rows 8-15 are zero) at k = cq, cq + 4
+  // and 8 + cq, 12 + cq of each 16 k step, the B codes of column gq of each
+  // tile at the same k (the mma's k order permuted within the step, the
+  // same for A and B: cq, cq + 4 are nibbles cq and cq + 4 of a word, or
+  // bytes of rows cq and cq + 4), and the C sums of x row gq, columns 2 cq
+  // and 2 cq + 1. A warp's half of a stage is walked a group (or, past
+  // HALF_K, the part of one) at a time: the four columns' scales once, the
+  // group's bias as xg * b once (by the warp whose half starts it), then its
+  // k steps unrolled, even and odd steps into two chains of sums.
+  constexpr int HALF_K = SK / 2;
+  constexpr int CHUNK = GS < HALF_K ? GS : HALF_K;  // k of a warp's group (part)
+  const int gq = lane >> 2;
+  const int cq = lane & 3;
+  const int wcol = (warp & 3) * 32;
+  const int half = warp >> 2;
+  float acc[2][2][4] = {};  // [chain][tile][C register]
+  // a group's bias as xg * b: columns 4 gq .. 4 gq + 3 from b4, x rows 2 cq
+  // and 2 cq + 1 from xgp (row 0's sum of x over the group)
+  auto add_bias = [&](float (&a)[2][4], const float* b4, const float* xgp) {
+    const float4 b = *reinterpret_cast<const float4*>(b4);
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+    const float x0 = 2 * cq < mr ? xgp[2 * cq * gstride] : 0.f;
+    const float x1 = 2 * cq + 1 < mr ? xgp[(2 * cq + 1) * gstride] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i / 4][i % 4] = fmaf(i & 1 ? x1 : x0, bv[i / 2], a[i / 4][i % 4]);
+  };
+  if (producer) {
+    if (lane == 0) {
+      for (int i = stages; i < ns; ++i) {
+        mbar_wait(&empty[i % stages], (i / stages - 1) & 1);
+        fence_proxy_async();  // the consumers' reads of the stage before TMA's writes
+        issue(i);
+      }
+    }
+    __syncwarp();
+  } else if constexpr (PACKED) {
+    // Lane (gq, cq) takes, of each 64 k, the words 2 cq and 2 cq + 1 of its
+    // four columns (k = 16 cq .. 16 cq + 15, one group): one 16-byte read
+    // each from the warp's 32-column box (piece gq ^ (row % 8): no bank
+    // conflicts), and nibbles (s, s + 4) of both in k step s = 0-3.
+    const bool xin = gq < mr;
+    const unsigned char* wbox0 = smem + (warp & 3) * 4096;  // + the stage's offset
+    for (int i = 0; i < ns; ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const unsigned char* st = smem + s * lay.stage;
+      const unsigned char* wbox = wbox0 + s * lay.stage;
+      const float* sc = reinterpret_cast<const float*>(st + TV_CODES);
+      const float* bi = reinterpret_cast<const float*>(st + TV_CODES + lay.aff);
+#pragma unroll
+      for (int u = 0; u < HALF_K / 64; ++u) {
+        const int ko = half * HALF_K + 64 * u;  // the unit's first k in the stage
+        const int kk = kb + i * SK + ko;
+        if (kk >= ke) break;  // past the tensor's end (K a multiple of 64 here)
+        uint32_t s2[4], ns2[4];  // the lane's group: k = ko + 16 cq
+        const float4 sv = *reinterpret_cast<const float4*>(
+            sc + ((ko + 16 * cq) / GS) * TV_COLS + wcol + 4 * gq);
+        scale_pairs(sv.x, s2[0], ns2[0]);
+        scale_pairs(sv.y, s2[1], ns2[1]);
+        scale_pairs(sv.z, s2[2], ns2[2]);
+        scale_pairs(sv.w, s2[3], ns2[3]);
+        if (GS < 64 || ko % GS == 0) {  // the groups that start in the unit: their bias, once
+#pragma unroll
+          for (int g = 0; g < (GS < 64 ? 64 / GS : 1); ++g) {
+            if (kk + g * GS < ke) add_bias(acc[0], bi + (ko / GS + g) * TV_COLS + wcol + 4 * gq,
+                                           xg + (kk - kb) / GS + g);
+          }
+        }
+        const int ro = ko / 8 + 2 * cq;  // the word rows 2 cq, 2 cq + 1 of the unit
+        const uint4 wa = *reinterpret_cast<const uint4*>(wbox + ro * 128 + ((gq ^ (ro & 7)) << 4));
+        const uint4 wb = *reinterpret_cast<const uint4*>(wbox + (ro + 1) * 128 +
+                                                         ((gq ^ ((ro + 1) & 7)) << 4));
+        uint4 xa = make_uint4(0u, 0u, 0u, 0u);
+        uint4 xb = xa;
+        if (xin) {  // x row gq: the mma's B column gq
+          const unsigned char* xp = xs + gq * xrow + (kk - kb) * 2 + 32 * cq;
+          xa = *reinterpret_cast<const uint4*>(xp);
+          xb = *reinterpret_cast<const uint4*>(xp + 16);
+        }
+        const uint32_t xw[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        const uint32_t va[4] = {wa.x, wa.y, wa.z, wa.w};
+        const uint32_t vb[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // k step q of the unit
+          uint32_t v0[4], v1[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            v0[t] = va[t] >> (4 * q);
+            v1[t] = vb[t] >> (4 * q);
+          }
+          mma_step(acc[q & 1], v0, v1, s2, ns2, xw[2 * q], xw[2 * q + 1]);
+        }
+      }
+      __syncwarp();  // every lane's reads of the stage are done (the mma took them)
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  } else {
+    const bool xin = gq < mr;
+    for (int i = 0; i < ns; ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const unsigned char* st = smem + s * lay.stage;
+      const float* sc = reinterpret_cast<const float*>(st + TV_CODES);
+      const float* bi = reinterpret_cast<const float*>(st + TV_CODES + lay.aff);
+#pragma unroll
+      for (int c = 0; c < HALF_K / CHUNK; ++c) {
+        const int ko = half * HALF_K + c * CHUNK;  // the chunk's first k in the stage
+        const int kk = kb + i * SK + ko;
+        if (kk >= ke) break;  // past the tensor's end: whole chunks, K a multiple of GS
+        uint32_t s2[4], ns2[4];
+        const float4 sv = *reinterpret_cast<const float4*>(sc + (ko / GS) * TV_COLS + wcol + 4 * gq);
+        scale_pairs(sv.x, s2[0], ns2[0]);
+        scale_pairs(sv.y, s2[1], ns2[1]);
+        scale_pairs(sv.z, s2[2], ns2[2]);
+        scale_pairs(sv.w, s2[3], ns2[3]);
+        if (ko % GS == 0) {
+          add_bias(acc[0], bi + (ko / GS) * TV_COLS + wcol + 4 * gq, xg + (kk - kb) / GS);
+        }
+#pragma unroll
+        for (int p = 0; p < CHUNK / 32; ++p) {  // pairs of k steps
+          uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+          if (xin) xv = *reinterpret_cast<const uint4*>(xs + gq * xrow + (kk - kb + 32 * p) * 2 + 16 * cq);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int step = ko / 16 + 2 * p + e;  // the k step in the stage
+            uint32_t v0[4], v1[4];  // codes k = cq, cq + 4 (v0) and 8 + cq, 12 + cq (v1)
+            // code row r, byte column c sits at piece (c / 16) ^ (r % 8) of its 128 bytes
+            const int col = wcol + 4 * gq;
+            auto word = [&](int r) {
+              return *reinterpret_cast<const uint32_t*>(
+                  st + r * TV_COLS + (((col >> 4) ^ (r & 7)) << 4) + (col & 15));
+            };
+            const int r = 16 * step + cq;
+            const uint32_t q0 = word(r), q4 = word(r + 4), q8 = word(r + 8), q12 = word(r + 12);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {  // byte t of each row to bytes 0 and 2
+              v0[t] = __byte_perm(q0, q4, t | ((4 + t) << 8));
+              v1[t] = __byte_perm(q8, q12, t | ((4 + t) << 8));
+            }
+            mma_step(acc[e], v0, v1, s2, ns2, e ? xv.z : xv.x, e ? xv.w : xv.y);
+          }
+        }
+      }
+      __syncwarp();  // every lane's reads of the stage are done (the mma took them)
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+  if (!producer) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[0][i / 4][i % 4] += acc[1][i / 4][i % 4];  // even steps first
+    // the two halves' sums: half 1's through the ring, free now, into half 0's
+    consumers_sync();
+    float* ex = reinterpret_cast<float*>(smem) + ((warp & 3) * 32 + lane) * 8;
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ex[i] = acc[0][i / 4][i % 4];
+    }
+    consumers_sync();
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[0][i / 4][i % 4] += ex[i];
+    }
+  }
+
+  // acc[0][T][c]: column wcol + 4 gq + 2 T + c / 2, x row 2 cq + c % 2.
+  // With a cluster, output e = column * mr + row belongs to block e % C,
+  // which sums the partials every block pushed into its slots, in block
+  // order.
+  const bool owns = !producer && half == 0;
+  if (csize == 1) {
+    if (owns) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = 2 * cq + (i & 1);
+        const int col = n0 + wcol + 4 * gq + i / 2;
+        if (row < mr && col < n) {
+          out[(size_t)(m0 + row) * n + col] = __float2bfloat16_rn(acc[0][i / 4][i % 4]);
+        }
+      }
+    }
+    return;
+  }
+  const int slots = (TV_COLS * mr + csize - 1) / csize;
+  if (owns) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 2 * cq + (i & 1);
+      if (row < mr) {
+        const int e = (wcol + 4 * gq + i / 2) * mr + row;
+        cluster.map_shared_rank(red, e % csize)[rank * slots + e / csize] = acc[0][i / 4][i % 4];
+      }
+    }
+  }
+  cluster.sync();
+  for (int slot = tid; slot < slots; slot += TV_THREADS) {
+    const int e = slot * csize + rank;
+    const int col = n0 + e / mr;
+    if (e < TV_COLS * mr && col < n) {
+      float sum = 0.f;
+      for (int src = 0; src < csize; ++src) sum += red[src * slots + slot];  // block 0 first
+      out[(size_t)(m0 + e % mr) * n + col] = __float2bfloat16_rn(sum);
+    }
   }
 }
 
@@ -429,7 +743,60 @@ int launch_gemv(dim3 grid, int smem, cudaStream_t s, const void* x, const void* 
   return 0;
 }
 
+// The tensor-core GEMV's launch: K split across a cluster of `cluster`
+// blocks (the wrapper's plan, ops/quant_matmul_mb.py:mbt_gemv_plan),
+// `stages` ring stages; tensor maps of the codes, scales and biases.
+template <bool PACKED, int GS>
+int launch_gemv_mma(const void* x, const void* w, const void* scales, const void* biases,
+                    void* out, int m, int n, int k, int np, int stages, int cluster,
+                    cudaStream_t s) {
+  constexpr int SK = tv_sk(PACKED);
+  const int nst = (k + SK - 1) / SK;
+  if (k % GS || stages < 1 || stages > TV_MAX_STAGES || cluster < 1 ||
+      cluster > TV_MAX_CLUSTER || cluster > nst) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int kcap = (nst + cluster - 1) / cluster * SK;
+  const TvSmem lay(PACKED, GS, stages, std::min(TV_ROWS, m), kcap);
+  const dim3 grid(cluster, (n + TV_COLS - 1) / TV_COLS, (m + TV_ROWS - 1) / TV_ROWS);
+  if (lay.bytes > 227 * 1024 || grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap wm, sm, bm;
+  const bool ok =
+      (PACKED ? tensor_map_2d(&wm, w, CU_TENSOR_MAP_DATA_TYPE_INT32, k / 8, np, 4LL * np,
+                              tv_srows(true), TV_COLS / 4, CU_TENSOR_MAP_SWIZZLE_128B)
+              : tensor_map_2d(&wm, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, np, np, tv_srows(false),
+                              TV_COLS, CU_TENSOR_MAP_SWIZZLE_128B)) &&
+      tensor_map_2d(&sm, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, k / GS, np, 4LL * np, SK / GS,
+                    TV_COLS, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      tensor_map_2d(&bm, biases, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, k / GS, np, 4LL * np, SK / GS,
+                    TV_COLS, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)launch_cluster<mbt_gemv_mma_kernel<PACKED, GS>>(
+      grid, TV_THREADS, lay.bytes, cluster, s, wm, sm, bm, (const __nv_bfloat16*)x,
+      (__nv_bfloat16*)out, m, n, k, stages, kcap);
+}
+
 }  // namespace
+
+extern "C" int wmt_mbt_gemv_mma(const void* x, const void* w, const void* scales,
+                                const void* biases, void* out, int m, int n, int k, int codes,
+                                int group_size, int np, int stages, int cluster, void* stream) {
+  if (!valid_layout(m, n, k, codes ? 0 : 4, group_size, np)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define WMT_MBT_MMA(P, G) \
+  launch_gemv_mma<P, G>(x, w, scales, biases, out, m, n, k, np, stages, cluster, s)
+  switch (codes ? -group_size : group_size) {  // groups of 32 k or more that divide a stage
+    case 32: return WMT_MBT_MMA(true, 32);
+    case 64: return WMT_MBT_MMA(true, 64);
+    case 128: return WMT_MBT_MMA(true, 128);
+    case 256: return WMT_MBT_MMA(true, 256);
+    case -32: return WMT_MBT_MMA(false, 32);
+    case -64: return WMT_MBT_MMA(false, 64);
+    case -128: return WMT_MBT_MMA(false, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WMT_MBT_MMA
+}
 
 extern "C" int wmt_mbt_gemv(const void* x, const void* w, const void* scales,
                             const void* biases, void* out, void* partial, int m, int n, int k,

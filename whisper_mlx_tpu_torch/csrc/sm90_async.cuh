@@ -1,10 +1,13 @@
 // Asynchronous copies and thread-block clusters on Hopper (sm_90a), shared by
 // the few-row dequant-matmul (K5, quant_matmul.cu), the transposed
-// dequant-matmul (K6, quant_matmul_mb.cu), the decode attention (K3,
-// decode_attention.cu) and the attention core of K2 and K4 (attn_tile.cuh):
+// dequant-matmul (K6, quant_matmul_mb.cu), the W8A8 matmul (K7,
+// a8_matmul.cu), the decode attention (K3, decode_attention.cu) and the
+// attention core of K2 and K4 (attn_tile.cuh):
 // - cp.async of 16 bytes into shared memory, committed and waited on in
 //   groups (a ring of stages);
-// - one-dimensional bulk copies (cp.async.bulk, no tensor map) completing
+// - one-dimensional bulk copies (cp.async.bulk, no tensor map) and
+//   two-dimensional TMA boxes (cp.async.bulk.tensor, tensor maps encoded on
+//   the host through cudaGetDriverEntryPoint, so no -lcuda) completing
 //   their bytes on an mbarrier;
 // - allow_smem: a kernel's dynamic shared-memory limit, raised once a device;
 // - launch_cluster: a launch through cudaLaunchKernelEx with a cluster
@@ -14,6 +17,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,6 +77,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Wait until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -96,6 +104,66 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Order this thread's view of shared memory, after an mbarrier wait that
+// saw the consumers' reads of a ring stage, before the async proxy (TMA)
+// writes the stage again: without it a TMA box can land over data that
+// generic loads have not yet read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One box of a 2-D tensor map (inner coordinate col, outer row) into
+// shared memory, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+        "r"(row)
+      : "memory");
+}
+
+// ------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, looked up once
+// (so the library needs no -lcuda).
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A (rows, cols) row-major matrix of `type` (elements of `esize` bytes, a
+// row `row_bytes` apart, a multiple of 16) as a 2-D map of boxes of
+// box_rows x box_cols; reads past either edge fill zeros and still count
+// the whole box's bytes on the barrier.
+static inline bool tensor_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                                 long long rows, long long cols, long long row_bytes,
+                                 int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 constexpr int MAX_DEVICES = 64;

@@ -56,12 +56,17 @@ SIGNATURES: dict[str, list] = {
     # x, w, scales, biases, out, partial, m, n, k, bits, group_size, np,
     # stages, splits, rows_per_split, x_bf16, stream
     "wmt_mbt_gemv": [_P] * 6 + [_I] * 10 + [_P],
+    # x, w, scales, biases, out, m, n, k, codes, group_size, np, stages,
+    # cluster, stream
+    "wmt_mbt_gemv_mma": [_P] * 5 + [_I] * 8 + [_P],
     # x, xg, w, scales, biases, out, m, n, k, bits, group_size, np, stream
     "wmt_mbt_gemm": [_P] * 6 + [_I] * 6 + [_P],
     # x, xq, sx, m, k, x_bf16, stream
     "wmt_a8_quantize": [_P, _P, _P, _I, _I, _I, _P],
     # xq, sx, codes, scale, out, m, n, k, out_bf16, stream
-    "wmt_a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wmt_a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, codes, scale, out, m, n, k, x_bf16, cluster, stages, stream
+    "wmt_a8_gemv": [_P] * 4 + [_I] * 6 + [_P],
     # x, xg, w, scales, biases, scale_w, bias_w, out, m, n, k, bits,
     # group_size, variant, threads, x_bf16, stream
     "wmt_probe_qmm": [_P] * 8 + [_I] * 8 + [_P],

@@ -44,7 +44,10 @@ def quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Ten
     x32 = x.float().contiguous()  # codes and scales come out contiguous
     absmax = x32.abs().amax(dim=-1, keepdim=True)
     qmax = 127.0 if bits == 8 else 7.0
-    scale = (torch.clamp_min(absmax / qmax, 1e-8) * (1.0 + 2.0 ** -8)).to(torch.bfloat16)
+    # a true division by a tensor: on CUDA PyTorch divides by a Python number
+    # as a product with its reciprocal, an ulp off the CPU's quotient at times
+    ratio = absmax / torch.full_like(absmax, qmax)
+    scale = (torch.clamp_min(ratio, 1e-8) * (1.0 + 2.0 ** -8)).to(torch.bfloat16)
     codes = torch.clamp(torch.round(x32 / scale.float()), -qmax, qmax).to(torch.int8)
     if bits == 4:
         codes = pack_int4(codes)

@@ -8,9 +8,17 @@ symmetric per-channel int8 (``w ~ s_n * c[n, k]``, ``c`` in [-127, 127],
 the group zero points folded into the codes); :func:`a8_matmul` quantizes
 each row of x to int8 (``amax / 127``, round half to even, a true
 division), takes the int32 dot product and returns ``(float(acc) * s_n) *
-sx`` in x's dtype. On a CUDA tensor it launches ``csrc/a8_matmul.cu``, on a
-CPU tensor it runs :func:`a8_matmul_plain`. :func:`prepare_a8_params`
-converts a parameter tree.
+sx`` in x's dtype. On a CUDA tensor it launches ``csrc/a8_matmul.cu`` (at
+most 8 rows, or K not a multiple of 64: one launch with the quantization
+fused, K split across a cluster as :func:`a8_gemv_plan` says; more rows:
+quantize, then int8 tensor-core tiles), on a CPU tensor it runs
+:func:`a8_matmul_plain`. :func:`prepare_a8_params` converts a parameter
+tree.
+
+Every quotient here is a true division by a tensor: PyTorch on CUDA divides
+by a Python number as a product with its reciprocal, an ulp off at times,
+which would move scales and codes on the card away from the CPU's, the JAX
+package's and the kernel's.
 
 Storage: the port keeps the codes ``(N, K)``, N-major, so the four k values
 one ``__dp4a`` takes are one 32-bit word (the reference keeps ``(K, Np)``
@@ -26,6 +34,7 @@ only route.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any
 
@@ -33,6 +42,7 @@ import torch
 
 from whisper_mlx_tpu_torch.ops import _build
 from whisper_mlx_tpu_torch.ops.quant import QuantTensor
+from whisper_mlx_tpu_torch.ops.quant_matmul_mb import cluster_split
 
 LAUNCHES = 0
 
@@ -78,7 +88,8 @@ class A8Tensor:
 def _rows_to_a8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 rows -> (int8 codes, fp32 scales): ``s = max(amax, 1e-12) / 127``,
     ``c = clip(round_half_even(w / s), -127, 127)``."""
-    s = torch.clamp(w.abs().amax(dim=1), min=1e-12) / 127.0
+    amax = w.abs().amax(dim=1)
+    s = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
     return torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8), s
 
 
@@ -121,7 +132,8 @@ def a8_matmul_plain(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
     float64, where it is exact, and rounded to fp32 once."""
     *lead, k = x.shape
     xf = x.reshape(-1, k).float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     xq = torch.clamp(torch.round(xf / sx), -127, 127)
     acc = torch.matmul(xq.double(), at.codes.double().T)
     out = (acc.float() * at.scale) * sx
@@ -141,10 +153,52 @@ def a8_matmul(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
     return a8_matmul_kernel(x, at)
 
 
+# csrc/a8_matmul.cu's fused GEMV: a block owns 128 channels, a ring stage
+# holds 128 channels x 256 k of codes (32 KB), x's rows sit quantized in
+# shared memory, a launch takes at most 8 rows of x a block
+GEMV_ROWS = 8
+_CH, _KC, _STAGE = 128, 256, 128 * 256
+_MAX_CLUSTER = 8
+# two 32 KB stages: on the H100 three or more (two blocks an SM, 192 KB and
+# more in flight) streamed slower at Qwen3-32B's shapes (PERF.md)
+_STAGES = 2
+_SMEM_TWO_A_SM = 112 * 1024   # bytes of shared memory at which two blocks share an SM
+_XCAP = 48 * 1024             # most bytes of quantized x a block holds
+
+
+def _gemv_smem(stages: int, rows: int, kcap: int) -> int:
+    """Shared memory of a block (``FvSmem``): the ring, x's rows quantized,
+    absmax and scales, the cluster's int32 slots, the barriers and the room
+    to align the ring."""
+    return stages * _STAGE + rows * (kcap + 16) + 64 + (_CH * 8 + _MAX_CLUSTER) * 4 \
+        + 16 * stages + 1024
+
+
+def a8_gemv_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """The fused GEMV's launch: K's 256-k chunks split over a cluster of C
+    blocks (block r of it takes chunks ``[r * chunks // C, (r + 1) * chunks
+    // C)``), C from :func:`~whisper_mlx_tpu_torch.ops.quant_matmul_mb.cluster_split`
+    with two blocks an SM and x's rows within ``_XCAP``; a ring of
+    ``_STAGES`` stages. -> (cluster, stages)."""
+    rows = min(m, GEMV_ROWS)
+    chunks = -(-k // _KC)
+
+    def kcap(c: int) -> int:
+        return -(-chunks // c) * _KC
+
+    c = cluster_split(-(-n // _CH), chunks, 2 * sms, lambda c: rows * (kcap(c) + 16) <= _XCAP)
+    return c, _STAGES
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def a8_matmul_kernel(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
-    """Kernel K7 on CUDA tensors (quantize x, then the ``__dp4a`` GEMV for at
-    most 8 rows or the int8 tensor-core tiles for more); its plain version
-    on CPU tensors."""
+    """Kernel K7 on CUDA tensors (the fused GEMV for at most 8 rows or K
+    not a multiple of 64, else quantize x, then the int8 tensor-core
+    tiles); its plain version on CPU tensors."""
     *lead, k = x.shape
     n = at.n_orig
     if k != at.shape[1]:
@@ -163,21 +217,30 @@ def a8_matmul_kernel(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
     if at.codes.dtype != torch.int8 or not at.codes.is_contiguous() or \
             at.scale.dtype != torch.float32 or not at.scale.is_contiguous():
         raise ValueError("a8_matmul: codes must be contiguous int8 and scale contiguous fp32")
+    codes = at.codes if at.codes.data_ptr() % 16 == 0 else at.codes.clone()  # TMA's alignment
     x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:  # the kernels load x 16 bytes at a time
+        x2 = x2.clone()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bf16 = int(x.dtype == torch.bfloat16)
     lib = _build.lib()
-    _build.check(lib.wmt_a8_quantize(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, bf16,
-                                     stream), "wmt_a8_quantize")
-    _build.check(lib.wmt_a8_matmul(xq.data_ptr(), sx.data_ptr(), at.codes.data_ptr(),
-                                   at.scale.data_ptr(), out.data_ptr(), m, n, k, bf16, stream),
-                 "wmt_a8_matmul")
+    if m <= GEMV_ROWS or k % 64:
+        cluster, stages = a8_gemv_plan(m, n, k, _sm_count(x.device.index or 0))
+        _build.check(lib.wmt_a8_gemv(x2.data_ptr(), codes.data_ptr(), at.scale.data_ptr(),
+                                     out.data_ptr(), m, n, k, bf16, cluster, stages, stream),
+                     "wmt_a8_gemv")
+    else:
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+        _build.check(lib.wmt_a8_quantize(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, bf16,
+                                         stream), "wmt_a8_quantize")
+        _build.check(lib.wmt_a8_gemm(xq.data_ptr(), sx.data_ptr(), codes.data_ptr(),
+                                     at.scale.data_ptr(), out.data_ptr(), m, n, k, bf16, stream),
+                     "wmt_a8_gemm")
     global LAUNCHES
     LAUNCHES += 1
     return out.reshape(*lead, n)

@@ -7,9 +7,10 @@ Counterpart of ``whisper_mlx_tpu/ops/quant_pallas_mb.py``.
 :class:`QuantTensorT` once, at setup; ``quant_matmul_mbt(x, qt)`` then
 computes ``x @ dequant(qt).T`` with K5's function and rounding points
 (``ops/quant_matmul.py``): on a CUDA tensor it launches
-``csrc/quant_matmul_mb.cu``, on a CPU tensor it runs
-:func:`quant_matmul_mbt_plain`. :func:`quant_matmul_mb` transposes per call
-(the ``WTPU_QMM_MB`` route).
+``csrc/quant_matmul_mb.cu`` (bf16 x with 4-bit codes at most 8 rows: one
+launch, K split across a cluster as :func:`mbt_gemv_plan` says), on a CPU
+tensor it runs :func:`quant_matmul_mbt_plain`. :func:`quant_matmul_mb`
+transposes per call (the ``WTPU_QMM_MB`` route).
 
 The layouts hold the reference's values in one flat storage:
 - packed words ``(K / per_word, Np)`` (int32 with the bits of MLX's
@@ -40,11 +41,21 @@ from whisper_mlx_tpu_torch.ops.quant import QuantTensor, dequantize, unpack
 from whisper_mlx_tpu_torch.ops.quant_matmul import GEMV_ROWS, group_matmul_plain
 
 LAUNCHES = 0
-MAX_STAGES = 8  # ring slots the kernel's shared memory holds
-# csrc/quant_matmul_mb.cu: a GEMV block owns 256 columns; a ring slot holds
-# 8 KB of codes, i.e. 8 rows of packed words or 32 rows of codes
+MAX_STAGES = 8  # ring stages the kernels' shared memory holds
+# csrc/quant_matmul_mb.cu, the SIMT GEMV (fp32 x, 8-bit codes, group sizes
+# the tensor-core route does not take): a block owns 256 columns; a ring
+# slot holds 8 KB of codes, i.e. 8 rows of packed words or 32 rows of codes
 _BLOCK_COLS = 256
 _SLOT_ROWS = {False: 8, True: 32}  # by codes_resident
+# ... and the tensor-core GEMV (bf16 x, 4-bit codes): a block owns 128
+# columns; a stage holds 16 KB of codes, 256 k of packed words or 128 k of
+# codes, and the scales and biases of its groups
+_MMA_COLS = 128
+_MMA_STAGE_K = {False: 256, True: 128}  # by codes_resident
+_MAX_CLUSTER = 8
+_SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may have
+_SMEM_TWO_A_SM = 112 * 1024   # ... and the most at which two blocks share an SM
+_XCAP = 48 * 1024         # most bytes of x (bf16) a block holds
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,7 +68,9 @@ class QuantTensorT:
 
     ``wqt`` ``(rows, Np)`` int32 words or int8 codes; ``scalest``/
     ``biasest`` ``(G, Np)`` fp32; ``n_orig`` the unpadded N; ``depth`` the
-    ring's slots on the card; ``contig`` the reference's layout flag.
+    ring's stages on the card (capped by shared memory: at most what
+    leaves two blocks an SM on the tensor-core GEMV); ``contig`` the
+    reference's layout flag.
     """
 
     wqt: torch.Tensor
@@ -169,10 +182,79 @@ def _gemv_splits(n: int, rows: int, slot_rows: int, sms: int) -> tuple[int, int]
     return -(-slots // per), per * slot_rows
 
 
+def mma_route(dtype: torch.dtype, qt: QuantTensorT) -> bool:
+    """Whether a few-row call takes the tensor-core GEMV: bf16 x, 4-bit
+    codes (packed or codes-resident), groups of 32 k or more that divide
+    a stage's k."""
+    sk = _MMA_STAGE_K[qt.codes_resident]
+    return (dtype == torch.bfloat16 and qt.bits == 4 and qt.group_size % 32 == 0
+            and sk % qt.group_size == 0)
+
+
+def _mma_smem(codes: bool, group_size: int, stages: int, rows: int, kcap: int) -> int:
+    """Shared memory of a tensor-core GEMV block (``TvSmem``): the ring
+    (codes, scales and biases a stage), x's rows, their sums over each 32 k
+    and each group, the cluster's fp32 slots, the barriers and the room to
+    align the ring."""
+    def up(v, a):
+        return -(-v // a) * a
+
+    aff = _MMA_STAGE_K[codes] // group_size * _MMA_COLS * 4
+    stage = up(16384 + 2 * aff, 1024)
+    return (stages * stage + rows * (2 * kcap + (64 if codes else 16))
+            + up(rows * (kcap // 32) * 4, 16)
+            + up(rows * (kcap // group_size) * 4, 16) + (_MMA_COLS * 8 + _MAX_CLUSTER) * 4
+            + 16 * stages + 1024)
+
+
+def cluster_split(col_blocks: int, units: int, slots: int, fits) -> int:
+    """How many blocks of a cluster (1-8, at most ``units``) split K's units
+    (ring stages): the count that takes the fewest waves of ``slots``
+    blocks times the units a block streams plus one (a block's fixed cost:
+    x's pass and the sums), the least such count; ``fits(c)`` says whether
+    a block of a c-way split holds its x."""
+    best, best_cost = None, None
+    for c in range(1, min(_MAX_CLUSTER, units) + 1):
+        if not fits(c):
+            continue
+        cost = -(-col_blocks * c // slots) * (-(-units // c) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    if best is None:
+        raise ValueError(f"no split of {units} units fits a block's shared memory")
+    return best
+
+
+def mbt_gemv_plan(m: int, n: int, k: int, codes: bool, group_size: int, depth: int,
+                  sms: int) -> tuple[int, int]:
+    """The tensor-core GEMV's launch: K's stages (256 k packed, 128 k
+    codes-resident) split over a cluster of C blocks (block r of it takes
+    stages ``[r * S // C, (r + 1) * S // C)``), C from :func:`cluster_split`
+    with two blocks an SM and x's rows within ``_XCAP``; the ring ``depth``
+    deep, capped at what leaves two blocks an SM. -> (cluster, stages)."""
+    rows = min(m, GEMV_ROWS)
+    nst = -(-k // _MMA_STAGE_K[codes])
+
+    def kcap(c: int) -> int:
+        return -(-nst // c) * _MMA_STAGE_K[codes]
+
+    c = cluster_split(-(-n // _MMA_COLS), nst, 2 * sms,
+                      lambda c: rows * (2 * kcap(c) + 64) <= _XCAP or c == min(8, nst))
+    stages = min(max(depth, 1), MAX_STAGES)
+    while stages > 1 and _mma_smem(codes, group_size, stages, rows, kcap(c)) > _SMEM_TWO_A_SM:
+        stages -= 1
+    if _mma_smem(codes, group_size, stages, rows, kcap(c)) > _SMEM_LIMIT:
+        raise ValueError(f"quant_matmul_mbt: K {k} is too long for the GEMV's shared memory")
+    return c, stages
+
+
 def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
     """``x @ dequant(qt).T``: x ``(..., K)`` -> ``(..., N)`` in x's dtype;
-    kernel K6 on CUDA tensors (the ring GEMV for at most ``GEMV_ROWS`` rows
-    or fp32 x, the tiled tensor-core kernel for more bf16 rows)."""
+    kernel K6 on CUDA tensors: at most ``GEMV_ROWS`` rows (or K not a
+    multiple of 64) on the tensor-core GEMV in one launch where
+    :func:`mma_route` says (bf16 x, 4-bit codes), else on the SIMT ring
+    GEMV (fp32 x, 8-bit codes, other group sizes: a second launch sums
+    its K splits); more bf16 rows on the tiled tensor-core kernel."""
     _check_inputs(x, qt)
     if x.device.type == "cpu":
         return quant_matmul_mbt_plain(x, qt)
@@ -181,6 +263,9 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
     for name, t in (("wqt", qt.wqt), ("scalest", qt.scalest), ("biasest", qt.biasest)):
         if not t.is_contiguous():
             raise ValueError(f"quant_matmul_mbt: {name} must be contiguous")
+    if (qt.wqt.data_ptr() | qt.scalest.data_ptr() | qt.biasest.data_ptr()) % 16:  # TMA's
+        qt = dataclasses.replace(qt, wqt=qt.wqt.clone(), scalest=qt.scalest.clone(),
+                                 biasest=qt.biasest.clone())
     *lead, k = x.shape
     n = qt.n_orig
     x2 = x.reshape(-1, k).contiguous()
@@ -193,11 +278,18 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bits = 0 if qt.codes_resident else qt.bits
     np_ = qt.scalest.shape[1]
-    if x.dtype == torch.float32 or m <= GEMV_ROWS or k % 64:
+    sms = _sm_count(x.device.index or 0)
+    if (m <= GEMV_ROWS or k % 64) and mma_route(x.dtype, qt):
+        cluster, stages = mbt_gemv_plan(m, n, k, qt.codes_resident, qt.group_size, qt.depth, sms)
+        rc = _build.lib().wmt_mbt_gemv_mma(
+            x2.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(), qt.biasest.data_ptr(),
+            out.data_ptr(), m, n, k, int(qt.codes_resident), qt.group_size, np_, stages,
+            cluster, stream)
+        _build.check(rc, "wmt_mbt_gemv_mma")
+    elif x.dtype == torch.float32 or m <= GEMV_ROWS or k % 64:
         codes = qt.codes_resident
         rows = k if codes else k // (32 // qt.bits)
-        splits, per_split = _gemv_splits(n, rows, _SLOT_ROWS[codes],
-                                         _sm_count(x.device.index or 0))
+        splits, per_split = _gemv_splits(n, rows, _SLOT_ROWS[codes], sms)
         partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
         rc = _build.lib().wmt_mbt_gemv(
