@@ -14,7 +14,11 @@ is non-zero and the result line is not printed:
    take, and one PyTorch call computing the same function where one exists):
    K1-K3, then the beam path's K3 integer-dot mode, K8 and K9 (K3 and the
    beam kernels L2 cold over copies of one layer's caches, K3's warm reading
-   and its launcher's host cost beside); K2 also at
+   and its launcher's host cost beside; K8 row by row in both modes and
+   widths at every ancestry case of K8_CHECKED and timed at each of
+   K8_TIMED beside its own distinct-row bound, K9's move byte-exact at 1, 8,
+   32 and 39 moved lanes and timed at 8 and 32, both bit-equal on a repeat
+   and one device kernel a call); K2 also at
    the ragged edges of its 128-row q-tile and 128-key tile, in both softmax
    modes, with its TFLOP/s, share of the bound, the first (wmma) form's
    time and the launcher's host cost a call;
@@ -76,7 +80,15 @@ is non-zero and the result line is not printed:
    Qwen3-32B shapes at M = 1 and 4 beside K5 and torch._int_mm, their
    device kernels and host cost a call, K6 and K5 over a large-v3 decode
    step's leaves at 8 rows, with no check of either tree's design, for the
-   same use.
+   same use;
+18. beam_times, run only when named in --only: K8 in both modes and widths
+   over beam-built and all-distinct ancestries, K9's move at 8 and 32 of 40
+   lanes (int32 and int64 maps), its permute and index_select, L2 cold, for
+   the same use;
+19. beam_batches, run only when named in --only: phase 6's dense 8-window x
+   beam 5 batch, its tokens beside those of the same batch with K8's plain
+   version, and its per-step breakdown (device ms and K8's ms a step, K8's
+   ms over the whole decode), for the same use.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -96,6 +108,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import importlib.metadata
 import importlib.util
 import itertools
@@ -125,6 +138,7 @@ from whisper_mlx_tpu_torch.decoding.tokenizer import (
 )
 from whisper_mlx_tpu_torch.inference.generate import LLMEngine
 from whisper_mlx_tpu_torch.models import qwen as qw
+from whisper_mlx_tpu_torch.models import whisper as tw
 from whisper_mlx_tpu_torch.models.whisper import (
     WHISPER_CONFIGS,
     beam_flat_cache,
@@ -370,11 +384,7 @@ def phase_kernels() -> dict:
 
     # K3: self int8 (B=8, 20 heads, T_alloc 256) and cross int4 (Tk 1500)
     def cache(n, t, bits):
-        kx = torch.from_numpy(rng.standard_normal((n, 20, t, 64)).astype(np.float32)).to(dev)
-        vx = torch.from_numpy(rng.standard_normal((n, 20, t, 64)).astype(np.float32)).to(dev)
-        k8, ks = quantize_kv(kx * 0.35, bits)
-        v8, vs = quantize_kv(vx, bits)
-        return k8, ks, v8, vs
+        return _quant_cache(rng, n, 20, t, bits)
 
     def query(rows_, tq):
         x = rng.standard_normal((rows_, 20, tq, 64)).astype(np.float32) * 0.35
@@ -444,13 +454,152 @@ def _beam_ancestry(gen, n, g, t_pos):
     return anc.reshape(n * g, t_pos).contiguous()
 
 
+def _k8_ancestry(kind, gen, n, g, t_pos):
+    """K8's ancestry cases: "beam" as a beam builds it (about 1.05 distinct
+    rows a position at beam 5), "distinct" every lane's history its own (g
+    rows a position)."""
+    if kind == "beam":
+        return _beam_ancestry(gen, n, g, t_pos)
+    return (torch.arange(n * g, dtype=torch.int32, device=gen.device) % g)[:, None].repeat(
+        1, t_pos).contiguous()
+
+
+def _quant_cache(rng, n, h, t, bits):
+    """Random K (times 0.35) and V, quantized: (codes, scales) of each."""
+    dev = torch.device("cuda")
+    kx = torch.from_numpy(rng.standard_normal((n, h, t, 64)).astype(np.float32)).to(dev)
+    vx = torch.from_numpy(rng.standard_normal((n, h, t, 64)).astype(np.float32)).to(dev)
+    k8, ks = quantize_kv(kx * 0.35, bits)
+    v8, vs = quantize_kv(vx, bits)
+    return k8, ks, v8, vs
+
+
+# large-v3 beam 5 on 8 windows: K8's and K9's timed shape
+BEAM_N, BEAM_G, BEAM_H, BEAM_T, BEAM_POS = 8, 5, 20, 256, 226
+# K8's timed cases: (code bits, integer-dot, ancestry, pos): every mode and
+# width at pos 226, and the beam loop's early steps (pos 19)
+K8_TIMED = [(bits, int_dot, kind, BEAM_POS) for kind in ("beam", "distinct") for bits in (8, 4)
+            for int_dot in (True, False)] + [(8, True, "beam", 19)]
+K9_MOVED = (8, 32)  # moved lanes of the timed moves
+
+
+def _k8_label(bits, int_dot, kind, pos=BEAM_POS) -> str:
+    return f"int{bits} {'int_dot' if int_dot else 'fp'} {kind} pos {pos}"
+
+
+def _k9_move_map(nb, moved):
+    """A move of 8 lanes (lane 5k + 1 from 5k) or 32 (every lane of a window
+    of 5 from its first) of nb = 40, each from a fixed lane; int32, the
+    kernel's own type, so that a call converts nothing."""
+    src = torch.arange(nb, dtype=torch.int32, device="cuda")
+    if moved == 8:
+        src[1::5] = src[0::5]
+    else:
+        src = src - src % 5
+    return src
+
+
+def _beam_timing_inputs():
+    """The timed beam kernels' inputs, the same in any tree from the same
+    seeds: K8's (q, int8 and int4 flat caches, both ancestries), K9's layer
+    of 40 lanes (int8 self cache, T 256) and its maps."""
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, g, h, t = BEAM_N, BEAM_G, BEAM_H, BEAM_T
+    q = torch.from_numpy(rng.standard_normal((n * g, h, 1, 64)).astype(np.float32) * 0.35)
+    layer = list(_quant_cache(rng, n * g, h, t, 8))
+    parent = torch.arange(n * g, dtype=torch.int32, device="cuda").reshape(n, g)
+    parent[:, 1:] = parent[:, :1]  # lane 0 of each window spawns every child
+    parent[::2, 3] = parent[::2, 3] + 3
+    return dict(q=q.to("cuda", torch.bfloat16),
+                caches={bits: _quant_cache(rng, n, h, t * g, bits) for bits in (8, 4)},
+                anc={kind: _k8_ancestry(kind, gen, n, g, t) for kind in ("beam", "distinct")},
+                layer=layer, parent=parent.reshape(-1),
+                src={m: _k9_move_map(n * g, m) for m in K9_MOVED})
+
+
+def _beam_kernel_times(inp) -> dict:
+    """K8 (every mode, width and ancestry) and K9 (move at 8 and 32 lanes,
+    from int32 and int64 maps; permute, the index_select yardstick), device
+    ms a call, L2 cold over
+    copies of one layer's tensors, beside one contiguous copy_ of the moved
+    lanes' bytes (a yardstick for the move: the same bytes, no row map).
+    Only the wrappers' public calls: any tree's kernels can be timed."""
+    times = {}
+    q, g = inp["q"], BEAM_G
+    for bits in (8, 4):
+        layers = _copies(inp["caches"][bits])
+        for b, int_dot, kind, pos in K8_TIMED:
+            if b == bits:
+                anc = inp["anc"][kind]
+                times[_k8_label(bits, int_dot, kind, pos)] = _cold_ms(
+                    lambda c: bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot), layers)
+        del layers
+    layers = [list(c) for c in _copies(inp["layer"])]
+    for m, src in inp["src"].items():
+        times[f"move {m}"] = _cold_ms(lambda c: lp.lane_move_inplace(c, src), layers)
+        # an int64 map, as the beam loop passed it before it converted its
+        # maps once a step: the wrapper's conversion beside the kernel
+        src64 = src.long()
+        times[f"move {m} int64 map"] = _cold_ms(lambda c: lp.lane_move_inplace(c, src64),
+                                                layers)
+        nbytes = _nbytes(*inp["layer"]) // (BEAM_N * BEAM_G) * m
+        pairs = [tuple(torch.empty(nbytes, dtype=torch.uint8, device="cuda") for _ in range(2))
+                 for _ in range(8)]
+        times[f"copy_ {m}"] = _cold_ms(lambda pair: pair[1].copy_(pair[0]), pairs)
+        del pairs
+    times["permute"] = _cold_ms(lambda c: lp.permute_lanes(c, inp["parent"]), layers)
+    # one index_select per tensor of the layer (k8, ks, v8, vs)
+    times["index_select"] = _cold_ms(lambda c: [t.index_select(0, inp["parent"]) for t in c],
+                                     layers)
+    return times
+
+
+def _k8_cluster_sweep(inp) -> None:
+    """K8 (int-dot int8, beam-built ancestry) at pos 19, 60 and 226, under
+    each plan of 1 to 8 blocks a cluster that a span gives (launched through
+    ``bf._launch`` with ``beamflat_plan(..., span=...)``): how the plan's
+    span was chosen."""
+    q, anc, layers = inp["q"], inp["anc"]["beam"], _copies(inp["caches"][8])
+    for pos in (19, 60, BEAM_POS):
+        limit, readings = pos + 1, {}
+        for blocks in range(1, 9):
+            plan = bf.beamflat_plan(limit, BEAM_G, span=-(-limit // blocks))
+            if plan[0] not in readings:
+                readings[plan[0]] = _cold_ms(lambda c: bf._launch(
+                    q, *c, anc, pos, BEAM_G, True, 8, *plan), layers)
+        print(f"  beamflat int8 int_dot beam pos {pos} by blocks a cluster (plan: "
+              f"{bf.beamflat_plan(limit, BEAM_G)[0]}), ms: "
+              f"{', '.join(f'{b}: {ms:.4f}' for b, ms in readings.items())}")
+
+
+def _one_kernel(label, fn) -> None:
+    """Fail unless each call of fn is one device kernel by name."""
+    names, events = _device_kernels(fn)
+    print(f"  {label}: {names} device kernel(s) by name, {events:g} events a call")
+    if names != 1 or events > 1:
+        raise AssertionError(f"{label}: {names} device kernels by name, {events} events a "
+                             "call; one kernel a call expected")
+
+
+# K8's checked cases: (windows, g, T, pos, ancestry): the timed shape, pos at
+# 0, at the plan's span edges (255: one block a cluster, 256: two) and at
+# T - 1 (447, whisper's text context); g 1, g 8 (one full tile of lanes) and
+# 11 (two passes)
+K8_CHECKED = [(8, 5, 256, 226, "beam"), (8, 5, 256, 226, "distinct"), (8, 5, 256, 0, "beam"),
+              (8, 5, 448, 255, "beam"), (8, 5, 448, 256, "beam"), (8, 5, 448, 447, "beam"),
+              (8, 1, 256, 226, "beam"), (4, 8, 256, 226, "beam"), (4, 8, 256, 226, "distinct"),
+              (2, 11, 256, 226, "beam"), (2, 11, 256, 226, "distinct")]
+
+
 def _beam_kernels(rng, cache, query) -> dict:
     """The beam path's kernels at large-v3 beam 5 on 8 windows: K3's
-    integer-dot mode, K8 (both modes, int8 and int4) and K9."""
+    integer-dot mode, K8 (both modes, int8 and int4, every ancestry case)
+    and K9 (the permute, the move at 1, 8, 32 and 39 lanes)."""
     rows = {}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    n, g, h, t_pos, pos = 8, 5, 20, 256, 226
+    n, g, h, t_pos, pos = BEAM_N, BEAM_G, BEAM_H, BEAM_T, BEAM_POS
 
     # K3 integer-dot: cross (1500 keys, int4, g = 5) and self causal (g = 1)
     errs = []
@@ -484,74 +633,118 @@ def _beam_kernels(rng, cache, query) -> dict:
     del layers
     print(f"  decode_attention int_dot self g=1 (40 rows, pos 226): kernel {self_ms:.4f} ms")
 
-    # K8 over the flat cache: rows t * 5 + k, ancestry as a beam builds it
-    anc = _beam_ancestry(gen, n, g, t_pos)
-    q = query(n * g, 1)
-    rows_needed = torch.unique(  # distinct rows the 40 lanes gather, per window
-        (torch.arange(n, device=dev)[:, None, None] * t_pos * g
-         + torch.arange(pos + 1, device=dev) * g
-         + anc.reshape(n, g, t_pos)[:, :, :pos + 1])).numel()
+    # K8 over the flat cache, rows t * g + k, held row by row in both modes
+    # and widths at every ancestry case
     errs = []
-    for bits in (8, 4):
-        c = cache(n, t_pos * g, bits)
-        for int_dot in (False, True):
-            got = bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot)
-            ref = bf.beamflat_attention_plain(q, *c, anc, pos, g, int_dot=int_dot)
-            tol = ATTN_TOL * max(1.0, ref.float().abs().max().item())
-            errs.append(_check(f"beamflat_attention int{bits} int_dot={int_dot}", got, ref,
-                               tol))
-        if bits == 8:
-            layers = _copies(c)
-            fp_ms = _cold_ms(lambda c_: bf.beamflat_attention(q, *c_, anc, pos, g), layers)
-    print(f"  beamflat int8 fp mode: kernel {fp_ms:.4f} ms; {rows_needed} distinct rows of "
-          f"{n * g * (pos + 1)} gathered per head")
+    for n_, g_, t_, pos_, kind in K8_CHECKED:
+        anc = _k8_ancestry(kind, gen, n_, g_, t_)
+        q = query(n_ * g_, 1)
+        plan = bf.beamflat_plan(pos_ + 1, g_)
+        for bits in (8, 4):
+            c = cache(n_, t_ * g_, bits)
+            for int_dot in (False, True):
+                got = bf.beamflat_attention(q, *c, anc, pos_, g_, int_dot=int_dot)
+                ref = bf.beamflat_attention_plain(q, *c, anc, pos_, g_, int_dot=int_dot)
+                errs.append(_check_rows(
+                    f"beamflat_attention n={n_} g={g_} pos={pos_} {kind} (cluster {plan[0]}, "
+                    f"cap {plan[1]}) int{bits} {'int_dot' if int_dot else 'fp'}", got, ref))
+            del c
+    inp = _beam_timing_inputs()
+    q, anc = inp["q"], inp["anc"]["beam"]
+    c8 = inp["caches"][8]
+    for int_dot in (False, True):  # a repeat is bit-equal
+        first = bf.beamflat_attention(q, *c8, anc, pos, g, int_dot=int_dot)
+        if not torch.equal(first, bf.beamflat_attention(q, *c8, anc, pos, g, int_dot=int_dot)):
+            raise AssertionError(f"beamflat_attention int_dot={int_dot}: a repeat differs")
+        _one_kernel(f"beamflat_attention int8 int_dot={int_dot}",
+                    lambda: bf.beamflat_attention(q, *c8, anc, pos, g, int_dot=int_dot))
+    print(f"  beamflat_attention: repeats bit-equal; host "
+          f"{_host_us(lambda: bf.beamflat_attention(q, *c8, anc, pos, g, int_dot=True)):.1f} "
+          "us a call")
+    times = _beam_kernel_times(inp)
+    _k8_cluster_sweep(inp)
+    cases = {}
+    for bits, int_dot, kind, p in K8_TIMED:
+        label = _k8_label(bits, int_dot, kind, p)
+        needed = int(bf.beamflat_rows_needed(inp["anc"][kind], g, p).sum())
+        # the distinct live rows once (codes and scales of K and V), each
+        # lane's ancestry up to pos, q in and out
+        cases[label] = dict(ms=times[label], distinct_rows=needed, **_bound(
+            needed * h * (2 * bits * 64 // 8 + 4) + n * g * (p + 1) * 4 + 2 * _nbytes(q),
+            n * g * h * (p + 1) * 2 * 2 * 64, "int8" if int_dot else "bf16"))
+        print(f"  beamflat {label}: kernel {times[label]:.4f} ms, bound "
+              f"{cases[label]['bound_ms']:.4f} ms ({cases[label]['bound_by']}, {needed} distinct "
+              f"rows a head of {n * g * (p + 1)} lane positions), "
+              f"{cases[label]['bound_ms'] / times[label]:.1%} of it")
+    main = cases[_k8_label(8, True, "beam")]
     rows["beamflat"] = dict(
         name="beamflat_attention", route="cuda",
         source="whisper_mlx_tpu_torch/csrc/beamflat_attention.cu",
         replaces="whisper_mlx_tpu/ops/beamflat_attention.py:58", max_abs_err=max(errs),
-        ms=_cold_ms(lambda c: bf.beamflat_attention(q, *c, anc, pos, g, int_dot=True), layers),
-        plain_ms=_cold_ms(lambda c: bf.beamflat_attention_plain(q, *c, anc, pos, g,
-                                                                int_dot=True), layers, reps=8),
-        # the distinct live rows once (codes and scales of K and V), each
-        # lane's ancestry up to pos, q in and out
-        **_bound(rows_needed * h * (64 + 64 + 2 + 2) + n * g * (pos + 1) * 4
-                 + 2 * _nbytes(q), n * g * h * (pos + 1) * 2 * 2 * 64, "int8"),
-        library_ms=None)
+        ms=main["ms"],
+        plain_ms=_cold_ms(lambda c_: bf.beamflat_attention_plain(q, *c_, anc, pos, g,
+                                                                 int_dot=True),
+                          _copies(c8, 2), reps=8),
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None, cases=cases)
 
     # K9: one layer's per-lane self cache of 40 lanes (T 256, int8)
-    layer = list(cache(n * g, t_pos, 8))
-    parent = torch.arange(n * g, device=dev).reshape(n, g)
-    parent[:, 1:] = parent[:, :1]  # lane 0 of each window spawns every child
-    parent[::2, 3] = parent[::2, 3] + 3
-    parent = parent.reshape(-1)
+    layer, parent = inp["layer"], inp["parent"]
     got = lp.permute_lanes(layer, parent)
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, lp.permute_lanes_plain(layer, parent)))
     _check("permute_lanes 40 lanes", torch.tensor(err), torch.tensor(0.0), 0.0)
-    src = torch.arange(n * g, device=dev)
-    src[1::5] = src[0::5]
-    moved = int((src != torch.arange(n * g, device=dev)).sum())
-    want = lp.lane_move_inplace_plain([t.clone() for t in layer], src)
-    lp.lane_move_inplace(layer, src)
-    err_m = max(float((a.float() - b.float()).abs().max()) for a, b in zip(layer, want))
-    _check("lane_move_inplace 40 lanes", torch.tensor(err_m), torch.tensor(0.0), 0.0)
+    del got
+    err_m = 0.0
+    for moved in (1, 8, 32, 39):  # byte-exact, with a row of 21 bytes beside
+        src = torch.arange(n * g, dtype=torch.int32, device=dev)
+        if moved in K9_MOVED:
+            src = inp["src"][moved]
+        elif moved == 1:
+            src[7] = 3
+        else:
+            src[1:] = 0
+        odd = torch.randint(0, 256, (n * g, 3, 7), generator=gen, device=dev, dtype=torch.uint8)
+        tensors = [t.clone() for t in layer] + [odd]
+        want = lp.lane_move_inplace_plain([t.clone() for t in tensors], src)
+        lp.lane_move_inplace(tensors, src)
+        err_m = max(err_m, max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(tensors, want)))
+        _check(f"lane_move_inplace {moved} of 40 lanes", torch.tensor(err_m), torch.tensor(0.0),
+               0.0)
+        again = [t.clone() for t in layer] + [odd]
+        lp.lane_move_inplace(again, src)
+        if not all(torch.equal(a, b) for a, b in zip(tensors, again)):
+            raise AssertionError(f"lane_move_inplace {moved} lanes: a repeat differs")
+    src8 = inp["src"][8]
+    moving = [t.clone() for t in layer]
+    _one_kernel("lane_move_inplace 8 lanes", lambda: lp.lane_move_inplace(moving, src8))
+    _one_kernel("permute_lanes", lambda: lp.permute_lanes(layer, parent))
+    print(f"  lane kernels: host {_host_us(lambda: lp.lane_move_inplace(moving, src8)):.1f} us "
+          f"a move, {_host_us(lambda: lp.permute_lanes(layer, parent)):.1f} us a permute")
     layers = [list(c) for c in _copies(layer)]
     rows["permute"] = dict(
         name="permute_lanes", route="cuda", source="whisper_mlx_tpu_torch/csrc/lane_permute.cu",
         replaces="whisper_mlx_tpu/ops/lane_permute.py:39", max_abs_err=err,
-        ms=_cold_ms(lambda c: lp.permute_lanes(c, parent), layers),
+        ms=times["permute"],
         plain_ms=_cold_ms(lambda c: lp.permute_lanes_plain(c, parent), layers),
-        **_bound(2 * _nbytes(*layer), 0, "int8"),
-        # one index_select per tensor of the layer (k8, ks, v8, vs)
-        library_ms=_cold_ms(lambda c: [t.index_select(0, parent) for t in c], layers))
+        **_bound(2 * _nbytes(*layer), 0, "int8"), library_ms=times["index_select"])
+    move_bound = {m: _bound(2 * m * _nbytes(*layer) / (n * g), 0, "int8") for m in K9_MOVED}
+    for m in K9_MOVED:
+        ms, bound = times[f"move {m}"], move_bound[m]["bound_ms"]
+        print(f"  lane_move_inplace {m} of 40 lanes: kernel {ms:.4f} ms, bound {bound:.4f} ms, "
+              f"{bound / ms:.1%} of it (one copy_ of the same bytes {times[f'copy_ {m}']:.4f} ms); "
+              f"permute "
+              f"{times['permute']:.4f} ms "
+              f"({rows['permute']['bound_ms'] / times['permute']:.1%} of its bound), "
+              f"index_select {times['index_select']:.4f} ms")
     rows["move"] = dict(
         name="lane_move_inplace", route="cuda", source="whisper_mlx_tpu_torch/csrc/lane_permute.cu",
         replaces="whisper_mlx_tpu/ops/lane_permute.py:102", max_abs_err=err_m,
-        ms=_cold_ms(lambda c: lp.lane_move_inplace(c, src), layers),
-        plain_ms=_cold_ms(lambda c: lp.lane_move_inplace_plain(c, src), layers),
+        ms=times["move 8"],
+        plain_ms=_cold_ms(lambda c: lp.lane_move_inplace_plain(c, src8), layers),
         # the moved rows only: read once, written once
-        **_bound(2 * moved * _nbytes(*layer) / (n * g), 0, "int8"),
-        library_ms=None)
+        **move_bound[8], library_ms=None,
+        ms_32_lanes=times["move 32"], bound_ms_32_lanes=move_bound[32]["bound_ms"])
     return rows
 
 
@@ -888,10 +1081,27 @@ def _time_beam_batch(params, config, tok, audio) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     best = min(times)
+    # the tokens' digest, to hold two trees' beam results equal
+    digest = hashlib.sha256(repr([list(r.tokens) for r in results]).encode()).hexdigest()[:16]
     print(f"beam batch: large-v3 bf16 kv4/self8 int_dot, {batch} windows x beam 5 x 30 s, "
           f"sample_len 224: {times} s (best {best:.3f} s), "
-          f"{sum(len(r.tokens) for r in results)} tokens, {batch * 30.0 / best:.2f} audio-s/s; "
+          f"{sum(len(r.tokens) for r in results)} tokens (digest {digest}), "
+          f"{batch * 30.0 / best:.2f} audio-s/s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the same batch with K8's plain version in its place: the reference
+    # for the kernel's tokens (random weights' near-ties can turn an ulp of
+    # the softmax into another beam)
+    tw.beamflat_attention = bf.beamflat_attention_plain
+    try:
+        with torch.inference_mode():
+            ref = pipeline()
+    finally:
+        tw.beamflat_attention = bf.beamflat_attention
+    same, total = _agreement(results, ref)
+    ref_digest = hashlib.sha256(repr([list(r.tokens) for r in ref]).encode()).hexdigest()[:16]
+    windows = sum(list(a.tokens) == list(b.tokens) for a, b in zip(results, ref))
+    print(f"  against K8's plain version in the same batch: tokens agree {same}/{total}, "
+          f"{windows}/{batch} windows equal (plain digest {ref_digest})")
     _beam_breakdown(params, config, tok, audio)
 
 
@@ -899,7 +1109,8 @@ def _beam_breakdown(params, config, tok, audio) -> None:
     """Per-step wall time, device busy time and kernel time by name of the
     beam loop: two beam_decode runs of 8 and 24 steps (pools never fill
     at random weights), the difference over 16 steps, without and with
-    torch.profiler."""
+    torch.profiler; then the device time and K8's over steps 208-224, and
+    K8's over the whole 224-step decode."""
     dev = audio.device
     beam_cfg = dataclasses.replace(config, attn_mxu=True)
     with torch.inference_mode():
@@ -950,6 +1161,9 @@ def _beam_breakdown(params, config, tok, audio) -> None:
         diff.append(((us - us0) / span, (count - count0) / span, key))
     for us, calls, key in sorted(diff, reverse=True)[:10]:
         print(f"  {key[:60]:60s} device {us:9.1f} us/step, calls {calls:.1f}/step")
+    k8 = [(us, calls) for us, calls, key in diff if "beamflat" in key]
+    print(f"  K8 (beamflat): {sum(us for us, _ in k8) / 1e3:.4f} ms/step over "
+          f"{sum(c for _, c in k8):.1f} calls/step")
     # host side: where the step's wall time goes (CPU self time under the
     # profiler), and any host waits on the device
     diff = []
@@ -962,6 +1176,21 @@ def _beam_breakdown(params, config, tok, audio) -> None:
     for us, calls, key in diff:
         if "Synchronize" in key or "Memcpy" in key:
             print(f"  {key[:60]:60s} host {us:9.1f} us/step, calls {calls:.1f}/step")
+    # the late steps, the self cache about 200 positions deep: device events
+    # alone (a long profiled run with the host's events would be slow)
+    late = {}
+    for steps in (208, 224):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run(steps)
+            torch.cuda.synchronize()
+        total, events = _kernel_us(prof)
+        k8 = [e for e in events if "beamflat" in e.key]
+        late[steps] = (total, sum(e.self_device_time_total for e in k8),
+                       sum(e.count for e in k8))
+    print(f"  steps 208-224: device {(late[224][0] - late[208][0]) / 1e3 / 16:.3f} ms/step, "
+          f"K8 (beamflat) {(late[224][1] - late[208][1]) / 1e3 / 16:.4f} ms/step")
+    print(f"  whole decode (224 steps): device {late[224][0] / 1e3:.3f} ms, K8 (beamflat) "
+          f"{late[224][1] / 1e3:.4f} ms over {late[224][2]} calls")
 
 
 # ---------------------------------------------------------------------------
@@ -2158,6 +2387,29 @@ def phase_batches() -> None:
     _breakdown(params, config, tok, audio)
 
 
+def phase_beam_times() -> None:
+    """Phase 18: the beam kernels' times alone (K8 in every mode, width and
+    ancestry; K9's move at 8 and 32 lanes, its permute and index_select),
+    through the wrappers' public calls and with no check of either tree's
+    design, to set two trees side by side in one call (run in turn)."""
+    times = _beam_kernel_times(_beam_timing_inputs())
+    for label, ms in times.items():
+        print(f"  beam kernel time {label}: {ms:.4f} ms")
+
+
+def phase_beam_batches() -> None:
+    """Phase 19: phase 6's dense 8-window x beam 5 batch, two timed runs
+    with its per-step breakdown (device ms a step, K8's ms a step), for the
+    same use."""
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    params, config = apply_asr_serving_config(
+        init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+    rng = np.random.default_rng(3)
+    audio = torch.from_numpy(rng.standard_normal((8, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
+    _time_beam_batch(params, config, _bench_tokenizer(config.n_vocab), audio)
+
+
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
     call (1500 rows a window is past the kernels' 512): its time beside the
@@ -2190,8 +2442,8 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, and batches and residency_times, which run only when "
-                        "named")
+                        "quant_main, and batches, residency_times, beam_times and "
+                        "beam_batches, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2223,14 +2475,17 @@ def main(argv: list[str] | None = None) -> int:
         "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
+        "beam_times": ("beam kernel times", phase_beam_times, None),
+        "beam_batches": ("beam batches", phase_beam_batches, None),
     }
+    only_named = ("batches", "residency_times", "beam_times", "beam_batches")
     unknown = [name for name in only if name not in phases]
     if unknown:
         parser.error(f"unknown phases {unknown}")
     _timed_phase("device", phase_device)
     _timed_phase("build", phase_build)
     for name, (title, fn, sink) in phases.items():
-        if name not in only and (only or name in ("batches", "residency_times")):
+        if name not in only and (only or name in only_named):
             continue
         gc.collect()
         torch.cuda.empty_cache()

@@ -143,6 +143,21 @@ def test_beam_backfill_matches_jax(tiny, scheme, kv, self_kv, mxu):
     _assert_same(ref, got)
 
 
+@pytest.mark.parametrize("scheme", ["permp", "permi"])
+def test_beam_lane_maps_are_int32(tiny, monkeypatch, scheme):
+    """The loop hands K9 int32 row maps, its kernel's own type, converted
+    once a step: no layer's call converts its map beside the kernel."""
+    seen = []
+    for name in ("lane_move_inplace", "permute_lanes"):
+        def spy(tensors, index, _real=getattr(tb, name)):
+            seen.append(index.dtype)
+            return _real(tensors, index)
+        monkeypatch.setattr(tb, name, spy)
+    ref, got = _run_pair(tiny, 6.0, 0, 0, False, scheme=scheme)
+    assert seen and set(seen) == {torch.int32}
+    _assert_same(ref, got)
+
+
 @pytest.mark.parametrize("scheme", ["flat", "permi"])
 def test_beam_done_check_every_step_equal(tiny, monkeypatch, scheme):
     """Checking the pools every 16 steps gives what checking every step

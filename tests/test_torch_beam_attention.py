@@ -220,6 +220,74 @@ def test_beamflat_gather_equals_mask():
             torch.testing.assert_close(full[b:b + 1], one, atol=FP_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("n,g,t_pos,pos", [(2, 3, 16, 0), (2, 3, 16, 11), (3, 5, 40, 39),
+                                            (1, 1, 8, 7), (2, 11, 24, 20)])
+def test_beamflat_rows_needed_matches_mask(n, g, t_pos, pos):
+    """K8's distinct rows a window are the rows the reference's mask marks
+    for any of its lanes."""
+    rng = np.random.default_rng(pos + g)
+    anc = torch.from_numpy(_ancestry(rng, n, g, t_pos))
+    marked = bf.beamflat_mask(anc, g, t_pos * g, pos).any(dim=1).sum(dim=1)
+    assert torch.equal(bf.beamflat_rows_needed(anc, g, pos), marked)
+
+
+@pytest.mark.parametrize("g", [1, 3, 5, 9])
+@pytest.mark.parametrize("pos", [0, 17, 31])
+def test_beamflat_rows_needed_shared_and_distinct(g, pos):
+    """pos + 1 rows a window when its lanes share one history (any owner),
+    g * (pos + 1) when every lane's history is its own."""
+    n, t_pos = 2, 32
+    rng = np.random.default_rng(g)
+    owner = torch.from_numpy(rng.integers(0, g, size=(n, 1, t_pos)).astype(np.int32))
+    shared = owner.expand(n, g, t_pos).reshape(n * g, t_pos).contiguous()
+    assert bf.beamflat_rows_needed(shared, g, pos).tolist() == [pos + 1] * n
+    distinct = (torch.arange(n * g, dtype=torch.int32) % g)[:, None].repeat(1, t_pos)
+    assert bf.beamflat_rows_needed(distinct, g, pos).tolist() == [g * (pos + 1)] * n
+
+
+@pytest.mark.parametrize("limit", [1, 2, 63, 64, 65, 227, 448, 512, 513, 1000, 2047, 2048])
+@pytest.mark.parametrize("g", [1, 5, 8, 11])
+def test_beamflat_plan_covers_every_position_once(limit, g):
+    """K8's plan: 1 to 8 blocks a (window, head), every live position in
+    exactly one block's span, in block order, at most MAX_SPAN a block (the
+    kernel's 8-bit position); chunks of whole 16-row tiles, at most CAP
+    rows, holding a pass's most distinct rows where CAP allows."""
+    cluster, cap = bf.beamflat_plan(limit, g)
+    assert 1 <= cluster <= bf.MAX_CLUSTER and cluster <= limit
+    # block r's positions, as the kernel splits them
+    spans = [range(r * limit // cluster, (r + 1) * limit // cluster) for r in range(cluster)]
+    assert [t for span in spans for t in span] == list(range(limit))
+    assert all(1 <= len(span) <= bf.MAX_SPAN for span in spans)
+    most = max(len(span) for span in spans)
+    assert cap % 16 == 0 and 16 <= cap <= bf.CAP
+    assert cap >= min(most * min(g, bf.LANES), bf.CAP)
+    assert cap - most * min(g, bf.LANES) < 16 or cap == 16
+
+
+@pytest.mark.parametrize("limit,g", [(0, 5), (2049, 5), (10, 0)])
+def test_beamflat_plan_rejects_bad_shapes(limit, g):
+    with pytest.raises(ValueError, match="beamflat_plan"):
+        bf.beamflat_plan(limit, g)
+
+
+@pytest.mark.parametrize("limit", [1, 20, 61, 227, 2048])
+@pytest.mark.parametrize("span", [1, 3, 29, 64, 256])
+def test_beamflat_plan_span_bounds_each_block(limit, span):
+    """A smaller span splits the positions over more blocks (at most 8),
+    each block's share within the span wherever 8 blocks allow it."""
+    cluster, _ = bf.beamflat_plan(limit, 5, span=span)
+    assert cluster == min(bf.MAX_CLUSTER, limit, -(-limit // span))
+    most = -(-limit // cluster)
+    assert most <= span or cluster == bf.MAX_CLUSTER
+    assert bf.beamflat_plan(limit, 5) == bf.beamflat_plan(limit, 5, span=bf.MAX_SPAN)
+
+
+@pytest.mark.parametrize("span", [0, bf.MAX_SPAN + 1])
+def test_beamflat_plan_rejects_bad_span(span):
+    with pytest.raises(ValueError, match="beamflat_plan"):
+        bf.beamflat_plan(100, 5, span=span)
+
+
 @pytest.mark.parametrize("bad", ["tq", "ancestry_dtype", "pos", "group"])
 def test_beamflat_rejects_bad_inputs(bad):
     rng = np.random.default_rng(0)

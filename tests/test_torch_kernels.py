@@ -94,8 +94,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         "a8_matmul.cu", "beamflat_attention.cu", "decode_attention.cu", "dense_attention.cu",
         "flash_attention.cu", "lane_permute.cu", "mel.cu", "probe_decode_attention.cu",
         "probe_quant_matmul.cu", "quant_matmul.cu", "quant_matmul_mb.cu"]
-    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attend_row.cuh",
-                                                                 "attn_tile.cuh",
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attn_tile.cuh",
                                                                  "quant_tile.cuh",
                                                                  "sm90_async.cuh"]
 
@@ -341,13 +340,39 @@ def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
                                     "decode_self", "decode_cross", "decode_int_dot",
                                     "quant_gemv", "quant_gemv_8rows", "mbt_gemv",
                                     "mbt_gemv_8rows", "mbt_gemv_cluster8", "a8_gemv",
-                                    "a8_gemv_8rows"])
+                                    "a8_gemv_8rows", "beamflat", "beamflat_int_dot",
+                                    "beamflat_int4_distinct", "lane_move"])
 def test_attention_kernels_repeat_bit_equal(cuda, kernel):
     """Two launches of K2 (either mode), K4, K3 (either mode, its cluster
     reduction across 2 and 8 blocks), K5's or K6's GEMV (a cluster split of
-    K; K6 also across 8 blocks) or K7's fused GEMV on the same inputs agree
-    bit for bit: no atomics, one fixed order of sums."""
+    K; K6 also across 8 blocks), K7's fused GEMV, K8 (either mode, one
+    block and a cluster of 2; three chunks of rows when every history is
+    distinct) or K9's move on the same inputs agree bit for bit: no
+    atomics, one fixed order of sums."""
     gen = torch.Generator(device=cuda).manual_seed(7)
+    if kernel.startswith("beamflat"):
+        bits, kind = (4, "distinct") if kernel.endswith("distinct") else (8, "beam")
+        inputs = _beamflat_case(cuda, bits, 4, 5, 448, kind, 7)
+        for pos, cluster in ((226, 1), (400, 2)):
+            assert bf.beamflat_plan(pos + 1, 5)[0] == cluster
+
+            def run():
+                return bf.beamflat_attention(*inputs, pos, 5, int_dot=kernel != "beamflat")
+            first = run()
+            _assert_rows_close(first, bf.beamflat_attention_plain(
+                *inputs, pos, 5, int_dot=kernel != "beamflat"))
+            torch.cuda.synchronize()
+            assert torch.equal(first, run())
+        return
+    if kernel == "lane_move":
+        base = _lane_tensors(gen, 40, cuda)
+        src = _lane_move_map(40, 8, cuda)
+        first, second = ([t.clone() for t in base] for _ in range(2))
+        lp.lane_move_inplace(first, src)
+        lp.lane_move_inplace(second, src)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        return
     if kernel.startswith(("decode", "quant", "mbt", "a8")):
         first, run = _repeat_case(cuda, gen, kernel)
         torch.cuda.synchronize()
@@ -734,46 +759,97 @@ def _beam_ancestry(gen, n, g, t_pos, device):
     return anc.reshape(n * g, t_pos).contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("int_dot", [False, True])
-@pytest.mark.parametrize("n,g,t_pos,pos", [(8, 5, 256, 226), (2, 3, 128, 0), (1, 2, 448, 447)])
-def test_beamflat_kernel_matches_plain(cuda, bits, int_dot, n, g, t_pos, pos):
-    gen = torch.Generator(device=cuda).manual_seed(pos + g)
+def _ancestry(kind, gen, n, g, t_pos, device):
+    """K8's ancestry: as a beam builds it ("beam": lanes share most of their
+    history), every lane's history its own ("distinct": g rows a
+    position), or one history for all ("shared": one row a position)."""
+    if kind == "beam":
+        return _beam_ancestry(gen, n, g, t_pos, device)
+    lanes = torch.arange(n * g, dtype=torch.int32, device=device) % g
+    if kind == "shared":
+        lanes = torch.zeros_like(lanes)
+    return lanes[:, None].repeat(1, t_pos).contiguous()
+
+
+def _beamflat_case(cuda, bits, n, g, t_pos, kind, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     kx, vx = (torch.randn((n, 20, t_pos * g, 64), generator=gen, device=cuda)
               for _ in range(2))
     k8, ks = kq.quantize_kv(kx * 0.35, bits)
     v8, vs = kq.quantize_kv(vx, bits)
-    anc = _beam_ancestry(gen, n, g, t_pos, cuda)
+    anc = _ancestry(kind, gen, n, g, t_pos, cuda)
     q = (torch.randn((n * g, 20, 1, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+    return q, k8, ks, v8, vs, anc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("int_dot", [False, True])
+@pytest.mark.parametrize("n,g,t_pos,pos,kind", [
+    (8, 5, 256, 226, "beam"), (8, 5, 256, 226, "distinct"), (8, 5, 256, 226, "shared"),
+    (2, 3, 128, 0, "beam"), (1, 2, 448, 447, "beam"), (3, 1, 64, 63, "beam"),
+    (2, 8, 128, 127, "beam"), (2, 8, 128, 100, "distinct"), (1, 11, 96, 95, "beam"),
+    (1, 11, 96, 95, "distinct"), (2, 5, 448, 255, "beam"), (2, 5, 448, 256, "distinct"),
+    (1, 5, 448, 447, "beam"), (1, 5, 2048, 2047, "beam"), (1, 11, 448, 300, "beam"),
+    (1, 11, 448, 300, "distinct")])
+def test_beamflat_kernel_matches_plain(cuda, bits, int_dot, n, g, t_pos, pos, kind):
+    """K8 against its plain version, query row by query row: beam-built,
+    all-distinct and shared ancestries; g 1, 8 (one full mma tile of lanes)
+    and 11 (two passes, also in a cluster of two); pos 0, at the plan's span
+    edges (255: one block a cluster, 256: two), at T - 1 (447: two blocks;
+    2047: eight of 256 positions); more distinct rows than a chunk holds
+    (distinct)."""
+    q, k8, ks, v8, vs, anc = _beamflat_case(cuda, bits, n, g, t_pos, kind, pos + g)
     before = bf.LAUNCHES
     got = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
     torch.cuda.synchronize()
     assert bf.LAUNCHES == before + 1
     ref = bf.beamflat_attention_plain(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
-    assert _max_err(got, ref) <= _attn_tol(ref)
+    _assert_rows_close(got, ref)
+
+
+def _lane_tensors(gen, nb, cuda):
+    """One layer's int8 codes, packed int4 codes, bf16 scales and rows of an
+    odd length (21 bytes: the byte path)."""
+    return [torch.randint(-127, 128, (nb, 20, 256, 64), generator=gen, device=cuda,
+                          dtype=torch.int8),
+            torch.randint(0, 256, (nb, 20, 256, 32), generator=gen, device=cuda,
+                          dtype=torch.uint8),
+            torch.randn((nb, 20, 256), generator=gen, device=cuda).to(torch.bfloat16),
+            torch.randint(0, 256, (nb, 3, 7), generator=gen, device=cuda, dtype=torch.uint8)]
+
+
+def _lane_move_map(nb, moved, cuda):
+    """A move map of ``moved`` of nb lanes, each from a fixed lane: 1 (lane 7
+    from 3), 8 (lane 5k + 1 from 5k), 32 (every lane of a window of 5 from
+    its first) or nb - 1 (every lane from lane 0)."""
+    src = torch.arange(nb, device=cuda)
+    if moved == 1:
+        src[7] = 3
+    elif moved == 8:
+        src[1::5] = src[0::5]
+    elif moved == 32:
+        src = src - src % 5
+    else:
+        src[1:] = 0
+    assert int((src != torch.arange(nb, device=cuda)).sum()) == moved
+    return src
 
 
 @pytest.mark.cuda
-def test_lane_kernels_match_plain(cuda):
-    """Permute and in-place move of one layer's int8, packed int4, bf16
-    and odd-length rows: byte-exact."""
+@pytest.mark.parametrize("moved", [1, 8, 32, 39])
+def test_lane_kernels_match_plain(cuda, moved):
+    """Permute and in-place move (1, 8, 32 and 39 of 40 lanes moved) of one
+    layer's int8, packed int4, bf16 and odd-length rows: byte-exact."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     nb = 40
-    tensors = [torch.randint(-127, 128, (nb, 20, 256, 64), generator=gen, device=cuda,
-                             dtype=torch.int8),
-               torch.randint(0, 256, (nb, 20, 256, 32), generator=gen, device=cuda,
-                             dtype=torch.uint8),
-               torch.randn((nb, 20, 256), generator=gen, device=cuda).to(torch.bfloat16),
-               torch.randint(0, 256, (nb, 3, 7), generator=gen, device=cuda,
-                             dtype=torch.uint8)]
+    tensors = _lane_tensors(gen, nb, cuda)
     parent = torch.tensor([0, 0, 1, 3, 3, 3] * 6 + [36, 36, 39, 38], device=cuda)
     before = (lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES)
     got = lp.permute_lanes(tensors, parent)
     for a, b in zip(got, lp.permute_lanes_plain(tensors, parent)):
         assert torch.equal(a, b)
-    src = torch.arange(nb, device=cuda)
-    src[1::5] = src[0::5]  # lane 5k+1 copies fixed lane 5k
+    src = _lane_move_map(nb, moved, cuda)
     want = lp.lane_move_inplace_plain([t.clone() for t in tensors], src)
     moved = lp.lane_move_inplace(tensors, src)
     torch.cuda.synchronize()

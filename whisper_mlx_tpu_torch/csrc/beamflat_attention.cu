@@ -14,88 +14,654 @@
 // Query row b (window b / g) attends positions t <= pos. The TPU kernel takes
 // a precomputed (n, g, T * g) ancestry-and-causal mask and scans every column;
 // exactly one column per (lane, position) is unmasked, t * g + ancestry[b, t].
-// So each block gathers its pos + 1 rows instead: softmax over the masked
-// columns equals softmax over the gathered rows, and in the integer mode the
-// absmax of w * vs is unchanged (the masked entries are 0).
+// Softmax over the masked columns equals softmax over those rows alone, and
+// in the integer mode the absmax of w * vs is unchanged (the masked entries
+// are 0).
+//   fp mode:   s = (q . k) * ks in fp32; w = softmax(s); out = sum (w vs) v,
+//              w vs kept to about 16 bits (a bf16 pair hi + lo on the mma)
+//   int mode:  q re-quantized per row over d (absmax / 127, round half to
+//              even, clip +-127); s = s32 * qs * ks with s32 an s8 x s8 -> s32
+//              dot; w = softmax(s); wv = w * vs re-quantized over the row's
+//              keys the same way; out = (sum w8 v, exact) * ws
 //
-// What bounds it on the H100: device-memory bytes. Every step reads a layer's
-// live cache once, 64 + 64 B of int8 codes and 2 + 2 B of scales per (row,
-// head, live position): large-v3, beam 5, 8 windows, pos 226 is about 24 MB
-// per layer, about 7 us at 3.35 TB/s. The dots are 2 operations per code.
+// What bounds it on the H100: device-memory bytes, the distinct rows a
+// window's lanes need: K and V codes (64 + 64 B int8, 32 + 32 B int4) and
+// scales of each row once. A beam's lanes share most of their history (about
+// 1.05 distinct rows a position at large-v3 beam 5), so a layer's step reads
+// about 5 MB, 1.5 us at 3.35 TB/s; with every history distinct, g rows a
+// position. The dots are 2 operations per code. At a beam step's sizes the
+// time is a chain of dependent steps instead (launch, ancestry, rows, QK,
+// softmax, PV), each one or two device-memory round trips or block barriers.
 //
-// Simple design: one block of 128 threads per (lane, head), the row loop of
-// attend_row.cuh with the ancestry gather as its row map. Lanes of a window
-// gather mostly the same rows (their shared prefix), which L2 serves after
-// the first lane, so device memory sees the live cache about once.
-#include "attend_row.cuh"
+// Design: one block per (window, head) up to 256 live positions, a cluster
+// of C blocks beyond (the plan, ops/beamflat_attention.py:beamflat_plan),
+// block r taking positions [r * L / C, (r + 1) * L / C) of the L = pos + 1
+// live ones: on the H100 a cluster's two exchanges cost more than splitting
+// 256 positions saves. A pass serves up to 8 of the window's lanes (the
+// mma's n), a warp each in the softmax: each block loads those lanes'
+// ancestry over its span and, per position, finds the distinct rows they use
+// (a row and the set of lanes that use it), in position order through a
+// block scan: its slots. It copies only the slots' K and V codes (cp.async,
+// 16 B a piece) and their scales (4-byte pairs) into shared memory, up to
+// CAP rows a chunk; the V copies stay in flight while QK and the softmax
+// run.
+// Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// out) as in K3 (decode_attention.cu): codes become exact bf16x2 pairs, the
+// lanes' queries (int mode: their int8 codes) the other operand; a slot's
+// score counts for the lanes that use it and for no other, so each (lane,
+// position) gets exactly one score. The weights enter PV as bf16 (int mode:
+// their codes, exact; fp mode: hi and lo halves, two products). Each block
+// pushes its lanes' max, sum of exp(s - max) and (int mode) max of
+// exp(s - max) * vs to every block of its cluster (a block alone: to itself)
+// through distributed shared memory; after one barrier each combines them in
+// block order and runs PV over its slots; in a cluster it pushes its partial
+// outputs to their owner block, and after a second barrier each owner sums
+// them in block order and writes. No atomics: a repeat is bit-equal.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+#include <algorithm>
+#include <stdint.h>
+
+#include "quant_tile.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
-using namespace wmt_attn;
+using namespace wmt_async;
+using wmt_quant::dequant_bf16x2;
+using wmt_quant::mma_16816;
 
-// Cache row of position t for one lane: t * g + ancestry[t].
-struct AncestryRow {
-  const int* anc;
-  int g;
-  __device__ __forceinline__ int operator()(int t) const { return t * g + anc[t]; }
+constexpr int HD = 64;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_T = 2048;
+constexpr int MAX_CLUSTER = 8;                // the portable cluster size
+constexpr int MAX_SPAN = MAX_T / MAX_CLUSTER;  // most positions a block takes (8 bits)
+constexpr int LANES = 8;                      // lanes of a pass: the mma's n, a warp each
+constexpr int CAP = 512;                      // most rows a chunk holds
+static_assert(WARPS == LANES, "the softmax statistics take one warp a lane");
+constexpr unsigned FULL = 0xffffffffu;
+
+// A slot (one distinct row of a block's span for a pass's lanes), packed:
+// bits 0-7 its position in the span, 8-15 the lanes that use it, 16-31 the
+// lane k that owns the row (row (t0 + position) * g + k).
+__device__ __forceinline__ int slot_pos(uint32_t s) { return (int)(s & 0xffu); }
+__device__ __forceinline__ uint32_t slot_lanes(uint32_t s) { return (s >> 8) & 0xffu; }
+__device__ __forceinline__ int slot_owner(uint32_t s) { return (int)(s >> 16); }
+
+struct Fixed {
+  // QK's B: the lanes' q (int mode: their int8 codes) as bf16 in the mma's
+  // dim order (qpos)
+  alignas(16) __nv_bfloat16 qb[LANES][HD];
+  float qscale[LANES];
+  // pushed here by every block of the cluster: its (max, sum of exp(s - max),
+  // int mode: max exp(s - max) vs) of each lane
+  float stat[MAX_CLUSTER][LANES][3];
+  float row[LANES][3];  // the lane's factor to w and (int mode) w * vs scale
+  int scan[WARPS];
 };
 
-template <int BITS, bool INT_DOT>
-__global__ void __launch_bounds__(THREADS)
-beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                     const uint8_t* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ ks,
-                     const uint8_t* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ vs,
-                     const int* __restrict__ anc,
-                     __nv_bfloat16* __restrict__ out,
-                     int n_head, int rows, int t_anc, int group, int limit) {
-  constexpr int ROWB = BITS * HD / 8;
-  __shared__ Smem sm;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t head = ((size_t)(b / group) * n_head + h) * rows;
-  const size_t qoff = ((size_t)b * n_head + h) * HD;
-  attend_row<BITS, INT_DOT>(q + qoff, k + head * ROWB, ks + head,
-                                   v + head * ROWB, vs + head, limit,
-                                   AncestryRow{anc + (size_t)b * t_anc, group},
-                                   out + qoff, sm);
+constexpr int WSUM_BYTES = WARPS * LANES * HD * 4;
+constexpr int POUT_BYTES = (LANES * HD + MAX_CLUSTER) * 4;
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The block's arrays in dynamic shared memory, sized by the launch: `cap`
+// rows a chunk (a multiple of 16), `span` positions (a multiple of 4),
+// `slots` most distinct rows a pass. The K chunk's room holds the warps'
+// partial outputs and the pushed ones once QK is done.
+struct Layout {
+  int k, v, ksp, vsp, slot, s, vsl, wsum, pout, total;
+  __host__ __device__ Layout(int bits, int cap, int span, int slots) {
+    const int rowb = bits * HD / 8;
+    k = round_up((int)sizeof(Fixed), 128);
+    wsum = k;
+    pout = k + WSUM_BYTES;
+    v = k + round_up(cap * rowb > WSUM_BYTES + POUT_BYTES ? cap * rowb : WSUM_BYTES + POUT_BYTES,
+                     128);
+    ksp = v + cap * rowb;   // each slot's K scale as the aligned bf16 pair holding it
+    vsp = ksp + cap * 4;
+    slot = vsp + cap * 4;
+    s = slot + round_up(slots * 4, 16);  // [LANES][span]: scores, then exp, then weights
+    vsl = s + LANES * span * 4;          // [LANES][span]: V scale of each lane's row
+    total = vsl + LANES * span * 4;
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
+// Per-row symmetric int8 code of x under scale (absmax/127 recipe).
+__device__ __forceinline__ float quantize_code(float x, float scale) {
+  return fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
+}
+
+// Codes to bf16x2 pairs for the mma, as in decode_attention.cu: the nibbles
+// at bits 0-3 and 16-19 of x, offset by 8 (int4 codes and int8 high
+// nibbles, after an xor with 0x88888888 or 0x80808080) or as they are (int8
+// low nibbles, 0..15). Exact in bf16.
+constexpr uint32_t BF16_ONE2 = 0x3F803F80u;    // (1, 1)
+constexpr uint32_t BF16_M136 = 0xC308C308u;    // (-136, -136): 128 + u - 136 = u - 8
+constexpr uint32_t BF16_M128 = 0xC300C300u;    // (-128, -128)
+
+__device__ __forceinline__ uint32_t pair_signed(uint32_t x) {
+  return dequant_bf16x2(x, BF16_ONE2, BF16_M136);
+}
+
+__device__ __forceinline__ uint32_t pair_low(uint32_t x) {
+  return dequant_bf16x2(x, BF16_ONE2, BF16_M128);
+}
+
+// where dim d of a query row sits in qb: the order in which a lane's k-steps
+// take the codes (decode_attention.cu:qpos)
+template <int BITS>
+__device__ __forceinline__ int qpos(int d) {
+  return BITS == 4 ? (d & ~7) | (((d & 3) << 1) | ((d >> 2) & 1))
+                   : (d & ~3) | (((d & 1) << 1) | ((d >> 1) & 1));
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// the bf16 of a scale pair that holds element e
+__device__ __forceinline__ float scale_of(uint32_t pair, long long e) {
+  return __uint_as_float(((e & 1) ? pair >> 16 : pair & 0xffffu) << 16);
 }
 
 template <int BITS, bool INT_DOT>
-void launch(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* ks,
-            const void* v, const void* vs, const void* anc, void* out, int n_head,
-            int rows, int t_anc, int group, int limit) {
-  beamflat_attn_kernel<BITS, INT_DOT><<<grid, THREADS, 0, s>>>(
-      (const __nv_bfloat16*)q, (const uint8_t*)k, (const __nv_bfloat16*)ks,
-      (const uint8_t*)v, (const __nv_bfloat16*)vs, (const int*)anc,
-      (__nv_bfloat16*)out, n_head, rows, t_anc, group, limit);
+__global__ void __launch_bounds__(THREADS, 2)
+beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ ks, const uint8_t* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ anc,
+                     __nv_bfloat16* __restrict__ out, int n_head, int rows, int t_anc,
+                     int group, int limit, int cap, int span, int slots_max,
+                     long long scale_count) {
+  constexpr int ROWB = BITS * HD / 8;
+  constexpr int PIECES = ROWB / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Fixed& fx = *reinterpret_cast<Fixed*>(smem_raw);
+  const Layout lay(BITS, cap, span, slots_max);
+  uint8_t* kbuf = smem_raw + lay.k;
+  uint8_t* vbuf = smem_raw + lay.v;
+  uint32_t* ksp = reinterpret_cast<uint32_t*>(smem_raw + lay.ksp);
+  uint32_t* vsp = reinterpret_cast<uint32_t*>(smem_raw + lay.vsp);
+  uint32_t* slot = reinterpret_cast<uint32_t*>(smem_raw + lay.slot);
+  float* sc_s = reinterpret_cast<float*>(smem_raw + lay.s);
+  float* vsl = reinterpret_cast<float*>(smem_raw + lay.vsl);
+  float* wsum = reinterpret_cast<float*>(smem_raw + lay.wsum);  // [WARPS][LANES][HD]
+  float* pout = reinterpret_cast<float*>(smem_raw + lay.pout);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int cq = lane & 3;
+  const int h = blockIdx.y;
+  const int win = blockIdx.z;
+  // the block's positions [t0, t0 + cnt): at least one, since C <= limit
+  const int t0 = (int)((long long)rank * limit / csize);
+  const int cnt = (int)((long long)(rank + 1) * limit / csize) - t0;
+  const long long head = ((long long)win * n_head + h) * rows;  // row 0 of the head
+  const uint8_t* kh = k + head * ROWB;
+  const uint8_t* vh = v + head * ROWB;
+
+  for (int r0 = 0; r0 < group; r0 += LANES) {
+    const int nr = min(LANES, group - r0);
+    const int lane0 = win * group + r0;  // the pass's first query row
+    auto q_off = [&](int rr) { return ((size_t)(lane0 + rr) * n_head + h) * HD; };
+
+    // the pass's queries, lane `warp`'s two dims a thread, loaded now so
+    // that they travel with the ancestry loads
+    __nv_bfloat16 qv[2];
+    if (warp < nr) {
+      qv[0] = q[q_off(warp) + lane];
+      qv[1] = q[q_off(warp) + lane + 32];
+    }
+
+    // slots: for each position of the span (a thread a position, 128 at a
+    // time), the distinct rows of the pass's lanes, numbered in position
+    // order by a block scan
+    int n_slots = 0;
+    for (int base = 0; base < cnt; base += THREADS) {
+      const int tl = base + tid;
+      int a[LANES];
+      uint32_t first = 0u;  // bit r: lane r is the first lane using its row
+      uint32_t users[LANES];
+      int count = 0;
+#pragma unroll
+      for (int r = 0; r < LANES; ++r) {
+        a[r] = -1;
+        users[r] = 0u;
+        if (r < nr && tl < cnt) a[r] = anc[(size_t)(lane0 + r) * t_anc + t0 + tl];
+      }
+#pragma unroll
+      for (int r = 0; r < LANES; ++r) {
+        bool is_first = r < nr && tl < cnt;
+#pragma unroll
+        for (int r2 = 0; r2 < r; ++r2) is_first = is_first && a[r2] != a[r];
+        if (is_first) {
+          first |= 1u << r;
+          ++count;
+          uint32_t m = 0u;
+#pragma unroll
+          for (int r2 = r; r2 < LANES; ++r2) m |= (r2 < nr && a[r2] == a[r]) ? 1u << r2 : 0u;
+          users[r] = m;
+        }
+      }
+      int x = count;  // inclusive scan over the warp
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, x, off);
+        if (lane >= off) x += y;
+      }
+      if (lane == 31) fx.scan[warp] = x;
+      __syncthreads();
+      int at = n_slots + x - count;
+      int tile = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        at += w < warp ? fx.scan[w] : 0;
+        tile += fx.scan[w];
+      }
+#pragma unroll
+      for (int r = 0; r < LANES; ++r) {
+        if (first & (1u << r)) slot[at++] = (uint32_t)tl | (users[r] << 8) | ((uint32_t)a[r] << 16);
+      }
+      n_slots += tile;
+      __syncthreads();
+    }
+    const int n_chunks = (n_slots + cap - 1) / cap;
+
+    // one chunk's K (or V) codes and both scale pairs (scales with K only)
+    auto issue = [&](uint8_t* dst, const uint8_t* src_head, int j0, bool scales) {
+      const int n = min(cap, n_slots - j0);
+      for (int i = tid; i < n * PIECES; i += THREADS) {
+        const int j = i / PIECES;
+        const int p = i % PIECES;
+        const uint32_t sl = slot[j0 + j];
+        const long long row = (long long)(t0 + slot_pos(sl)) * group + slot_owner(sl);
+        cp_async16(dst + j * ROWB + p * 16, src_head + row * ROWB + p * 16, true);
+      }
+      if (scales) {
+        for (int j = tid; j < n; j += THREADS) {
+          const uint32_t sl = slot[j0 + j];
+          const long long e = head + (long long)(t0 + slot_pos(sl)) * group + slot_owner(sl);
+          const long long e2 = e & ~1LL;
+          const int sb = e2 + 1 < scale_count ? 4 : 2;
+          cp_async4_part(&ksp[j], ks + e2, sb);
+          cp_async4_part(&vsp[j], vs + e2, sb);
+        }
+      }
+      cp_async_commit();
+    };
+    issue(kbuf, kh, 0, true);
+    issue(vbuf, vh, 0, false);
+
+    // the queries into qb (int mode: each lane's int8 codes and scale)
+    if (warp < nr) {
+      if constexpr (INT_DOT) {
+        const float x0 = __bfloat162float(qv[0]);
+        const float x1 = __bfloat162float(qv[1]);
+        const float amax = warp_max(fmaxf(fabsf(x0), fabsf(x1)));
+        const float qs = fmaxf(amax, 1e-30f) / 127.f;
+        fx.qb[warp][qpos<BITS>(lane)] = __float2bfloat16(quantize_code(x0, qs));
+        fx.qb[warp][qpos<BITS>(lane + 32)] = __float2bfloat16(quantize_code(x1, qs));
+        if (lane == 0) fx.qscale[warp] = qs;
+      } else {
+        fx.qb[warp][qpos<BITS>(lane)] = qv[0];
+        fx.qb[warp][qpos<BITS>(lane + 32)] = qv[1];
+      }
+    }
+    __syncthreads();
+
+    // QK on the tensor cores, chunk by chunk: S (16 slots x 8 lanes) += K
+    // (16 slots x 16 dims) Q^T, warp w taking slot tiles w, w + 8, ... (the
+    // operand layout of decode_attention.cu). A slot's score is kept for
+    // each lane that uses it: one score a (lane, position).
+    uint32_t bq[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (gq < nr) {
+      const uint4* p = reinterpret_cast<const uint4*>(&fx.qb[gq][16 * cq]);
+      const uint4 u0 = p[0];
+      const uint4 u1 = p[1];
+      bq[0] = u0.x, bq[1] = u0.y, bq[2] = u0.z, bq[3] = u0.w;
+      bq[4] = u1.x, bq[5] = u1.y, bq[6] = u1.z, bq[7] = u1.w;
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      const int j0 = c * cap;
+      const int n = min(cap, n_slots - j0);
+      if (c > 0) {
+        __syncthreads();  // every warp is done with the last chunk's K
+        issue(kbuf, kh, j0, true);
+        cp_async_wait(0);
+      } else {
+        cp_async_wait(1);  // K and its scales; V may still be in flight
+      }
+      __syncthreads();
+      for (int kt = warp; kt * 16 < n; kt += WARPS) {
+        const uint8_t* ra = kbuf + (16 * kt + gq) * ROWB;  // slot gq of the tile
+        const uint8_t* rb = ra + 8 * ROWB;                 // slot gq + 8
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (BITS == 4) {
+          const uint2 u0 = *reinterpret_cast<const uint2*>(ra + 8 * cq);
+          const uint2 u1 = *reinterpret_cast<const uint2*>(rb + 8 * cq);
+          const uint32_t w0[2] = {u0.x ^ 0x88888888u, u0.y ^ 0x88888888u};
+          const uint32_t w1[2] = {u1.x ^ 0x88888888u, u1.y ^ 0x88888888u};
+#pragma unroll
+          for (int st = 0; st < 4; ++st) {
+            const int j = st >> 1;
+            const int sh = 8 * (st & 1);
+            mma_16816(sc, pair_signed(w0[j] >> sh), pair_signed(w1[j] >> sh),
+                      pair_signed(w0[j] >> (sh + 4)), pair_signed(w1[j] >> (sh + 4)), bq[2 * st],
+                      bq[2 * st + 1]);
+          }
+        } else {
+          const uint4 u0 = *reinterpret_cast<const uint4*>(ra + 16 * cq);
+          const uint4 u1 = *reinterpret_cast<const uint4*>(rb + 16 * cq);
+          const uint32_t w0[4] = {u0.x ^ 0x80808080u, u0.y ^ 0x80808080u, u0.z ^ 0x80808080u,
+                                  u0.w ^ 0x80808080u};
+          const uint32_t w1[4] = {u1.x ^ 0x80808080u, u1.y ^ 0x80808080u, u1.z ^ 0x80808080u,
+                                  u1.w ^ 0x80808080u};
+          float hi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int st = 0; st < 4; ++st) {
+            mma_16816(sc, pair_low(w0[st]), pair_low(w1[st]), pair_low(w0[st] >> 8),
+                      pair_low(w1[st] >> 8), bq[2 * st], bq[2 * st + 1]);
+            mma_16816(hi, pair_signed(w0[st] >> 4), pair_signed(w1[st] >> 4),
+                      pair_signed(w0[st] >> 12), pair_signed(w1[st] >> 12), bq[2 * st],
+                      bq[2 * st + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[i] = fmaf(16.f, hi[i], sc[i]);
+        }
+        // sc: slots gq (0, 1) and gq + 8 (2, 3) at lanes 2 cq, 2 cq + 1
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 16 * kt + gq + (i >> 1) * 8;
+          const int rr = 2 * cq + (i & 1);
+          if (rr < nr && j < n) {
+            const uint32_t sl = slot[j0 + j];
+            if (slot_lanes(sl) & (1u << rr)) {
+              const int tl = slot_pos(sl);
+              const long long e = head + (long long)(t0 + tl) * group + slot_owner(sl);
+              const float kscale = scale_of(ksp[j], e);
+              sc_s[rr * span + tl] = INT_DOT ? sc[i] * fx.qscale[rr] * kscale : sc[i] * kscale;
+              vsl[rr * span + tl] = scale_of(vsp[j], e);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // softmax: warp rr takes lane rr, over the block's span: its max, its
+    // sum of exp(s - max) (the exps kept) and, int mode, its max of
+    // exp(s - max) * vs, pushed to every block of the cluster (a block alone:
+    // to itself); one barrier; each block combines them in block order into
+    // one factor a lane, w = exp(s - its max) * f, and the int mode's scale,
+    // then forms its weights w vs (int mode: their codes).
+    if (warp < nr) {
+      float* srow = sc_s + warp * span;
+      const float* vrow = vsl + warp * span;
+      float m = -INFINITY;
+      for (int t = lane; t < cnt; t += 32) m = fmaxf(m, srow[t]);
+      m = warp_max(m);
+      float l = 0.f;
+      float a = 0.f;
+      for (int t = lane; t < cnt; t += 32) {
+        const float p = expf(srow[t] - m);
+        srow[t] = p;
+        l += p;
+        if constexpr (INT_DOT) a = fmaxf(a, p * vrow[t]);
+      }
+      l = warp_sum(l);
+      if constexpr (INT_DOT) a = warp_max(a);
+      if (lane < csize) {
+        float* dst = cluster.map_shared_rank(&fx.stat[rank][warp][0], lane);
+        dst[0] = m;
+        dst[1] = l;
+        dst[2] = a;
+      }
+    }
+    if (csize > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    if (tid < nr) {
+      float m = -INFINITY;
+      for (int src = 0; src < csize; ++src) m = fmaxf(m, fx.stat[src][tid][0]);
+      float l = 0.f;
+      float amax = 0.f;
+      for (int src = 0; src < csize; ++src) {  // block 0 first: a fixed order
+        const float f = expf(fx.stat[src][tid][0] - m);
+        l += fx.stat[src][tid][1] * f;
+        amax = fmaxf(amax, fx.stat[src][tid][2] * f);
+      }
+      // this block's exp(s - its max) to w = exp(s - m) / l: one factor a lane
+      fx.row[tid][0] = expf(fx.stat[rank][tid][0] - m) / l;
+      fx.row[tid][2] = fmaxf(amax / l, 1e-30f) / 127.f;  // int mode: the absmax of w * vs
+    }
+    __syncthreads();
+    for (int t = tid; t < cnt; t += THREADS) {
+#pragma unroll
+      for (int rr = 0; rr < LANES; ++rr) {
+        if (rr < nr) {
+          const float wv = sc_s[rr * span + t] * fx.row[rr][0] * vsl[rr * span + t];
+          sc_s[rr * span + t] = INT_DOT ? quantize_code(wv, fx.row[rr][2]) : wv;
+        }
+      }
+    }
+
+    // PV on the tensor cores, chunk by chunk: O^T (16 dims x 8 lanes) += V^T
+    // (16 dims x 16 slots) W^T, warp w taking slot tiles w, w + 8, ... Lane
+    // (gq, cq) holds A of its dims 8 gq .. 8 gq + 7 at slots 2 cq, 2 cq + 1,
+    // 2 cq + 8, 2 cq + 9 of the tile (decode_attention.cu's layout) and B of
+    // lane gq's weights at those slots: its weight where it uses the slot,
+    // else 0. Exact products, fp32 sums (exact in the integer mode).
+    float acc[4][4];
+    float acch[4][4];
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[tt][i] = acch[tt][i] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      const int j0 = c * cap;
+      const int n = min(cap, n_slots - j0);
+      if (c > 0) {
+        __syncthreads();  // every warp is done with the last chunk's V
+        issue(vbuf, vh, j0, false);
+      }
+      cp_async_wait(0);
+      __syncthreads();
+      auto weight = [&](int j) -> float {  // lane gq's weight at slot j of the chunk
+        if (gq >= nr || j >= n) return 0.f;
+        const uint32_t sl = slot[j0 + j];
+        return (slot_lanes(sl) & (1u << gq)) ? sc_s[gq * span + slot_pos(sl)] : 0.f;
+      };
+      for (int kt = warp; kt * 16 < n; kt += WARPS) {
+        const int kb0 = 16 * kt + 2 * cq;  // slots kb0, kb0 + 1, kb0 + 8, kb0 + 9
+        const float w4[4] = {weight(kb0), weight(kb0 + 1), weight(kb0 + 8), weight(kb0 + 9)};
+        uint32_t b0[2], b1[2];  // [0]: the weights (int mode: codes); [1]: fp mode's low halves
+        b0[0] = bf16_pair(w4[0], w4[1]);
+        b1[0] = bf16_pair(w4[2], w4[3]);
+        if constexpr (!INT_DOT) {
+          float lo[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) lo[i] = w4[i] - __bfloat162float(__float2bfloat16(w4[i]));
+          b0[1] = bf16_pair(lo[0], lo[1]);
+          b1[1] = bf16_pair(lo[2], lo[3]);
+        }
+        constexpr int PARTS = INT_DOT ? 1 : 2;
+        const int keys[4] = {kb0, kb0 + 1, kb0 + 8, kb0 + 9};
+        if constexpr (BITS == 4) {
+          uint32_t w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            w[i] = *reinterpret_cast<const uint32_t*>(vbuf + keys[i] * ROWB + 4 * gq) ^ 0x88888888u;
+          }
+#pragma unroll
+          for (int tt = 0; tt < 4; ++tt) {  // byte tt of the word: dims 8 gq + 2 tt, + 1
+            const uint32_t sel = (uint32_t)tt | ((uint32_t)(4 + tt) << 8);
+            const uint32_t p01 = __byte_perm(w[0], w[1], sel);
+            const uint32_t p89 = __byte_perm(w[2], w[3], sel);
+#pragma unroll
+            for (int part = 0; part < PARTS; ++part) {
+              mma_16816(acc[tt], pair_signed(p01), pair_signed(p01 >> 4), pair_signed(p89),
+                        pair_signed(p89 >> 4), b0[part], b1[part]);
+            }
+          }
+        } else {
+          uint2 w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint2 u = *reinterpret_cast<const uint2*>(vbuf + keys[i] * ROWB + 8 * gq);
+            w[i] = make_uint2(u.x ^ 0x80808080u, u.y ^ 0x80808080u);
+          }
+#pragma unroll
+          for (int tt = 0; tt < 4; ++tt) {  // bytes 2 tt (dim 8 gq + 2 tt) and 2 tt + 1
+            const int bb = 2 * (tt & 1);
+            const uint32_t sa = (uint32_t)bb | ((uint32_t)(4 + bb) << 8);
+            const uint32_t sb = (uint32_t)(bb + 1) | ((uint32_t)(5 + bb) << 8);
+            const uint32_t x0 = tt < 2 ? w[0].x : w[0].y, x1 = tt < 2 ? w[1].x : w[1].y;
+            const uint32_t x8 = tt < 2 ? w[2].x : w[2].y, x9 = tt < 2 ? w[3].x : w[3].y;
+            const uint32_t pa = __byte_perm(x0, x1, sa), pb = __byte_perm(x0, x1, sb);
+            const uint32_t qa = __byte_perm(x8, x9, sa), qb = __byte_perm(x8, x9, sb);
+#pragma unroll
+            for (int part = 0; part < PARTS; ++part) {
+              mma_16816(acc[tt], pair_low(pa), pair_low(pb), pair_low(qa), pair_low(qb),
+                        b0[part], b1[part]);
+              mma_16816(acch[tt], pair_signed(pa >> 4), pair_signed(pb >> 4),
+                        pair_signed(qa >> 4), pair_signed(qb >> 4), b0[part], b1[part]);
+            }
+          }
+        }
+      }
+    }
+    // acc[tt]: dims 8 gq + 2 tt (0, 1) and + 1 (2, 3) at lanes 2 cq, 2 cq + 1;
+    // the warps' partials go where the K chunk was (QK is done)
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = 2 * cq + (i & 1);
+        if (rr < nr) {
+          const float o = BITS == 8 ? fmaf(16.f, acch[tt][i], acc[tt][i]) : acc[tt][i];
+          wsum[(warp * LANES + rr) * HD + 8 * gq + 2 * tt + (i >> 1)] =
+              INT_DOT ? __int_as_float(__float2int_rn(o)) : o;
+        }
+      }
+    }
+    __syncthreads();
+    // the block's output of lane rr, dim d: its warps' partials in warp order
+    auto block_out = [&](int rr, int d) {
+      if constexpr (INT_DOT) {
+        int io = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) io += __float_as_int(wsum[(w * LANES + rr) * HD + d]);
+        return __int_as_float(io);
+      } else {
+        float o = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) o += wsum[(w * LANES + rr) * HD + d];
+        return o;
+      }
+    };
+    if (csize == 1) {  // the whole span in one block: write
+      for (int e = tid; e < nr * HD; e += THREADS) {
+        const float o = block_out(e / HD, e % HD);
+        out[q_off(e / HD) + e % HD] =
+            __float2bfloat16(INT_DOT ? (float)__float_as_int(o) * fx.row[e / HD][2] : o);
+      }
+      continue;
+    }
+    // output e = lane * HD + d belongs to block e % C: every block pushes its
+    // partial into the owner's slots, one cluster barrier, and each owner
+    // sums its slots in block order and writes. After the barrier no block
+    // reads another's shared memory, so none waits for the others to leave.
+    const int owned = (nr * HD + csize - 1) / csize;
+    for (int e = tid; e < nr * HD; e += THREADS) {
+      cluster.map_shared_rank(pout, e % csize)[rank * owned + e / csize] =
+          block_out(e / HD, e % HD);
+    }
+    cluster.sync();
+    for (int i = tid; i < owned; i += THREADS) {
+      const int e = i * csize + rank;
+      if (e < nr * HD) {
+        float o;
+        if constexpr (INT_DOT) {
+          int io = 0;
+          for (int src = 0; src < csize; ++src) io += __float_as_int(pout[src * owned + i]);
+          o = (float)io * fx.row[e / HD][2];
+        } else {
+          o = 0.f;
+          for (int src = 0; src < csize; ++src) o += pout[src * owned + i];
+        }
+        out[q_off(e / HD) + e % HD] = __float2bfloat16(o);
+      }
+    }
+  }
+}
+
+template <int BITS, bool INT_DOT>
+cudaError_t launch(dim3 grid, int cluster, int smem, cudaStream_t s, const void* q,
+                   const void* k, const void* ks, const void* v, const void* vs,
+                   const void* anc, void* out, int n_head, int rows, int t_anc, int group,
+                   int limit, int cap, int span, int slots, long long scale_count) {
+  return launch_cluster<beamflat_attn_kernel<BITS, INT_DOT>>(
+      grid, THREADS, smem, cluster, s, (const __nv_bfloat16*)q, (const uint8_t*)k,
+      (const __nv_bfloat16*)ks, (const uint8_t*)v, (const __nv_bfloat16*)vs, (const int*)anc,
+      (__nv_bfloat16*)out, n_head, rows, t_anc, group, limit, cap, span, slots, scale_count);
 }
 
 }  // namespace
 
+// cluster: blocks a (window, head) and cap: rows a chunk, from
+// ops/beamflat_attention.py:beamflat_plan
 extern "C" int wmt_beamflat_attention(const void* q, const void* k, const void* ks,
                                       const void* v, const void* vs, const void* anc,
                                       void* out, int nb, int n_head, int rows,
                                       int t_anc, int group, int limit, int bits,
-                                      int int_dot, void* stream) {
-  if (group < 1 || nb < 1 || nb > 65535 || nb % group != 0 || n_head < 1 ||
-      rows % group != 0 || limit < 1 || limit > rows / group || limit > t_anc ||
-      limit > MAX_T) {
+                                      int int_dot, int cluster, int cap, void* stream) {
+  if (group < 1 || group > 65535 || nb < 1 || nb % group != 0 || nb / group > 65535 ||
+      n_head < 1 || n_head > 65535 || rows % group != 0 || limit < 1 ||
+      limit > rows / group || limit > t_anc || limit > MAX_T || cluster < 1 ||
+      cluster > MAX_CLUSTER || cluster > limit || (limit + cluster - 1) / cluster > MAX_SPAN ||
+      cap < 16 || cap > CAP || cap % 16 != 0 || (bits != 4 && bits != 8)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(n_head, nb);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 8 && !int_dot) {
-    launch<8, false>(grid, s, q, k, ks, v, vs, anc, out, n_head, rows, t_anc, group, limit);
-  } else if (bits == 4 && !int_dot) {
-    launch<4, false>(grid, s, q, k, ks, v, vs, anc, out, n_head, rows, t_anc, group, limit);
-  } else if (bits == 8) {
-    launch<8, true>(grid, s, q, k, ks, v, vs, anc, out, n_head, rows, t_anc, group, limit);
-  } else if (bits == 4) {
-    launch<4, true>(grid, s, q, k, ks, v, vs, anc, out, n_head, rows, t_anc, group, limit);
+  const int most = (limit + cluster - 1) / cluster;  // the longest span
+  const int span = round_up(most, 4);
+  const int slots = most * std::min(group, LANES);
+  const int smem = Layout(bits, cap, span, slots).total;
+  const dim3 grid(cluster, n_head, nb / group);
+  const long long scale_count = (long long)(nb / group) * n_head * rows;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define WMT_BF(B, I)                                                                         \
+  launch<B, I>(grid, cluster, smem, s, q, k, ks, v, vs, anc, out, n_head, rows, t_anc, group, \
+               limit, cap, span, slots, scale_count)
+  cudaError_t e;
+  if (bits == 8) {
+    e = int_dot ? WMT_BF(8, true) : WMT_BF(8, false);
   } else {
-    return (int)cudaErrorInvalidValue;
+    e = int_dot ? WMT_BF(4, true) : WMT_BF(4, false);
   }
-  return (int)cudaGetLastError();
+#undef WMT_BF
+  return (int)e;
 }

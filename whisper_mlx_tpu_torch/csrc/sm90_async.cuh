@@ -5,7 +5,9 @@
 // attention core of K2 and K4 (attn_tile.cuh):
 // - cp.async of 16 bytes into shared memory, committed and waited on in
 //   groups (a ring of stages);
-// - one-dimensional bulk copies (cp.async.bulk, no tensor map) and
+// - one-dimensional bulk copies (cp.async.bulk, no tensor map) in both
+//   directions (shared -> global in bulk groups, the lane move K9,
+//   lane_permute.cu) and
 //   two-dimensional TMA boxes (cp.async.bulk.tensor, tensor maps encoded on
 //   the host through cudaGetDriverEntryPoint, so no -lcuda) completing
 //   their bytes on an mbarrier;
@@ -40,6 +42,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 // the rest filled with zeros
 __device__ __forceinline__ void cp_async16_part(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+// 4 bytes into shared memory from the first `src_bytes` (0..4) at src, the
+// rest filled with zeros (both addresses 4-byte aligned)
+__device__ __forceinline__ void cp_async4_part(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes));
 }
 
@@ -104,6 +113,28 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) shared ->
+// global, in this thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until every bulk group of this thread has read its shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wait until every bulk group of this thread is complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Order this thread's view of shared memory, after an mbarrier wait that

@@ -211,12 +211,14 @@ def beam_decode(
             ancestry = anc
         elif kv_scheme == "permi":
             anc, src, token_lane = _permi_lanes(anc, new_parent, new_token, B)
-            src_flat = (src + win_base).reshape(-1)
+            # K9 takes int32 maps: converted once a step, not in each layer's call
+            src_flat = (src + win_base).reshape(-1).to(torch.int32)
             for entry in cache:
                 lane_move_inplace(list(entry.values()), src_flat)
             step_tokens = token_lane.reshape(-1, 1)
         else:
-            cache = [dict(zip(entry, permute_lanes(list(entry.values()), flat_parent)))
+            parent32 = flat_parent.to(torch.int32)
+            cache = [dict(zip(entry, permute_lanes(list(entry.values()), parent32)))
                      for entry in cache]
         step_logits, cache = decode_step(params, step_tokens, cur_len, cache, xkv, config,
                                          share_xkv_groups=B, beam_ancestry=ancestry)

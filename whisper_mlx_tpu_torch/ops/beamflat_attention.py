@@ -19,10 +19,13 @@ at row ``t * g + ancestry[b, t]``. Two modes, as
 s8 -> s32 dots).
 
 On a CUDA tensor :func:`beamflat_attention` launches
-``csrc/beamflat_attention.cu``, which gathers each lane's ``pos + 1`` rows;
-on a CPU tensor it runs :func:`beamflat_attention_plain`, which masks all
-``T * g`` rows as the reference does. :func:`attention_fp_beamflat`, the fp
-cache's form, runs on CPU tensors only.
+``csrc/beamflat_attention.cu``: one block per (window, head), or a cluster
+of :func:`beamflat_plan`'s blocks past 256 positions, each reading the
+distinct rows its span of positions needs (:func:`beamflat_rows_needed`
+counts them); on a CPU tensor it runs
+:func:`beamflat_attention_plain`, which masks all ``T * g`` rows as the
+reference does. :func:`attention_fp_beamflat`, the fp cache's form, runs on
+CPU tensors only.
 """
 
 from __future__ import annotations
@@ -39,6 +42,38 @@ from whisper_mlx_tpu_torch.ops.decode_attention import (
 )
 
 LAUNCHES = 0
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_SPAN = MAX_T // MAX_CLUSTER  # most positions a block takes
+LANES = 8  # lanes of a pass: the kernel's mma is 8 wide
+CAP = 512  # most rows a chunk of the kernel's shared memory holds
+
+
+def beamflat_plan(limit: int, group: int, span: int = MAX_SPAN) -> tuple[int, int]:
+    """K8's launch, from shapes alone: ``cluster`` blocks a (window, head),
+    block r taking positions ``[r * limit // cluster, (r + 1) * limit //
+    cluster)`` of the ``limit = pos + 1`` live ones, at most ``span`` a
+    block (by default one block up to 256 positions: on the H100 a
+    cluster's two exchanges cost more than splitting them saves); and
+    ``cap``, the rows a chunk of its shared memory holds: a pass's distinct
+    rows at most (``min(group, 8)`` a position), in whole 16-row mma tiles,
+    at most ``CAP`` (more rows take more chunks). -> (cluster, cap)."""
+    if not 1 <= limit <= MAX_T or group < 1 or not 1 <= span <= MAX_SPAN:
+        raise ValueError(f"beamflat_plan: limit {limit}, group {group}, span {span}")
+    cluster = min(MAX_CLUSTER, limit, -(-limit // span))
+    most = -(-limit // cluster)
+    cap = min(CAP, -(-most * min(group, LANES) // 16) * 16)
+    return cluster, cap
+
+
+def beamflat_rows_needed(ancestry: torch.Tensor, group: int, pos: int) -> torch.Tensor:
+    """``(n,)`` distinct cache rows each window's lanes attend at ``pos``:
+    the rows ``t * g + ancestry[b, t]``, ``t <= pos``, of any of its lanes,
+    each once. It sets K8's bound: the bytes a step must read."""
+    t_pos = ancestry.shape[1]
+    anc = ancestry.reshape(-1, group, t_pos)[:, :, :pos + 1].long()
+    used = torch.zeros((anc.shape[0], pos + 1, group), dtype=torch.bool, device=anc.device)
+    used.scatter_(2, anc.transpose(1, 2), True)
+    return used.sum(dim=(1, 2))
 
 
 def beamflat_mask(ancestry: torch.Tensor, group: int, rows: int, pos: int) -> torch.Tensor:
@@ -147,12 +182,23 @@ def beamflat_attention(q, k, ks, v, vs, ancestry, pos: int, group: int,
     if q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM:
         raise ValueError(f"beamflat_attention: the kernel takes (n*g, H, 1, {HEAD_DIM}) "
                          f"bfloat16 queries, got {tuple(q.shape)} {q.dtype}")
+    if (k.data_ptr() | v.data_ptr()) % 16 or (ks.data_ptr() | vs.data_ptr()) % 4:
+        # the kernel copies codes in 16-byte pieces and scales in 4-byte pairs
+        k, ks, v, vs = (t.clone() for t in (k, ks, v, vs))
+    return _launch(q, k, ks, v, vs, ancestry, pos, group, int_dot, bits,
+                   *beamflat_plan(int(pos) + 1, group))
+
+
+def _launch(q, k, ks, v, vs, ancestry, pos: int, group: int, int_dot: bool, bits: int,
+            cluster: int, cap: int) -> torch.Tensor:
+    """One launch of K8 on checked CUDA tensors under a given plan."""
     nb, h = q.shape[:2]
     out = torch.empty_like(q)
     rc = _build.lib().wmt_beamflat_attention(
         q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
         ancestry.data_ptr(), out.data_ptr(), nb, h, k.shape[2], ancestry.shape[1], group,
-        int(pos) + 1, bits, int(int_dot), torch.cuda.current_stream(q.device).cuda_stream,
+        int(pos) + 1, bits, int(int_dot), cluster, cap,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "wmt_beamflat_attention")
     global LAUNCHES

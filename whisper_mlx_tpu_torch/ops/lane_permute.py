@@ -12,8 +12,10 @@ Counterpart of ``whisper_mlx_tpu/ops/lane_permute.py``:
 
 Rows are plain bytes to the kernel, so int8 codes, packed int4 codes, bf16
 scales and fp rows all take the same path. On CUDA tensors both launch
-``csrc/lane_permute.cu`` (one launch for up to 8 tensors); on CPU tensors
-they run the plain versions, and the move checks its precondition there.
+``csrc/lane_permute.cu`` (one launch for up to 8 tensors) over an int32 row
+map, the kernel's own type (an int64 map is converted first, one more
+device kernel a call); on CPU tensors they run the plain versions, and the
+move checks its precondition there.
 """
 
 from __future__ import annotations
