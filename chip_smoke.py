@@ -39,18 +39,28 @@ is non-zero and the result line is not printed:
    shapes (M = 1 L2 cold over copies of each linear, the warm reading and the
    host cost beside) and the flash prefill (K4) against their plain versions, K4 also
    at the LLM phase's prefill lengths at GQA rep 8 and rep 1, with the
-   same rate, first-form and host-cost lines as K2;
+   same rate, first-form and host-cost lines as K2; K5's tiled core
+   (csrc/quant_tile.cuh, bf16 x, 9-512 rows) at each edge of its row
+   blocks (TILED_M) on the five linears at 4 bits, qkv at 8 and whisper's
+   ragged logits, each within QMM_TOL of the plain version, bit-equal on a
+   repeat and one device kernel a call, then timed over one layer's four
+   linears at 128, 384 and 512 rows, L2 cold, beside bf16 torch.matmul on
+   the weights dequantized beforehand (a yardstick) and the bound;
 8. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
    QwenModel on CUDA and on the CPU (plain versions), logits and tokens;
 9. LLM main path: Qwen3-32B at full width with random packed int4 weights
    built on the card, through LLMEngine.chat, stream_generate and the
-   continuous-batching engine (4 slots, 6 requests), then the timings;
+   continuous-batching engine (4 slots, 6 requests), then the timings
+   (prefill at 128, 384, 512 and 1536 tokens);
 10. LLM residency kernels: the transposed dequant-matmul (K6; packed int4,
    codes-resident, int8) and the W8A8 matmul (K7, bit-equal at M <= 8) at
    the Qwen3-32B linear shapes against their plain versions, one device
    kernel a call at M <= 8 (K6 on 4-bit codes, K7) from the profiler's
    device events, the host cost a call, and K6 at ring depth 2, 4 and 8
-   and at M = 4 beside K5 on the same packed weights;
+   and at M = 4 beside K5 on the same packed weights; K6's tiled core held
+   as phase 7 holds K5's (packed 4 and 8 bits, codes-resident, the
+   logits) and timed over one layer (packed at 128, 384 and 512 rows,
+   codes-resident at 384);
 11. LLM residency main path, once under WTPU_MBT_RESIDENT=1 and once under
    WTPU_QWEN_A8=1: phase 8 under the opt-in, then Qwen3-32B (16 of its 64
    layers, full width) through chat and the continuous-batching engine,
@@ -88,7 +98,13 @@ is non-zero and the result line is not printed:
 19. beam_batches, run only when named in --only: phase 6's dense 8-window x
    beam 5 batch, its tokens beside those of the same batch with K8's plain
    version, and its per-step breakdown (device ms and K8's ms a step, K8's
-   ms over the whole decode), for the same use.
+   ms over the whole decode), for the same use;
+20. tiled_times, run only when named in --only: the tiled core (K5, K6
+   packed and codes-resident) over one Qwen3-32B layer's four linears at
+   128, 384 and 512 rows and over large-v3's five decode matmuls at the
+   SOT step's 24 rows, L2 cold, and Qwen3-32B's prefill at 128, 384 and
+   512 tokens (64 layers packed, 16 under WTPU_MBT_RESIDENT=1), for the
+   same use.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -97,7 +113,12 @@ mode), with every count set to 0 just before that run; phase 15 also
 prints and checks the launches of K1, K2, K3, K5 and K6 on the 4-bit path
 (the JSON line carries them as ``launches_4bit``, K5's and K6's errors
 against their plain versions at the large-v3 shapes as ``max_abs_err_4bit``,
-and K5's 8-row large-v3 step as ``ms_4bit_step_8rows``).
+and K5's 8-row large-v3 step as ``ms_4bit_step_8rows``). The K5 and K6 rows
+also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
+linears at 384 rows, L2 cold), ``bound_tiled`` and ``bound_tiled_by``,
+``yardstick_tiled_ms`` and ``launches_tiled`` (phase 9's tiled launches for
+K5, phase 11's under WTPU_MBT_RESIDENT=1 for K6, each counter set to 0 with
+the others).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -1231,9 +1252,122 @@ def _time_quant(name, q, m, gen, errs, m1_ms, m1_plain):
     return m1_ms, m1_plain, 0
 
 
+# the row counts at which the tiled core (bf16 x, 9-512 rows) is held to
+# its plain version: each edge of its 16-, 32-, 64- and 128-row blocks
+TILED_M = (9, 16, 24, 64, 65, 128, 255, 256, 257, 384, 511, 512)
+# whisper large-v3's ragged logits (1280 -> 51866), beside the Qwen shapes
+WHISPER_LOGITS = ("logits", 51866, 1280)
+
+
+def _k5_plain(x, q):
+    return qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, q.bits, q.group_size)
+
+
+def _check_tiled(label, leaf, plain, module, gen, m_values=TILED_M) -> float:
+    """The tiled core on one leaf against its plain version at each of
+    ``m_values`` rows: within QMM_TOL, one tiled launch, bit-equal on a
+    repeat, one device kernel a call (``_device_kernels``). Returns the
+    largest error."""
+    n, k = leaf.shape
+    worst, kernels = 0.0, set()
+    for m in m_values:
+        x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+        before = module.TILED_LAUNCHES
+        got = tq.quant_matmul(x, leaf)
+        ref = plain(x, leaf)
+        tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{label} N={n} K={k} M={m}: max_abs_err {err} > tol {tol}")
+        if module.TILED_LAUNCHES != before + 1:
+            raise AssertionError(f"{label} M={m}: not one launch of the tiled core")
+        if not torch.equal(got, tq.quant_matmul(x, leaf)):
+            raise AssertionError(f"{label} N={n} K={k} M={m}: a repeat is not bit-equal")
+        del got, ref
+        names, events = _device_kernels(lambda: tq.quant_matmul(x, leaf))
+        if names != 1 or events > 1:
+            raise AssertionError(f"{label} M={m}: {names} device kernels by name, {events} "
+                                 "events a call; one kernel a call expected")
+        kernels.add(names)
+        worst = max(worst, err)
+    print(f"  {label} N={n} K={k}, tiled core at M = {', '.join(map(str, m_values))}: max_abs_err "
+          f"{worst:.3e} (tol {QMM_TOL:g} x max(1, |ref|)), bit-equal on a repeat, one device "
+          "kernel a call")
+    return worst
+
+
+def _tiled_layer(gen, make_leaf, m_values=(128, 384, 512), label="K5") -> dict:
+    """The tiled core over one Qwen3-32B layer's four linears (qkv, o,
+    gate_up, down; random int4 g64 leaves made by ``make_leaf`` from packed
+    weights) at each of ``m_values`` rows, L2 cold, beside the yardstick
+    (bf16 torch.matmul on the same weights dequantized beforehand: 4x the
+    bytes, not the same function) and the bound. -> {m: (kernel ms,
+    yardstick ms, bound dict)}."""
+    out = {m: [0.0, 0.0, 0, 0] for m in m_values}  # kernel, yardstick, bytes, ops
+    for name, n, k in QWEN_LINEARS[:4]:
+        q = _random_quant(gen, n, k)
+        leaf = make_leaf(q)
+        leaves = [getattr(leaf, f) for f in ("wqt", "scalest", "biasest")] if isinstance(
+            leaf, mb.QuantTensorT) else [leaf.w_q, leaf.scales, leaf.biases]
+        nbytes = _nbytes(*leaves)
+        copies = _layer_copies(lambda: _mbt_copy(leaf) if isinstance(leaf, mb.QuantTensorT)
+                               else dataclasses.replace(leaf, w_q=leaf.w_q.clone(),
+                                                        scales=leaf.scales.clone(),
+                                                        biases=leaf.biases.clone()), nbytes)
+        dense = [q.dequantize(torch.bfloat16)]
+        for m in m_values:
+            x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+            ms = _cold_ms(lambda c: tq.quant_matmul(x, c), copies, reps=8)
+            lib = _cold_ms(lambda w: torch.matmul(x, w.T), dense, reps=8)
+            for i, v in enumerate((ms, lib, nbytes + 2 * m * (n + k), 2 * m * n * k)):
+                out[m][i] += v
+        del q, leaf, copies, dense
+        torch.cuda.empty_cache()
+    res = {}
+    for m, (ms, lib, nbytes, ops) in out.items():
+        bound = _bound(nbytes, ops, "bf16")
+        res[m] = (ms, lib, bound)
+        print(f"  {label} tiled core, one Qwen3-32B layer's four linears at M={m}, L2 cold: "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, {bound['bound_ms'] / ms:.1%} of the "
+              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}); yardstick, bf16 "
+              f"torch.matmul on the weights dequantized beforehand: {lib:.4f} ms")
+    return res
+
+
+def _tiled_whisper_step(gen, m=24) -> None:
+    """K5 and K6 (the same weights transposed) over whisper large-v3's five
+    decode matmuls (fused qkv, o, fc1, fc2, the logits; int4 g64) at the
+    SOT step's 24 rows, L2 cold, beside the yardstick and the bound."""
+    sums = {"K5": 0.0, "K6": 0.0, "yardstick": 0.0}
+    nbytes = ops = 0
+    for k, n, _ in bench_quant_kernel.SHAPES:
+        q = tq.quantize(torch.randn((n, k), generator=gen, device=gen.device) * 0.02, 4, 64)
+        x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+        size = _nbytes(q.w_q, q.scales, q.biases)
+        packed = _layer_copies(lambda: dataclasses.replace(
+            q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), size)
+        qt = mb.transpose_quant(q)
+        sums["K5"] += _cold_ms(lambda c: tq.quant_matmul(x, c), packed)
+        sums["K6"] += _cold_ms(lambda c: tq.quant_matmul(x, c), _layer_copies(
+            lambda: _mbt_copy(qt), _nbytes(qt.wqt, qt.scalest, qt.biasest)))
+        sums["yardstick"] += _cold_ms(lambda w: torch.matmul(x, w.T),
+                                      [c.dequantize(torch.bfloat16) for c in packed])
+        nbytes += size + 2 * m * (n + k)
+        ops += 2 * m * n * k
+        del packed, qt
+        torch.cuda.empty_cache()
+    bound = _bound(nbytes, ops, "bf16")
+    print(f"  tiled core over large-v3's five decode matmuls at {m} rows (the SOT step), L2 cold: "
+          f"K5 {sums['K5']:.4f} ms, K6 {sums['K6']:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); yardstick, bf16 torch.matmul on the weights dequantized "
+          f"beforehand: {sums['yardstick']:.4f} ms")
+
+
 def phase_llm_kernels() -> dict:
     """K5 at the Qwen3-32B shapes and K4 at its prefill shapes against their
-    plain versions; returns the JSON rows."""
+    plain versions; K5's tiled core at every edge of its row blocks on the
+    five Qwen3-32B linears (4 and 8 bits) and whisper's ragged logits, and
+    timed over one layer's four linears; returns the JSON rows."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     errs, m1_ms, m1_plain, m1_bytes = [], 0.0, 0.0, 0
@@ -1248,8 +1382,14 @@ def phase_llm_kernels() -> dict:
         for m in m_values:
             m1_ms, m1_plain, nbytes = _time_quant(name, q, m, gen, errs, m1_ms, m1_plain)
             m1_bytes += nbytes
+        if bits == 4 or name == "qkv":
+            errs.append(_check_tiled(f"quant_matmul {name} int{bits}", q, _k5_plain, qm, gen))
         del q
         torch.cuda.empty_cache()
+    _, n, k = WHISPER_LOGITS
+    errs.append(_check_tiled("quant_matmul whisper logits int4", _random_quant(gen, n, k),
+                             _k5_plain, qm, gen))
+    tiled = _tiled_layer(gen, lambda q: q)
     print(f"  quant_matmul one layer's linears + head at M=1 (qkv, o, gate_up, down, "
           f"lm_head): kernel {m1_ms:.4f} ms, plain {m1_plain:.4f} ms")
     rows = {"quant": dict(
@@ -1258,7 +1398,7 @@ def phase_llm_kernels() -> dict:
         ms=m1_ms, plain_ms=m1_plain,
         # codes, scales and biases of the five linears once, x in, y out
         **_bound(m1_bytes, 2 * sum(n * k for _, n, k in QWEN_LINEARS), "bf16"),
-        library_ms=None)}
+        library_ms=None, **_tiled_keys(tiled))}
 
     errs = []
     s = 128 ** -0.25
@@ -1292,6 +1432,14 @@ def phase_llm_kernels() -> dict:
         replaces="whisper_mlx_tpu/ops/flash_attention.py:72", max_abs_err=max(errs), **f)
     _rate(rows["flash"], flops, host, 1.4432)
     return rows
+
+
+def _tiled_keys(tiled: dict) -> dict:
+    """The K5 and K6 rows' tiled-core fields: one layer's four linears at
+    384 rows, L2 cold, and their bound."""
+    ms, lib, bound = tiled[384]
+    return dict(ms_tiled=ms, bound_tiled=bound["bound_ms"], bound_tiled_by=bound["bound_by"],
+                yardstick_tiled_ms=lib)
 
 
 TINY_QWEN = dict(model_type="qwen3", vocab_size=512, hidden_size=256, intermediate_size=512,
@@ -1411,7 +1559,7 @@ def phase_llm_main_path() -> dict:
     rng = np.random.default_rng(6)
     new = 64
 
-    qm.LAUNCHES = fa.LAUNCHES = 0
+    qm.LAUNCHES = qm.TILED_LAUNCHES = fa.LAUNCHES = 0
     t0 = time.perf_counter()
     r = engine.chat([{"role": "user", "content": _prompt_text(rng, 270)}],
                     max_tokens=new, temperature=0.0)
@@ -1439,9 +1587,9 @@ def phase_llm_main_path() -> dict:
     print(f"  continuous batching: 6 requests x {new} tokens on 4 slots in {batch_s:.3f} s "
           f"({6 * new / batch_s:.2f} tok/s, max occupancy {max(batch._step_occupancy)})")
     torch.cuda.synchronize()
-    launches = {"quant": qm.LAUNCHES, "flash": fa.LAUNCHES}
-    print(f"  launches on the LLM main path: quant_matmul {launches['quant']}, "
-          f"flash_attention {launches['flash']}")
+    launches = {"quant": qm.LAUNCHES, "flash": fa.LAUNCHES, "quant_tiled": qm.TILED_LAUNCHES}
+    print(f"  launches on the LLM main path: quant_matmul {launches['quant']} (the tiled "
+          f"core {launches['quant_tiled']}: the prefills), flash_attention {launches['flash']}")
     for key, n in launches.items():
         assert n > 0, f"kernel {key} was not launched on the LLM main path"
     batch.close()
@@ -1450,27 +1598,36 @@ def phase_llm_main_path() -> dict:
     return launches
 
 
-def _llm_rates(params, config) -> None:
-    """Prefill tok/s at the two prompt buckets; decode tok/s at B = 1 and 4
-    (host clock around synchronized steps); device busy time of decode
-    steps under torch.profiler."""
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _prefill_ms(params, config, t: int) -> float:
+    """One prefill of t random tokens into a fresh cache (host clock around
+    a synchronized decode_step), its logits checked for shape and finite
+    values. -> ms."""
     dev = torch.device("cuda")
+    toks = torch.randint(0, 256, (1, t), device=dev)
+    cache = qw.init_kv_cache(config, 1, 4096, dev)
+    logits, ms = _sync_ms(lambda: qw.decode_step(params, toks, 0, cache, config)[0])
+    assert logits.shape == (1, t, config.vocab_size), logits.shape
+    assert torch.isfinite(logits).all(), "non-finite Qwen3-32B prefill logits"
+    return ms
 
-    def sync_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
-    for t in (384, 1536):
-        toks = torch.randint(0, 256, (1, t), device=dev)
-        cache = qw.init_kv_cache(config, 1, 4096, dev)
-        logits, ms = sync_ms(lambda: qw.decode_step(params, toks, 0, cache, config)[0])
-        assert logits.shape == (1, t, config.vocab_size), logits.shape
-        assert torch.isfinite(logits).all(), "non-finite Qwen3-32B prefill logits"
+def _llm_rates(params, config) -> None:
+    """Prefill tok/s at 128, 384 and 512 tokens (the tiled core's prompts,
+    one launch a linear) and 1536 (dequantize + matmul); decode tok/s at B
+    = 1 and 4 (host clock around synchronized steps); device busy time of
+    decode steps under torch.profiler."""
+    dev = torch.device("cuda")
+    for t in (128, 384, 512, 1536):
+        ms = _prefill_ms(params, config, t)
         print(f"  prefill T={t}: {ms:.2f} ms, {t / ms * 1e3:.1f} tok/s")
-        del logits, cache
     for rows in (1, 4):
         cache = qw.init_kv_cache(config, rows, 4096, dev)
         tok1 = torch.zeros((rows, 1), dtype=torch.long, device=dev)
@@ -1482,10 +1639,10 @@ def _llm_rates(params, config) -> None:
                 qw.decode_step(params, tok1, p, cache, config)
 
         steps(2)
-        _, ms = sync_ms(lambda: steps(16))
+        _, ms = _sync_ms(lambda: steps(16))
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
-            _, prof_ms = sync_ms(lambda: steps(8))
+            _, prof_ms = _sync_ms(lambda: steps(8))
         device_us, top = _kernel_us(prof)
         print(f"  decode B={rows}: {ms / 16:.3f} ms/step, {rows * 16 / ms * 1e3:.2f} tok/s; "
               f"under the profiler wall {prof_ms / 8:.3f} ms/step, device kernels "
@@ -1606,8 +1763,11 @@ def phase_residency_kernels() -> dict:
     (M = 1, 4, 128, 384): K6 on packed int4 (the layer's four linears; the
     head stays packed under WTPU_MBT_RESIDENT), codes-resident int4 and the
     int8 qkv; K7 on the four linears and the head, each with its VMEM-rule
-    verdict at decode and prefill (the kernel is timed either way). Returns
-    the JSON rows: M = 1, L2 cold, bound from the run's bytes."""
+    verdict at decode and prefill (the kernel is timed either way); K6's
+    tiled core at every edge of its row blocks on those leaves and
+    whisper's ragged logits, and timed over one layer (packed at 128, 384
+    and 512 rows, codes-resident at 384). Returns the JSON rows: M = 1, L2
+    cold, bound from the run's bytes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     # ms, plain, bytes, ops, host us
@@ -1633,6 +1793,9 @@ def phase_residency_kernels() -> dict:
                     sums[key][i] += v
                 if not codes:
                     _mbt_beside_k5(q, copies, gen, beside)
+                if qt.codes_resident == codes:  # codes-resident only up to 8192 k
+                    errs["mbt"].append(_check_tiled(f"quant_matmul_mbt {qt!r}", qt,
+                                                    mb.quant_matmul_mbt_plain, mb, gen))
                 del qt, copies
         at = a8.requant_a8(q)
         del q
@@ -1661,8 +1824,17 @@ def phase_residency_kernels() -> dict:
     _time_residency("quant_matmul_mbt qkv int8", qt, tq.quant_matmul,
                     mb.quant_matmul_mbt_plain, _layer_copies(lambda: _mbt_copy(qt), nbytes),
                     nbytes, "bf16", gen, errs["mbt"])
+    errs["mbt"].append(_check_tiled(f"quant_matmul_mbt {qt!r}", qt, mb.quant_matmul_mbt_plain,
+                                    mb, gen))
+    _, n, k = WHISPER_LOGITS
+    qt = mb.transpose_quant(_random_quant(gen, n, k))
+    errs["mbt"].append(_check_tiled(f"quant_matmul_mbt whisper logits {qt!r}", qt,
+                                    mb.quant_matmul_mbt_plain, mb, gen))
     del qt
     torch.cuda.empty_cache()
+    tiled = _tiled_layer(gen, lambda q: mb.transpose_quant(q, codes=False), label="K6 packed")
+    _tiled_layer(gen, lambda q: mb.transpose_quant(q, codes=True), m_values=(384,),
+                 label="K6 codes-resident (down packed: K past 8192)")
     for key, (ms, plain, nbytes, ops, host) in sums.items():
         what = "the four linears and the head" if key == "a8" else "the four linears"
         print(f"  {key} at M = 1 over {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -1676,7 +1848,8 @@ def phase_residency_kernels() -> dict:
         name="quant_matmul_mbt", route="cuda",
         source="whisper_mlx_tpu_torch/csrc/quant_matmul_mb.cu",
         replaces="whisper_mlx_tpu/ops/quant_pallas_mb.py:354", max_abs_err=max(errs["mbt"]),
-        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "bf16"), library_ms=None)}
+        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "bf16"), library_ms=None,
+        **_tiled_keys(tiled))}
     ms, plain, nbytes, ops, _ = sums["a8"]
     rows["a8"] = dict(
         name="a8_matmul", route="cuda", source="whisper_mlx_tpu_torch/csrc/a8_matmul.cu",
@@ -1792,6 +1965,7 @@ def phase_llm_residency(env: str) -> dict:
         rng = np.random.default_rng(7)
         new = 32
         mb.LAUNCHES = a8.LAUNCHES = qm.LAUNCHES = fa.LAUNCHES = 0
+        mb.TILED_LAUNCHES = qm.TILED_LAUNCHES = 0
         t0 = time.perf_counter()
         r = engine.chat([{"role": "user", "content": _prompt_text(rng, 270)}], max_tokens=new,
                         temperature=0.0)
@@ -1808,9 +1982,13 @@ def phase_llm_residency(env: str) -> dict:
         assert counts == [new] * 6, f"batch requests received {counts} tokens"
         torch.cuda.synchronize()
         launches = {key: module.LAUNCHES}
+        if module is mb:  # the prefills on K6's tiled core
+            launches["mbt_tiled"] = mb.TILED_LAUNCHES
+            assert mb.TILED_LAUNCHES > 0, "K6's tiled core was not launched under MBT"
         print(f"  continuous batching: 6 requests x {new} tokens on 4 slots in {batch_s:.3f} s "
-              f"({6 * new / batch_s:.2f} tok/s); launches {key} {module.LAUNCHES}, "
-              f"quant_matmul {qm.LAUNCHES}, flash_attention {fa.LAUNCHES}")
+              f"({6 * new / batch_s:.2f} tok/s); launches {key} {module.LAUNCHES} (tiled core "
+              f"{getattr(module, 'TILED_LAUNCHES', 0)}), quant_matmul {qm.LAUNCHES}, "
+              f"flash_attention {fa.LAUNCHES}")
         assert module.LAUNCHES > 0, f"kernel {key} was not launched under {env}=1"
         batch.close()
         _llm_rates(engine.params, config)
@@ -2084,13 +2262,13 @@ def phase_tiny_quant() -> None:
 
 def _zero_whisper_counts() -> None:
     _zero_counts()
-    dn.FAST_LAUNCHES = qm.LAUNCHES = mb.LAUNCHES = 0
+    dn.FAST_LAUNCHES = qm.LAUNCHES = mb.LAUNCHES = qm.TILED_LAUNCHES = mb.TILED_LAUNCHES = 0
 
 
 def _whisper_counts() -> dict:
     return {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES,
             "decode_int": da.INT_DOT_LAUNCHES, "beamflat": bf.LAUNCHES, "quant": qm.LAUNCHES,
-            "mbt": mb.LAUNCHES}
+            "mbt": mb.LAUNCHES, "quant_tiled": qm.TILED_LAUNCHES, "mbt_tiled": mb.TILED_LAUNCHES}
 
 
 def _timed_decode(label, params, config, tok, audio, opts, runs: int = 2):
@@ -2364,6 +2542,46 @@ def phase_quant_main_path() -> dict:
     return launches
 
 
+def _prefill_rates(params, config, label: str, lengths=(128, 384, 512)) -> None:
+    """Prefill tok/s at each length: one warm-up pass, then the best of two."""
+    for t in lengths:
+        _prefill_ms(params, config, t)
+        ms = min(_prefill_ms(params, config, t) for _ in range(2))
+        print(f"  prefill {label} T={t}: {ms:.2f} ms, {t / ms * 1e3:.1f} tok/s")
+
+
+def phase_tiled_times() -> None:
+    """Phase 20, run only when named: the tiled core (K5; K6 packed and
+    codes-resident) over one Qwen3-32B layer's four linears at 128, 384 and
+    512 rows and over large-v3's five decode matmuls at 24 rows, L2 cold,
+    each beside its yardstick and bound; then Qwen3-32B's prefill at 128,
+    384 and 512 tokens (64 layers packed, then 16 under
+    WTPU_MBT_RESIDENT=1). No check of one tree's design, so that two trees
+    run it in turn in one call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    _tiled_layer(gen, lambda q: q, label="K5")
+    _tiled_layer(gen, lambda q: mb.transpose_quant(q, codes=False), label="K6 packed")
+    _tiled_layer(gen, lambda q: mb.transpose_quant(q, codes=True), m_values=(384,),
+                 label="K6 codes-resident (down packed: K past 8192)")
+    _tiled_whisper_step(gen)
+    config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
+    params = qw.init_random_quant_params(config, seed=0, device=dev)
+    _prefill_rates(params, config, "packed, 64 layers")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["WTPU_MBT_RESIDENT"] = "1"
+    try:
+        config = dataclasses.replace(config, num_hidden_layers=RESIDENCY_LAYERS)
+        engine = LLMEngine(qw.init_random_quant_params(config, seed=0, device=dev), config,
+                           _CountingTokenizer(), max_context=4096)
+        _prefill_rates(engine.params, config, f"WTPU_MBT_RESIDENT=1, {RESIDENCY_LAYERS} layers")
+        del engine
+    finally:
+        os.environ.pop("WTPU_MBT_RESIDENT", None)
+
+
 def phase_batches() -> None:
     """Phase 16: the 8-window greedy batches of phases 5 (dense bf16) and 15
     (4-bit packed, K5), two timed runs each, each with its breakdown."""
@@ -2442,8 +2660,8 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, and batches, residency_times, beam_times and "
-                        "beam_batches, which run only when named")
+                        "quant_main, and batches, residency_times, beam_times, "
+                        "beam_batches and tiled_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2477,8 +2695,9 @@ def main(argv: list[str] | None = None) -> int:
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
         "beam_batches": ("beam batches", phase_beam_batches, None),
+        "tiled_times": ("tiled times", phase_tiled_times, None),
     }
-    only_named = ("batches", "residency_times", "beam_times", "beam_batches")
+    only_named = ("batches", "residency_times", "beam_times", "beam_batches", "tiled_times")
     unknown = [name for name in only if name not in phases]
     if unknown:
         parser.error(f"unknown phases {unknown}")
@@ -2496,10 +2715,14 @@ def main(argv: list[str] | None = None) -> int:
         print(f"partial run ({', '.join(only)}): no result line, exit code 2")
         return 2
     launches["dense_fast"] = on_4bit["dense_fast"]
+    # the tiled core's launches (phase 9's prefills for K5, phase 11's for K6)
+    tiled = {key: launches.pop(f"{key}_tiled") for key in ("quant", "mbt")}
     kernels = []
     for key, mod_launches in launches.items():
         row = dict(rows[key])
         row["launches"] = mod_launches
+        if key in tiled:
+            row["launches_tiled"] = tiled[key]
         if key in ("mel", "dense", "decode", "quant", "mbt"):
             row["launches_4bit"] = on_4bit[key]
         if key in ("quant", "mbt"):  # at the large-v3 shapes, beside the Qwen3-32B ones

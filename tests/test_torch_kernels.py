@@ -254,28 +254,49 @@ def test_plain_model_attention_raises_on_cuda(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,bits,dtype", [
-    (1, 200, 512, 4, torch.bfloat16),
-    (3, 200, 512, 8, torch.bfloat16),
-    (8, 1000, 1024, 4, torch.bfloat16),
-    (17, 200, 512, 4, torch.bfloat16),
-    (128, 1000, 1024, 4, torch.bfloat16),
-    (300, 130, 5120, 8, torch.bfloat16),
-    (512, 10240, 5120, 4, torch.bfloat16),
-    (1, 10240, 5120, 4, torch.bfloat16),
-    (5, 130, 256, 4, torch.float32),
-    (40, 130, 256, 8, torch.float32),
+@pytest.mark.parametrize("m,n,k,bits,dtype,gs", [
+    (1, 200, 512, 4, torch.bfloat16, 64),
+    (3, 200, 512, 8, torch.bfloat16, 64),
+    (8, 1000, 1024, 4, torch.bfloat16, 64),
+    (17, 200, 512, 4, torch.bfloat16, 64),
+    (128, 1000, 1024, 4, torch.bfloat16, 64),
+    (300, 130, 5120, 8, torch.bfloat16, 64),
+    (512, 10240, 5120, 4, torch.bfloat16, 64),
+    (1, 10240, 5120, 4, torch.bfloat16, 64),
+    (5, 130, 256, 4, torch.float32, 64),
+    (40, 130, 256, 8, torch.float32, 64),
+    # the tiled core at the edges of its row blocks (16, 32, 64 rows; 128
+    # rows a block past 64), ragged N, group sizes 16-128, 8 bits, K whose
+    # groups are not a multiple of 4 (K5's affines then by cp.async)
+    (9, 200, 512, 4, torch.bfloat16, 32),
+    (16, 1280, 1280, 4, torch.bfloat16, 64),
+    (24, 51866, 1280, 4, torch.bfloat16, 64),
+    (24, 1000, 1344, 4, torch.bfloat16, 64),
+    (33, 3840, 1280, 8, torch.bfloat16, 64),
+    (64, 1280, 5120, 4, torch.bfloat16, 128),
+    (65, 700, 2048, 4, torch.bfloat16, 32),
+    (127, 300, 2048, 8, torch.bfloat16, 16),
+    (129, 1000, 1024, 4, torch.bfloat16, 128),
+    (255, 200, 512, 8, torch.bfloat16, 64),
+    (256, 5120, 1280, 4, torch.bfloat16, 64),
+    (257, 130, 5120, 4, torch.bfloat16, 64),
+    (384, 5120, 8192, 4, torch.bfloat16, 64),
+    (511, 1000, 1024, 4, torch.bfloat16, 32),
+    (24, 151936, 5120, 4, torch.bfloat16, 64),
 ])
-def test_quant_matmul_kernel_matches_plain(cuda, m, n, k, bits, dtype):
+def test_quant_matmul_kernel_matches_plain(cuda, m, n, k, bits, dtype, gs):
     gen = torch.Generator(device=cuda).manual_seed(m + n)
     w = torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5
-    q = tq.quantize(w, bits=bits, group_size=64)
+    q = tq.quantize(w, bits=bits, group_size=gs)
+    del w
     x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
-    before = qm.LAUNCHES
+    before = (qm.LAUNCHES, qm.TILED_LAUNCHES)
     got = tq.quant_matmul(x, q)
     torch.cuda.synchronize()
-    assert qm.LAUNCHES == before + 1 and got.dtype == dtype
-    ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, bits, 64)
+    tiled = dtype == torch.bfloat16 and m > qm.GEMV_ROWS
+    assert (qm.LAUNCHES, qm.TILED_LAUNCHES) == (before[0] + 1, before[1] + tiled)
+    assert got.dtype == dtype
+    ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, bits, gs)
     rel = 1e-2 if dtype == torch.bfloat16 else 1e-4
     assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
 
@@ -340,6 +361,8 @@ def test_flash_kernel_matches_plain(cuda, b, h, kvh, tq_, tk, hd, causal):
                                     "decode_self", "decode_cross", "decode_int_dot",
                                     "quant_gemv", "quant_gemv_8rows", "mbt_gemv",
                                     "mbt_gemv_8rows", "mbt_gemv_cluster8", "a8_gemv",
+                                    "quant_tiled", "quant_tiled_cluster", "quant_tiled_384",
+                                    "mbt_tiled", "mbt_tiled_codes",
                                     "a8_gemv_8rows", "beamflat", "beamflat_int_dot",
                                     "beamflat_int4_distinct", "lane_move"])
 def test_attention_kernels_repeat_bit_equal(cuda, kernel):
@@ -347,8 +370,9 @@ def test_attention_kernels_repeat_bit_equal(cuda, kernel):
     reduction across 2 and 8 blocks), K5's or K6's GEMV (a cluster split of
     K; K6 also across 8 blocks), K7's fused GEMV, K8 (either mode, one
     block and a cluster of 2; three chunks of rows when every history is
-    distinct) or K9's move on the same inputs agree bit for bit: no
-    atomics, one fixed order of sums."""
+    distinct), K9's move or the tiled core of K5 and K6 (24 rows unsplit
+    and split across a cluster, 384 rows; packed words and codes) on the
+    same inputs agree bit for bit: no atomics, one fixed order of sums."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     if kernel.startswith("beamflat"):
         bits, kind = (4, "distinct") if kernel.endswith("distinct") else (8, "beam")
@@ -398,10 +422,13 @@ def _repeat_case(cuda, gen, kernel):
     if kernel.startswith(("quant", "mbt", "a8")):
         m = 8 if kernel.endswith("8rows") else 1
         n, k = (200, 4096) if kernel.endswith("cluster8") else (1280, 5120)
+        if "tiled" in kernel:  # 24 rows (the 1280-wide linear split 8 ways), or 384
+            m, n = (384, 10240) if kernel.endswith("384") else (24, 1280 if "cluster" in kernel else 51866)
+            k = 1280 if m == 24 else 5120
         w = torch.randn((n, k), generator=gen, device=cuda) * 0.02
         q = tq.quantize(w, 4, 64)
         if kernel.startswith("mbt"):
-            q = mb.transpose_quant(q, tile_n=512, depth=2, codes=False)
+            q = mb.transpose_quant(q, tile_n=512, depth=2, codes=kernel.endswith("codes"))
             if kernel.endswith("cluster8"):
                 assert mb.mbt_gemv_plan(m, n, k, False, 64, 2, _sms())[0] == 8
         elif kernel.startswith("a8"):
@@ -518,6 +545,20 @@ def _to_cpu(node):
     (1, 5120, 25600, 4, False, False, 2, torch.bfloat16, 64),  # down
     (1, 5120, 8192, 4, True, False, 2, torch.bfloat16, 64),  # o, codes-resident
     (384, 10240, 5120, 4, False, False, 2, torch.bfloat16, 64),  # the 384-row prefill
+    # the tiled core at its row blocks' edges, ragged N, group sizes 16-128,
+    # 8 bits and codes-resident
+    (9, 200, 512, 4, True, False, 2, torch.bfloat16, 32),
+    (24, 1280, 1280, 4, False, False, 2, torch.bfloat16, 64),
+    (24, 3840, 1280, 4, True, False, 2, torch.bfloat16, 64),
+    (33, 130, 1024, 8, False, False, 2, torch.bfloat16, 16),
+    (64, 1280, 5120, 4, False, False, 2, torch.bfloat16, 128),
+    (65, 700, 2048, 4, True, False, 2, torch.bfloat16, 32),
+    (128, 5120, 8192, 4, True, False, 2, torch.bfloat16, 64),
+    (255, 300, 2048, 8, False, False, 2, torch.bfloat16, 64),
+    (256, 5120, 1280, 4, False, False, 2, torch.bfloat16, 128),
+    (257, 130, 5120, 4, True, False, 2, torch.bfloat16, 64),
+    (511, 1000, 1024, 8, False, False, 2, torch.bfloat16, 32),
+    (512, 5120, 25600, 4, False, False, 8, torch.bfloat16, 64),
 ])
 def test_mbt_kernel_matches_plain(cuda, m, n, k, bits, codes, contig, depth, dtype, gs):
     gen = torch.Generator(device=cuda).manual_seed(m + n + k)
@@ -525,13 +566,54 @@ def test_mbt_kernel_matches_plain(cuda, m, n, k, bits, codes, contig, depth, dty
     qt = mb.transpose_quant(tq.quantize(w, bits=bits, group_size=gs), tile_n=512, depth=depth,
                             codes=codes, contig=contig)
     x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
-    before = mb.LAUNCHES
+    before = (mb.LAUNCHES, mb.TILED_LAUNCHES)
     got = tq.quant_matmul(x, qt)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES == before + 1 and got.dtype == dtype and got.shape == (m, n)
+    tiled = dtype == torch.bfloat16 and m > qm.GEMV_ROWS
+    assert (mb.LAUNCHES, mb.TILED_LAUNCHES) == (before[0] + 1, before[1] + tiled)
+    assert got.dtype == dtype and got.shape == (m, n)
     ref = mb.quant_matmul_mbt_plain(x, qt)
     rel = 1e-2 if dtype == torch.bfloat16 else 1e-4
     assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
+
+
+# (rows, N, K, group size, blocks of the cluster): K's stages split into 1,
+# 2, 4 and 8 blocks at 16, 24 and 40 rows; groups of 128 k (two stages, one
+# unit a block) over a number of units the cluster does not divide, so a
+# naive split by stages would cut a group
+TILED_CLUSTER_EDGES = [
+    (16, 10240, 512, 128, 1), (24, 10240, 512, 32, 2), (24, 200, 512, 128, 4),
+    (24, 5120, 1280, 128, 4), (40, 200, 512, 32, 8), (40, 200, 1280, 128, 8),
+    (16, 200, 1280, 128, 8), (24, 1000, 1344, 64, 8), (128, 10240, 5120, 64, 2),
+    (128, 5120, 8192, 64, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["k5", "k6", "k6_codes"])
+@pytest.mark.parametrize("m,n,k,gs,cluster", TILED_CLUSTER_EDGES)
+def test_tiled_cluster_edges_match_plain(cuda, layout, m, n, k, gs, cluster):
+    """The tiled core (K5's words, K6's packed words and codes) at the
+    edges of its cluster split of K, one launch a call, bit-equal on a
+    repeat."""
+    wbytes = 32 if layout != "k6_codes" else 64
+    assert qm.tiled_plan(m, n, k, gs, wbytes, _sms(), layout == "k5").cluster == cluster
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k + gs)
+    q = tq.quantize(torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5, bits=4,
+                    group_size=gs)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    if layout == "k5":
+        leaf, module = q, qm
+        ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, 4, gs)
+    else:
+        leaf, module = mb.transpose_quant(q, tile_n=16, depth=2, codes=layout == "k6_codes"), mb
+        ref = mb.quant_matmul_mbt_plain(x, leaf)
+    before = (module.LAUNCHES, module.TILED_LAUNCHES)
+    got = tq.quant_matmul(x, leaf)
+    torch.cuda.synchronize()
+    assert (module.LAUNCHES, module.TILED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _max_err(got, ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+    assert torch.equal(got, tq.quant_matmul(x, leaf))
 
 
 @pytest.mark.cuda

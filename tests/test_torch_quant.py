@@ -184,3 +184,88 @@ def test_cpu_wrapper_uses_plain_version():
     got = qm.quant_matmul_kernel(x, q.w_q, q.scales, q.biases, 4, 64)
     assert torch.equal(got, qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, 4, 64))
     assert qm.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the tiled core's launch plan (bf16 x, 9-512 rows: csrc/quant_tile.cuh)
+# ---------------------------------------------------------------------------
+
+# Qwen3-32B's fused qkv, o, fused gate_up, down and head; whisper large-v3's
+# fused self qkv, the 1280-wide linears, fc1, fc2 and the ragged logits
+TILED_SHAPES = [(10240, 5120), (5120, 8192), (51200, 5120), (5120, 25600), (151936, 5120),
+                (3840, 1280), (1280, 1280), (5120, 1280), (1280, 5120), (51866, 1280)]
+
+
+def check_tiled_plans(n: int, k: int, wbytes: int, affine_window: bool, sms: int = 132) -> None:
+    """Every row count 9-512 at group sizes 32, 64 and 128: the blocks' rows
+    cover M with the fewest x rows a block, the cluster's blocks take every
+    64-k stage of K exactly once and start on a group, the grid fills at
+    least half the card unless the cluster is already at its largest or a
+    larger split would save a block fewer stages than it costs, and a
+    block's shared memory (the ring, its barriers and the cluster sum's
+    room) stays within what its blocks an SM may have."""
+    for group_size in (32, 64, 128):
+        unit = max(1, group_size // 64)
+        for m in range(9, 513):
+            plan = qm.tiled_plan(m, n, k, group_size, wbytes, sms, affine_window)
+            assert plan.nt == next((r for r in qm.TILED_ROWS if m <= r), 128)
+            assert plan.row_blocks * plan.nt >= m > (plan.row_blocks - 1) * plan.nt
+            assert plan.col_blocks * plan.cols >= n > (plan.col_blocks - 1) * plan.cols
+            assert plan.units == k // 64 // unit and plan.cluster in (1, 2, 4, 8)
+            assert plan.cluster <= plan.units
+            covered = np.zeros(k // 64, np.int64)
+            for rank in range(plan.cluster):  # csrc/quant_tile.cuh: the block's kb, ns
+                first = rank * plan.units // plan.cluster
+                last = (rank + 1) * plan.units // plan.cluster
+                assert last > first
+                assert first * unit * 64 % group_size == 0  # a block starts on a group
+                covered[first * unit:last * unit] += 1
+            assert (covered == 1).all()
+            blocks = plan.cluster * plan.row_blocks * plan.col_blocks
+            largest = max(c for c in (1, 2, 4, 8) if c <= plan.units)
+            # a half-empty card only where a larger split would take a block
+            # fewer stages than the split costs it (the measured cluster sum)
+            assert (2 * blocks >= plan.per_sm * sms or plan.cluster == largest
+                    or plan.units // (2 * plan.cluster) * unit <= qm.TILED_SPLIT_COST[plan.nt])
+            assert 2 <= plan.stages <= 8
+            smem, ring = qm.tiled_smem(plan.nt, wbytes, group_size, plan.stages, affine_window)
+            assert smem == plan.smem <= (qm.SMEM_LIMIT if plan.per_sm == 1 else qm.SMEM_TWO_A_SM)
+            if plan.cluster > 1:  # every block's accumulators fit the ring for the sum
+                assert ring >= 4 * 2 * 64 * (plan.cols // 128) * plan.nt
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n,k", TILED_SHAPES)
+def test_tiled_plan_covers_every_stage_once(n, k, bits):
+    """K5's tiled launch plan at the main paths' shapes, 9-512 rows."""
+    check_tiled_plans(n, k, 32 if bits == 4 else 64, affine_window=True)
+
+
+@pytest.mark.parametrize("group_size,want", [(16, True), (32, True), (64, True), (128, True),
+                                             (256, True), (48, False), (96, False)])
+def test_tiled_route_by_group_size(group_size, want):
+    """Groups of 16 or 32 k (several a 64-k stage) or of whole stages take
+    the tiled core; other sizes the GEMV, as K not a multiple of 64 does."""
+    assert qm.tiled_route(group_size) is want
+    if not want:
+        with pytest.raises(ValueError):
+            qm.tiled_plan(24, 200, 1536, group_size, 64, 132)
+
+
+def test_tiled_plan_sizes_the_main_path():
+    """The Qwen prefill's 384 rows run in three 128-row blocks of 256
+    columns, gate_up unsplit (600 blocks fill the card), o and down split
+    in two; at 512 rows only down splits; whisper's 24-row SOT step takes
+    32-row blocks of 128 columns, two an SM, its 1280-wide linears split
+    eight ways."""
+    qkv = qm.tiled_plan(384, 10240, 5120, 64, 32, 132, affine_window=True)
+    assert (qkv.nt, qkv.cols, qkv.row_blocks, qkv.col_blocks, qkv.cluster) == (128, 256, 3, 40, 1)
+    assert qm.tiled_plan(384, 51200, 5120, 64, 32, 132, affine_window=True).cluster == 1
+    for n, k in ((5120, 8192), (5120, 25600)):
+        assert qm.tiled_plan(384, n, k, 64, 32, 132, affine_window=True).cluster == 2
+    # the clusters measured fastest on the H100 at 128 and 512 rows
+    assert [qm.tiled_plan(m, n, k, 64, 32, 132, affine_window=True).cluster
+            for m in (128, 512) for n, k in ((10240, 5120), (5120, 8192), (5120, 25600))] == \
+        [2, 4, 4, 1, 1, 8]
+    sot = qm.tiled_plan(24, 1280, 1280, 64, 32, 132, affine_window=True)
+    assert (sot.nt, sot.cols, sot.per_sm, sot.cluster) == (32, 128, 2, 8)

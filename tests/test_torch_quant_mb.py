@@ -404,3 +404,15 @@ def test_mbt_mma_route_by_shape(dtype, bits, codes, group_size, want):
     q = tq.quantize(torch.zeros((16, 512)), bits=bits, group_size=group_size)
     qt = tmb.transpose_quant(q, tile_n=16, depth=2, codes=codes)
     assert tmb.mma_route(dtype, qt) is want
+
+
+@pytest.mark.parametrize("layout", ["packed4", "packed8", "codes"])
+@pytest.mark.parametrize("n,k", K6_SHAPES + [(151936, 5120), (51866, 1280)])
+def test_mbt_tiled_plan_covers_every_stage_once(n, k, layout):
+    """K6's launch of the tiled core (its (G, Np) affines a stage's groups,
+    no window; 32 code bytes a column and stage packed at 4 bits, 64 at 8
+    bits or one code a byte) at 9-512 rows: the checks of
+    tests/test_torch_quant.py:check_tiled_plans."""
+    from tests.test_torch_quant import check_tiled_plans
+
+    check_tiled_plans(n, k, 32 if layout == "packed4" else 64, affine_window=False)

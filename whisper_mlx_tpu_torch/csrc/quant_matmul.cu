@@ -48,10 +48,11 @@
 //   16 int8 values of one group), dequantizes them in registers with the
 //   rounding above, and takes their dot product with up to 8 rows of x;
 //   a warp shuffle reduces. The bias is folded per lane as b * sum(x).
-// - quant_gemm_kernel (bf16, M > 8; quant_tile.cuh, shared with K6): 64 x 64
-//   output tiles, K in steps of 64; the x tile and the dequantized bf16
-//   weight tile go to shared memory and wmma bf16 -> fp32 multiplies them;
-//   the fp32 bias term xg @ b^T is added in the epilogue.
+// - quant_gemm_kernel (bf16 x, M > 8; quant_tile.cuh, shared with K6): the
+//   Hopper tiled core, wgmma with the codes dequantized straight into A
+//   registers, a TMA ring, x's group sums in the kernel, K split across a
+//   cluster where the grid would not fill the card; RowTiles below reads
+//   K5's row-major words and (N, G) affines.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -438,22 +439,94 @@ bool plan_gemv_mma(int m, int n, int k, int group_size, GemvPlan& p) {
   return p.smem <= 227 * 1024;
 }
 
-// K5's weights for the tiled GEMM: words (N, K / per_word), affines (N, G)
-struct RowWords {
-  static constexpr bool N_MAJOR = false;
+// K5's weights for the tiled core (quant_tile.cuh): words (N, K / per_word)
+// int32, a stage's TMA box a block's columns x 64 k of words (32 or 64 bytes
+// a column). Affines (N, G) fp32: a column's groups lie G floats apart, so
+// a stage takes each column's window of 4 groups around its own, [c][4],
+// as one TMA box of 16-byte rows (G a multiple of 4: the box's row stride);
+// for other G the lanes copy the stage's groups 4 bytes at a time, a
+// transaction each, which is slower on the card (PERF.md).
+template <int BITS>
+struct RowTiles {
+  static constexpr int PW = 32 / BITS;        // codes a word
+  static constexpr int WBYTES = tiled::SK / PW * 4;
+  static constexpr bool EIGHT = BITS == 8;
+  static constexpr int AW = 4;                // groups of a column's affine window
+  CUtensorMap wmap, smap, bmap;
   const int32_t* wq;
   const float* scales;
   const float* biases;
-  int words;
-  int groups;
-  __device__ __forceinline__ uint32_t word(int n, int kw) const {
-    return (uint32_t)__ldg(wq + (size_t)n * words + kw);
+  int n, k, groups;
+  int aff_tma;  // the affines by TMA boxes (G a multiple of 4)
+
+  __host__ __device__ static constexpr int aff_floats(int cols, int gs) { return cols * AW; }
+  bool prepare(int cols, int gs) {
+    aff_tma = groups % AW == 0;
+    if (!tensor_map_2d(&wmap, wq, CU_TENSOR_MAP_DATA_TYPE_INT32, n, k / PW, 4LL * (k / PW), cols,
+                       tiled::SK / PW, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+      return false;
+    }
+    return !aff_tma ||
+           (tensor_map_2d(&smap, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, n, groups, 4LL * groups,
+                          cols, AW, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+            tensor_map_2d(&bmap, biases, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, n, groups, 4LL * groups,
+                          cols, AW, CU_TENSOR_MAP_SWIZZLE_NONE));
   }
-  __device__ __forceinline__ float scale(int n, int g) const {
-    return __ldg(scales + (size_t)n * groups + g);
+  template <int COLS>
+  __device__ __forceinline__ int tx(int gs) const {
+    return COLS * WBYTES + (aff_tma ? 2 * COLS * AW * 4 : 0);
   }
-  __device__ __forceinline__ float bias(int n, int g) const {
-    return __ldg(biases + (size_t)n * groups + g);
+  // where column c's affine of the stage's group gi sits (g0 the stage's first group)
+  template <int COLS>
+  __device__ __forceinline__ int aff(int c, int g0, int gi) const {
+    return c * AW + (g0 & (AW - 1)) + gi;
+  }
+  template <int COLS>
+  __device__ __forceinline__ void load(unsigned char* w, float* sc, float* bi, uint64_t* bar,
+                                       int n0, int k0, int gs, int lane) const {
+    const int g0 = k0 / gs;
+    if (lane == 0) {
+      tma_load_2d(w, &wmap, bar, k0 / PW, n0);
+      if (aff_tma) {
+        tma_load_2d(sc, &smap, bar, g0 & ~(AW - 1), n0);
+        tma_load_2d(bi, &bmap, bar, g0 & ~(AW - 1), n0);
+      }
+    }
+    if (!aff_tma) {  // the stage's groups, zeros past N
+      const int gps = tiled::gps_of(gs);
+      const int per = gps * COLS;
+      for (int p = lane; p < 2 * per; p += 32) {
+        const int which = p >= per;
+        const int r = p - which * per;  // column r / gps, group r % gps
+        const int c = r / gps, gi = r % gps;
+        const bool ok = n0 + c < n;
+        const float* src = which ? biases : scales;
+        cp_async4_part((which ? bi : sc) + aff<COLS>(c, g0, gi),
+                       ok ? src + (size_t)(n0 + c) * groups + g0 + gi : src, ok ? 4 : 0);
+      }
+    }
+  }
+  // k step kk's A fragment of columns c0, c0 + 1 (the stage's rows of
+  // WBYTES): 4-bit words 2 kk (k 0-7 of the step) and 2 kk + 1; 8-bit
+  // words 4 kk + t / 2 and 4 kk + 2 + t / 2, bytes 2 (t % 2) and on
+  template <int COLS>
+  __device__ __forceinline__ void dequant(const unsigned char* wt, int c0, int kk, int t,
+                                          const uint32_t (&sp)[4], uint32_t (&a)[4]) const {
+    if constexpr (BITS == 4) {
+      const uint2 u0 = *reinterpret_cast<const uint2*>(wt + c0 * WBYTES + 8 * kk);
+      const uint2 u1 = *reinterpret_cast<const uint2*>(wt + (c0 + 1) * WBYTES + 8 * kk);
+      a[0] = tiled::dq_pair(tiled::nibble_pair(u0.x, t), sp[0], sp[1]);
+      a[1] = tiled::dq_pair(tiled::nibble_pair(u1.x, t), sp[2], sp[3]);
+      a[2] = tiled::dq_pair(tiled::nibble_pair(u0.y, t), sp[0], sp[1]);
+      a[3] = tiled::dq_pair(tiled::nibble_pair(u1.y, t), sp[2], sp[3]);
+    } else {
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(wt + c0 * WBYTES) + 4 * kk + (t >> 1);
+      const int b = 2 * (t & 1);
+      a[0] = tiled::dq_bytes(p[0], b, sp[0], sp[1]);
+      a[1] = tiled::dq_bytes(p[WBYTES / 4], b, sp[2], sp[3]);
+      a[2] = tiled::dq_bytes(p[2], b, sp[0], sp[1]);
+      a[3] = tiled::dq_bytes(p[WBYTES / 4 + 2], b, sp[2], sp[3]);
+    }
   }
 };
 
@@ -495,22 +568,19 @@ extern "C" int wmt_quant_gemv(const void* x, const void* wq, const void* scales,
   return (int)cudaGetLastError();
 }
 
-extern "C" int wmt_quant_gemm(const void* x, const void* xg, const void* wq,
-                              const void* scales, const void* biases, void* out,
-                              int m, int n, int k, int bits, int group_size,
-                              void* stream) {
-  if (!valid_quant(m, n, k, bits, group_size) || k % BK) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const RowWords w{(const int32_t*)wq, (const float*)scales, (const float*)biases,
-                   k / (32 / bits), k / group_size};
-  if (bits == 4) {
-    quant_gemm_kernel<4, 8><<<grid, GM_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)xg, w, (__nv_bfloat16*)out, m, n, k, group_size);
-  } else {
-    quant_gemm_kernel<8, 4><<<grid, GM_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)xg, w, (__nv_bfloat16*)out, m, n, k, group_size);
-  }
-  return (int)cudaGetLastError();
+extern "C" int wmt_quant_gemm(const void* x, const void* wq, const void* scales,
+                              const void* biases, void* out, int m, int n, int k, int bits,
+                              int group_size, int nt, int cluster, int stages, void* stream) {
+  if (!valid_quant(m, n, k, bits, group_size)) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto f) {
+    f.wq = (const int32_t*)wq;
+    f.scales = (const float*)scales;
+    f.biases = (const float*)biases;
+    f.n = n;
+    f.k = k;
+    f.groups = k / group_size;
+    return tiled::launch(x, f, out, m, n, k, group_size, nt, cluster, stages,
+                         (cudaStream_t)stream);
+  };
+  return bits == 4 ? run(RowTiles<4>{}) : run(RowTiles<8>{});
 }

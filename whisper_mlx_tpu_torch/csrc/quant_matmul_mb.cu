@@ -51,8 +51,11 @@
 //   rows or K not a multiple of 64): the first form without its tensor-core
 //   branch, one column a thread in SIMT through a cp.async ring of `depth`
 //   slots; a second kernel sums its K splits.
-// - quant_gemm_kernel (bf16, M > 8; quant_tile.cuh, shared with K5) reads
-//   the weights N-contiguous, four columns a load.
+// - quant_gemm_kernel (bf16 x, M > 8; quant_tile.cuh, shared with K5): the
+//   Hopper tiled core; ColTiles below reads the N-major words (a box of 8
+//   or 16 word rows x a block's columns, a lane's two neighbouring columns
+//   in one 8-byte load) or codes (128-byte-swizzled boxes of 64 k x 128
+//   columns) and the (G, Np) affines, 16 bytes a copy.
 // Measured on the card at M = 1 (PERF.md): the tensor-core GEMV 0.175 ms
 // over the four linears packed (the first form 0.29), 1.7-2.6 TB/s; the
 // large linears now near their stream's rate, the small ones on a block's
@@ -695,32 +698,101 @@ mbt_gemv_mma_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
-// K6's weights for the tiled GEMM: E = int32_t (packed words) or uint8_t
-// (codes), N-contiguous (rows, Np); affines (G, Np)
-template <typename E>
-struct ColWords {
-  static constexpr bool N_MAJOR = true;
-  const E* w;
+// K6's weights for the tiled core (quant_tile.cuh). BITS 4, 8: packed words
+// (K / per_word, Np) int32, a stage's box 64 / per_word word rows x a block's
+// columns; BITS 0: codes (K, Np) one a byte, boxes of 64 rows x 128 columns,
+// 128-byte swizzled (a lane's rows 2t, 2t + 1, 2t + 8, 2t + 9 then fall in
+// different banks). Affines (G, Np) fp32, neighbouring columns adjacent.
+template <int BITS>
+struct ColTiles {
+  static constexpr int PW = BITS ? 32 / BITS : 1;  // codes a stored element
+  static constexpr int WBYTES = BITS == 4 ? 32 : 64;
+  static constexpr bool EIGHT = BITS == 8;
+  CUtensorMap wmap;
+  const void* w;
   const float* scales;
   const float* biases;
-  int np;
-  // element kw of columns n .. n + 3 (n a multiple of 4: one aligned load)
-  __device__ __forceinline__ void word4(int n, int kw, uint32_t (&v)[4]) const {
-    const E* p = w + (size_t)kw * np + n;
-    if constexpr (sizeof(E) == 4) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-    } else {
-      const uint32_t q = __ldg(reinterpret_cast<const unsigned int*>(p));
+  int k, np;
+
+  __host__ __device__ static constexpr int aff_floats(int cols, int gs) {
+    return tiled::gps_of(gs) * cols;
+  }
+  bool prepare(int cols, int gs) {
+    if (BITS) {
+      return tensor_map_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_INT32, k / PW, np, 4LL * np,
+                           tiled::SK / PW, cols, CU_TENSOR_MAP_SWIZZLE_NONE);
+    }
+    return tensor_map_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, np, np, tiled::SK, 128,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  template <int COLS>
+  __device__ __forceinline__ int tx(int gs) const { return COLS * WBYTES; }
+  // (gps, COLS): the stage's group gi, column c
+  template <int COLS>
+  __device__ __forceinline__ int aff(int c, int g0, int gi) const { return gi * COLS + c; }
+  // the codes by TMA (lane 0); the stage's scales and biases, zeros past
+  // Np, 16 bytes a cp.async
+  template <int COLS>
+  __device__ __forceinline__ void load(unsigned char* dst, float* sc, float* bi, uint64_t* bar,
+                                       int n0, int k0, int gs, int lane) const {
+    if (lane == 0) {
+      if constexpr (BITS != 0) {
+        tma_load_2d(dst, &wmap, bar, n0, k0 / PW);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = (q >> (8 * j)) & 0xffu;
+        for (int b = 0; b < COLS / 128; ++b) {
+          tma_load_2d(dst + b * tiled::SK * 128, &wmap, bar, n0 + 128 * b, k0);
+        }
+      }
+    }
+    const int g0 = k0 / gs;
+    const int per = tiled::gps_of(gs) * COLS / 4;  // 16-byte pieces of one array
+    for (int p = lane; p < 2 * per; p += 32) {
+      const int which = p >= per;
+      const int r = p - which * per;
+      const int gi = r / (COLS / 4), c = (r % (COLS / 4)) * 4;
+      const bool ok = n0 + c < np;  // Np is a multiple of 16
+      const float* src = which ? biases : scales;
+      cp_async16((which ? bi : sc) + gi * COLS + c, ok ? src + (size_t)(g0 + gi) * np + n0 + c : src,
+                 ok);
     }
   }
-  __device__ __forceinline__ float scale(int n, int g) const {
-    return __ldg(scales + (size_t)g * np + n);
-  }
-  __device__ __forceinline__ float bias(int n, int g) const {
-    return __ldg(biases + (size_t)g * np + n);
+  // k step kk's A fragment of columns c0, c0 + 1: word rows 2 kk, 2 kk + 1
+  // (4-bit) or 4 kk + t / 2, 4 kk + 2 + t / 2 (8-bit), both columns in one
+  // load; codes rows 16 kk + 2t, + 1, + 8, + 9, both columns' bytes a load
+  template <int COLS>
+  __device__ __forceinline__ void dequant(const unsigned char* wt, int c0, int kk, int t,
+                                          const uint32_t (&sp)[4], uint32_t (&a)[4]) const {
+    if constexpr (BITS == 4) {
+      const uint2 r0 = *reinterpret_cast<const uint2*>(wt + (2 * kk) * COLS * 4 + c0 * 4);
+      const uint2 r1 = *reinterpret_cast<const uint2*>(wt + (2 * kk + 1) * COLS * 4 + c0 * 4);
+      a[0] = tiled::dq_pair(tiled::nibble_pair(r0.x, t), sp[0], sp[1]);
+      a[1] = tiled::dq_pair(tiled::nibble_pair(r0.y, t), sp[2], sp[3]);
+      a[2] = tiled::dq_pair(tiled::nibble_pair(r1.x, t), sp[0], sp[1]);
+      a[3] = tiled::dq_pair(tiled::nibble_pair(r1.y, t), sp[2], sp[3]);
+    } else if constexpr (BITS == 8) {
+      const unsigned char* p = wt + (4 * kk + (t >> 1)) * COLS * 4 + c0 * 4;
+      const uint2 r0 = *reinterpret_cast<const uint2*>(p);
+      const uint2 r1 = *reinterpret_cast<const uint2*>(p + 2 * COLS * 4);
+      const int b = 2 * (t & 1);
+      a[0] = tiled::dq_bytes(r0.x, b, sp[0], sp[1]);
+      a[1] = tiled::dq_bytes(r0.y, b, sp[2], sp[3]);
+      a[2] = tiled::dq_bytes(r1.x, b, sp[0], sp[1]);
+      a[3] = tiled::dq_bytes(r1.y, b, sp[2], sp[3]);
+    } else {
+      const unsigned char* box = wt + (c0 >> 7) * (tiled::SK * 128);
+      const int bc = c0 & 127;
+      auto pair = [&](int r) -> uint32_t {  // the two columns' codes at row r, swizzled
+        return *reinterpret_cast<const uint16_t*>(box + r * 128 + (((bc >> 4) ^ (r & 7)) << 4) +
+                                                  (bc & 15));
+      };
+      const int r = 16 * kk + 2 * t;
+      const uint32_t v0 = pair(r), v1 = pair(r + 1), v8 = pair(r + 8), v9 = pair(r + 9);
+      a[0] = tiled::dq_pair(__byte_perm(v0, v1, 0x0400), sp[0], sp[1]);  // column c0: bytes 0
+      a[1] = tiled::dq_pair(__byte_perm(v0, v1, 0x0501), sp[2], sp[3]);  // column c0 + 1: bytes 1
+      a[2] = tiled::dq_pair(__byte_perm(v8, v9, 0x0400), sp[0], sp[1]);
+      a[3] = tiled::dq_pair(__byte_perm(v8, v9, 0x0501), sp[2], sp[3]);
+    }
   }
 };
 
@@ -851,30 +923,22 @@ extern "C" int wmt_mbt_gemv(const void* x, const void* w, const void* scales,
   return (int)cudaGetLastError();
 }
 
-extern "C" int wmt_mbt_gemm(const void* x, const void* xg, const void* w, const void* scales,
-                            const void* biases, void* out, int m, int n, int k, int bits,
-                            int group_size, int np, void* stream) {
-  if (!valid_layout(m, n, k, bits, group_size, np) || k % BK) {
-    return (int)cudaErrorInvalidValue;
+extern "C" int wmt_mbt_gemm(const void* x, const void* w, const void* scales, const void* biases,
+                            void* out, int m, int n, int k, int bits, int group_size, int np,
+                            int nt, int cluster, int stages, void* stream) {
+  if (!valid_layout(m, n, k, bits, group_size, np)) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto f) {
+    f.w = w;
+    f.scales = (const float*)scales;
+    f.biases = (const float*)biases;
+    f.k = k;
+    f.np = np;
+    return tiled::launch(x, f, out, m, n, k, group_size, nt, cluster, stages,
+                         (cudaStream_t)stream);
+  };
+  switch (bits) {
+    case 4: return run(ColTiles<4>{});
+    case 8: return run(ColTiles<8>{});
+    default: return run(ColTiles<0>{});
   }
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
-  const float* xgf = (const float*)xg;
-  const float* sc = (const float*)scales;
-  const float* bi = (const float*)biases;
-  __nv_bfloat16* o = (__nv_bfloat16*)out;
-  if (bits == 0) {
-    const ColWords<uint8_t> cw{(const uint8_t*)w, sc, bi, np};
-    quant_gemm_kernel<8, 1><<<grid, GM_THREADS, 0, s>>>(xb, xgf, cw, o, m, n, k, group_size);
-  } else {
-    const ColWords<int32_t> cw{(const int32_t*)w, sc, bi, np};
-    if (bits == 4) {
-      quant_gemm_kernel<4, 8><<<grid, GM_THREADS, 0, s>>>(xb, xgf, cw, o, m, n, k, group_size);
-    } else {
-      quant_gemm_kernel<8, 4><<<grid, GM_THREADS, 0, s>>>(xb, xgf, cw, o, m, n, k, group_size);
-    }
-  }
-  return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 // Asynchronous copies and thread-block clusters on Hopper (sm_90a), shared by
 // the few-row dequant-matmul (K5, quant_matmul.cu), the transposed
-// dequant-matmul (K6, quant_matmul_mb.cu), the W8A8 matmul (K7,
-// a8_matmul.cu), the decode attention (K3, decode_attention.cu) and the
-// attention core of K2 and K4 (attn_tile.cuh):
+// dequant-matmul (K6, quant_matmul_mb.cu), their tiled core
+// (quant_tile.cuh), the W8A8 matmul (K7, a8_matmul.cu), the decode
+// attention (K3, decode_attention.cu) and the attention core of K2 and K4
+// (attn_tile.cuh):
 // - cp.async of 16 bytes into shared memory, committed and waited on in
-//   groups (a ring of stages);
+//   groups (a ring of stages) or completing on an mbarrier;
 // - one-dimensional bulk copies (cp.async.bulk, no tensor map) in both
 //   directions (shared -> global in bulk groups, the lane move K9,
 //   lane_permute.cu) and
@@ -68,6 +69,13 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::); break;
   }
+}
+
+// arrive on `bar` once every cp.async this thread has issued so far has
+// landed (the arrival is counted in the barrier's expected count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -48,8 +48,9 @@ SIGNATURES: dict[str, list] = {
     "wmt_lane_copy": [_P, _P, _P, _I, _P, _I, _I, _P],
     # x, w_q, scales, biases, out, m, n, k, bits, group_size, x_bf16, stream
     "wmt_quant_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, xg, w_q, scales, biases, out, m, n, k, bits, group_size, stream
-    "wmt_quant_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w_q, scales, biases, out, m, n, k, bits, group_size, nt, cluster,
+    # stages, stream
+    "wmt_quant_gemm": [_P] * 5 + [_I] * 8 + [_P],
     # q, k, v, out, b, h, kv_heads, tq, tk, hd, causal, stream
     "wmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scales, biases, out, partial, m, n, k, bits, group_size, np,
@@ -58,8 +59,9 @@ SIGNATURES: dict[str, list] = {
     # x, w, scales, biases, out, m, n, k, codes, group_size, np, stages,
     # cluster, stream
     "wmt_mbt_gemv_mma": [_P] * 5 + [_I] * 8 + [_P],
-    # x, xg, w, scales, biases, out, m, n, k, bits, group_size, np, stream
-    "wmt_mbt_gemm": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, scales, biases, out, m, n, k, bits, group_size, np, nt, cluster,
+    # stages, stream
+    "wmt_mbt_gemm": [_P] * 5 + [_I] * 9 + [_P],
     # x, xq, sx, m, k, x_bf16, stream
     "wmt_a8_quantize": [_P, _P, _P, _I, _I, _I, _P],
     # xq, sx, codes, scale, out, m, n, k, out_bf16, stream

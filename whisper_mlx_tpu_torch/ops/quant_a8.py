@@ -42,7 +42,7 @@ import torch
 
 from whisper_mlx_tpu_torch.ops import _build
 from whisper_mlx_tpu_torch.ops.quant import QuantTensor
-from whisper_mlx_tpu_torch.ops.quant_matmul_mb import cluster_split
+from whisper_mlx_tpu_torch.ops.quant_matmul import cluster_split
 
 LAUNCHES = 0
 
@@ -177,7 +177,7 @@ def _gemv_smem(stages: int, rows: int, kcap: int) -> int:
 def a8_gemv_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     """The fused GEMV's launch: K's 256-k chunks split over a cluster of C
     blocks (block r of it takes chunks ``[r * chunks // C, (r + 1) * chunks
-    // C)``), C from :func:`~whisper_mlx_tpu_torch.ops.quant_matmul_mb.cluster_split`
+    // C)``), C from :func:`~whisper_mlx_tpu_torch.ops.quant_matmul.cluster_split`
     with two blocks an SM and x's rows within ``_XCAP``; a ring of
     ``_STAGES`` stages. -> (cluster, stages)."""
     rows = min(m, GEMV_ROWS)

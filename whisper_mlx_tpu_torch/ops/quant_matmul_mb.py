@@ -8,7 +8,9 @@ Counterpart of ``whisper_mlx_tpu/ops/quant_pallas_mb.py``.
 computes ``x @ dequant(qt).T`` with K5's function and rounding points
 (``ops/quant_matmul.py``): on a CUDA tensor it launches
 ``csrc/quant_matmul_mb.cu`` (bf16 x with 4-bit codes at most 8 rows: one
-launch, K split across a cluster as :func:`mbt_gemv_plan` says), on a CPU
+launch, K split across a cluster as :func:`mbt_gemv_plan` says; more bf16
+rows: K5's tiled core over these layouts, as
+:func:`~whisper_mlx_tpu_torch.ops.quant_matmul.tiled_plan` says), on a CPU
 tensor it runs :func:`quant_matmul_mbt_plain`. :func:`quant_matmul_mb`
 transposes per call (the ``WTPU_QMM_MB`` route).
 
@@ -31,16 +33,27 @@ same function, and on the card the packed layout runs K6.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 
 import torch
 
 from whisper_mlx_tpu_torch.ops import _build
 from whisper_mlx_tpu_torch.ops.quant import QuantTensor, dequantize, unpack
-from whisper_mlx_tpu_torch.ops.quant_matmul import GEMV_ROWS, group_matmul_plain
+from whisper_mlx_tpu_torch.ops.quant_matmul import (
+    GEMV_ROWS,
+    MAX_CLUSTER as _MAX_CLUSTER,
+    SMEM_LIMIT as _SMEM_LIMIT,
+    SMEM_TWO_A_SM as _SMEM_TWO_A_SM,
+    _round_up,
+    cluster_split,
+    group_matmul_plain,
+    sm_count as _sm_count,
+    tiled_plan,
+    tiled_route,
+)
 
 LAUNCHES = 0
+TILED_LAUNCHES = 0  # of LAUNCHES, those on the tiled core
 MAX_STAGES = 8  # ring stages the kernels' shared memory holds
 # csrc/quant_matmul_mb.cu, the SIMT GEMV (fp32 x, 8-bit codes, group sizes
 # the tensor-core route does not take): a block owns 256 columns; a ring
@@ -52,14 +65,7 @@ _SLOT_ROWS = {False: 8, True: 32}  # by codes_resident
 # codes, and the scales and biases of its groups
 _MMA_COLS = 128
 _MMA_STAGE_K = {False: 256, True: 128}  # by codes_resident
-_MAX_CLUSTER = 8
-_SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may have
-_SMEM_TWO_A_SM = 112 * 1024   # ... and the most at which two blocks share an SM
 _XCAP = 48 * 1024         # most bytes of x (bf16) a block holds
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 @dataclasses.dataclass
@@ -167,11 +173,6 @@ def _check_inputs(x: torch.Tensor, qt: QuantTensorT) -> None:
             raise ValueError(f"quant_matmul_mbt: {name} on {t.device}, x on {x.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _gemv_splits(n: int, rows: int, slot_rows: int, sms: int) -> tuple[int, int]:
     """K splits of the GEMV: enough blocks for about four per SM, each split
     a whole number of ring slots. -> (splits, stored rows per split)."""
@@ -207,24 +208,6 @@ def _mma_smem(codes: bool, group_size: int, stages: int, rows: int, kcap: int) -
             + 16 * stages + 1024)
 
 
-def cluster_split(col_blocks: int, units: int, slots: int, fits) -> int:
-    """How many blocks of a cluster (1-8, at most ``units``) split K's units
-    (ring stages): the count that takes the fewest waves of ``slots``
-    blocks times the units a block streams plus one (a block's fixed cost:
-    x's pass and the sums), the least such count; ``fits(c)`` says whether
-    a block of a c-way split holds its x."""
-    best, best_cost = None, None
-    for c in range(1, min(_MAX_CLUSTER, units) + 1):
-        if not fits(c):
-            continue
-        cost = -(-col_blocks * c // slots) * (-(-units // c) + 1)
-        if best_cost is None or cost < best_cost:
-            best, best_cost = c, cost
-    if best is None:
-        raise ValueError(f"no split of {units} units fits a block's shared memory")
-    return best
-
-
 def mbt_gemv_plan(m: int, n: int, k: int, codes: bool, group_size: int, depth: int,
                   sms: int) -> tuple[int, int]:
     """The tensor-core GEMV's launch: K's stages (256 k packed, 128 k
@@ -254,7 +237,9 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
     multiple of 64) on the tensor-core GEMV in one launch where
     :func:`mma_route` says (bf16 x, 4-bit codes), else on the SIMT ring
     GEMV (fp32 x, 8-bit codes, other group sizes: a second launch sums
-    its K splits); more bf16 rows on the tiled tensor-core kernel."""
+    its K splits); more bf16 rows on the tiled core (``csrc/quant_tile.cuh``,
+    one launch, as :func:`~whisper_mlx_tpu_torch.ops.quant_matmul.tiled_plan`
+    says)."""
     _check_inputs(x, qt)
     if x.device.type == "cpu":
         return quant_matmul_mbt_plain(x, qt)
@@ -286,7 +271,7 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
             out.data_ptr(), m, n, k, int(qt.codes_resident), qt.group_size, np_, stages,
             cluster, stream)
         _build.check(rc, "wmt_mbt_gemv_mma")
-    elif x.dtype == torch.float32 or m <= GEMV_ROWS or k % 64:
+    elif x.dtype == torch.float32 or m <= GEMV_ROWS or k % 64 or not tiled_route(qt.group_size):
         codes = qt.codes_resident
         rows = k if codes else k // (32 // qt.bits)
         splits, per_split = _gemv_splits(n, rows, _SLOT_ROWS[codes], sms)
@@ -299,11 +284,14 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
             int(x.dtype == torch.bfloat16), stream)
         _build.check(rc, "wmt_mbt_gemv")
     else:
-        xg = x2.float().reshape(m, k // qt.group_size, qt.group_size).sum(-1)
+        plan = tiled_plan(m, n, k, qt.group_size, 32 if bits == 4 else 64, sms)
         rc = _build.lib().wmt_mbt_gemm(
-            x2.data_ptr(), xg.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(),
-            qt.biasest.data_ptr(), out.data_ptr(), m, n, k, bits, qt.group_size, np_, stream)
+            x2.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(), qt.biasest.data_ptr(),
+            out.data_ptr(), m, n, k, bits, qt.group_size, np_, plan.nt, plan.cluster,
+            plan.stages, stream)
         _build.check(rc, "wmt_mbt_gemm")
+        global TILED_LAUNCHES
+        TILED_LAUNCHES += 1
     global LAUNCHES
     LAUNCHES += 1
     return out.reshape(*lead, n)
