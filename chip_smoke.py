@@ -12,7 +12,8 @@ is non-zero and the result line is not printed:
    main path's shapes (max error beside its tolerance, device time per call
    with the host's launch work off the clock, the least time the card could
    take, and one PyTorch call computing the same function where one exists):
-   K1-K3, then the beam path's K3 integer-dot mode, K8 and K9 (K3 and the
+   K1 (at 3000 frames and at the 65 s CLI file's 9,500, bit-equal on a
+   repeat), K2, K3, then the beam path's K3 integer-dot mode, K8 and K9 (K3 and the
    beam kernels L2 cold over copies of one layer's caches, K3's warm reading
    and its launcher's host cost beside; K8 row by row in both modes and
    widths at every ancestry case of K8_CHECKED and timed at each of
@@ -26,12 +27,12 @@ is non-zero and the result line is not printed:
    and on the CPU (plain versions), greedy and beam 3;
 5. main path: whisper large-v3 at full width with random bf16 weights,
    through the CLI on a synthetic 65 s WAV (random weights fail every
-   fallback threshold, so each window walks the whole ladder, cut to three
-   rungs in every CLI run here: T = 0, then best_of 5 sampling at 0.5 and
-   1.0), then an 8-window batch timed through log_mel_spectrogram ->
-   decode();
+   fallback threshold, so each window walks the whole ladder, cut to two
+   rungs in every CLI run here: T = 0, then best_of 5 sampling at 1.0),
+   then an 8-window batch timed through log_mel_spectrogram -> decode()
+   (one timed run);
 6. beam main path: the same model through the CLI with --beam-size 5 (the
-   same three rungs: beam at T = 0, then sampling at 0.5 and 1.0),
+   same two rungs: beam at T = 0, then sampling at 1.0),
    2-window beam runs of 16 steps under
    WTPU_BEAM_KV=flat, permp and permi (K9), then
    an 8-window x beam 5 batch, timed, with a per-step breakdown;
@@ -53,8 +54,11 @@ is non-zero and the result line is not printed:
    continuous-batching engine (4 slots, 6 requests), then the timings
    (prefill at 128, 384, 512 and 1536 tokens);
 10. LLM residency kernels: the transposed dequant-matmul (K6; packed int4,
-   codes-resident, int8) and the W8A8 matmul (K7, bit-equal at M <= 8) at
-   the Qwen3-32B linear shapes against their plain versions, one device
+   codes-resident, int8) and the W8A8 matmul (K7, bit-equal at every M) at
+   the Qwen3-32B linear shapes against their plain versions, K7's tiled
+   route held bit-equal at each edge of its row blocks (A8_TILED_M) on qkv
+   and o and timed with its quantization launch over one layer's four
+   linears at 128, 384 and 512 rows beside torch._int_mm and the bound, one device
    kernel a call at M <= 8 (K6 on 4-bit codes, K7) from the profiler's
    device events, the host cost a call, and K6 at ring depth 2, 4 and 8
    and at M = 4 beside K5 on the same packed weights; K6's tiled core held
@@ -64,7 +68,9 @@ is non-zero and the result line is not printed:
 11. LLM residency main path, once under WTPU_MBT_RESIDENT=1 and once under
    WTPU_QWEN_A8=1: phase 8 under the opt-in, then Qwen3-32B (16 of its 64
    layers, full width) through chat and the continuous-batching engine,
-   then the timings;
+   then the timings; under A8 also its calls by route (K7's GEMV, K7's
+   tiled route, the VMEM rule's dequantize + matmul) and one profiled
+   384-token prefill's device ms on K7 against the dequantization;
 12. probe kernels: the dequant-matmul variants (K10a-g) at the five
    large-v3 decode-step shapes against their plain versions and against K5
    on the same weights, the batched time-minor decode attention (K11)
@@ -75,7 +81,7 @@ is non-zero and the result line is not printed:
 15. whisper 4-bit main path: large-v3 at full width, bf16 weights from seed
    0 quantized on the card (int4, group 64) and written as an mlx-format
    directory, then the CLI with --model <dir> on the 65 s WAV (packed, fused
-   qkv: K5; the ladder cut to T = 0, 0.5 and 1.0), K5 and K6 against their
+   qkv: K5; the ladder cut to T = 0 and 1.0), K5 and K6 against their
    plain versions at the loaded leaves' shapes, K5 summed over a decode
    step's 193 calls at 1 and 8 rows, L2 cold, beside bf16 torch.matmul on
    the leaves dequantized once (a yardstick, not the same function), 8
@@ -104,7 +110,12 @@ is non-zero and the result line is not printed:
    128, 384 and 512 rows and over large-v3's five decode matmuls at the
    SOT step's 24 rows, L2 cold, and Qwen3-32B's prefill at 128, 384 and
    512 tokens (64 layers packed, 16 under WTPU_MBT_RESIDENT=1), for the
-   same use.
+   same use;
+21. a8_times, run only when named in --only: K7's tiled route, its x
+   quantization launch and torch._int_mm over one Qwen3-32B layer's four
+   linears at 128, 384 and 512 rows, K1 at 3000 and 9,500 frames, and the
+   A8 prefill (16 layers) at 128, 384, 512 and 1536 tokens, for the same
+   use.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -118,7 +129,10 @@ also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
 linears at 384 rows, L2 cold), ``bound_tiled`` and ``bound_tiled_by``,
 ``yardstick_tiled_ms`` and ``launches_tiled`` (phase 9's tiled launches for
 K5, phase 11's under WTPU_MBT_RESIDENT=1 for K6, each counter set to 0 with
-the others).
+the others); the K7 row its tiled route's ``ms_tiled`` (the four linears at
+384 rows, x's quantization included), ``bound_tiled``, ``library_tiled_ms``
+(torch._int_mm at the same rows), ``quantize_tiled_ms`` and
+``launches_tiled`` (phase 11's under WTPU_QWEN_A8=1).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -336,26 +350,33 @@ def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     rows = {}
 
-    # K1: one 30 s window, 3000 frames x 128 mels
+    # K1: one 30 s window, 3000 frames x 128 mels, then the 65 s CLI file's
+    # 9,500 frames (its audio and 30 s of padding)
     audio = torch.from_numpy(rng.standard_normal(N_SAMPLES).astype(np.float32) * 0.1).to(dev)
     frames = _frame_signal(audio, 400, 160)[:-1].contiguous()
     got = mk.log_mel_frames(frames, 128)
     ref = mk.log_mel_frames_plain(frames, 128)
     err = _check("mel 3000x128", got, ref, MEL_TOL)
+    if not torch.equal(got, mk.log_mel_frames(frames, 128)):
+        raise AssertionError("mel 3000x128: a repeat is not bit-equal")
     mel_ms = _device_ms(lambda: mk.log_mel_frames(frames, 128))
     mel_prof = _profiled_ms(lambda: mk.log_mel_frames(frames, 128))
     print(f"  mel: {mel_ms:.4f} ms a call behind the spin, {mel_prof:.4f} ms from the "
           "profiler's device events (both device time alone)")
+    long = torch.from_numpy(rng.standard_normal(9500 * 160).astype(np.float32) * 0.1).to(dev)
+    frames_long = _frame_signal(long, 400, 160)[:-1].contiguous()
+    got_long = mk.log_mel_frames(frames_long, 128)
+    err = max(err, _check(f"mel {frames_long.shape[0]}x128", got_long,
+                          mk.log_mel_frames_plain(frames_long, 128), MEL_TOL))
+    if not torch.equal(got_long, mk.log_mel_frames(frames_long, 128)):
+        raise AssertionError("mel 9500x128: a repeat is not bit-equal")
+    _mel_times({"3000": frames, "9500": frames_long})
     rows["mel"] = dict(
         name="log_mel", route="cuda", source="whisper_mlx_tpu_torch/csrc/mel.cu",
         replaces="whisper_mlx_tpu/ops/mel_pallas.py:61", max_abs_err=err,
         ms=mel_ms,
         plain_ms=_device_ms(lambda: mk.log_mel_frames_plain(frames, 128)),
-        # frames, cos/sin bases (400 x 208), filterbank (208 x 128), output;
-        # 201 bins x 400 samples x (re, im) FMAs + the 201 x 128 filterbank
-        **_bound(_nbytes(frames, got) + (2 * 400 * 208 + 208 * 128) * 4,
-                 frames.shape[0] * (2 * 2 * 400 * 201 + 2 * 201 * 128), "fp32"),
-        library_ms=None)
+        **_mel_bound(frames), library_ms=None)
 
     # K2: encoder self-attention, B=8 windows x 20 heads, T=1500; ragged cases
     # at the edges of the 128-row q-tile and the 128-key tile
@@ -457,6 +478,27 @@ def phase_kernels() -> dict:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
               + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"))
     return rows
+
+
+def _mel_bound(frames: torch.Tensor, n_mels: int = 128) -> dict:
+    """K1's bound: frames, bases (400 x 208, cos and sin), filterbank (208 x
+    n_mels) and output once; 201 bins x 400 samples x (re, im) FMAs and the
+    201 x n_mels filterbank a frame, fp32."""
+    n = frames.shape[0]
+    return _bound(_nbytes(frames) + n * n_mels * 4 + (2 * 400 * 208 + 208 * n_mels) * 4,
+                  n * (2 * 2 * 400 * 201 + 2 * 201 * n_mels), "fp32")
+
+
+def _mel_times(cases: dict) -> None:
+    """K1 and its plain version at each frame count of ``cases`` (label ->
+    frames), device time a call, beside the bound."""
+    for frames in cases.values():
+        ms = _device_ms(lambda: mk.log_mel_frames(frames, 128))
+        plain = _device_ms(lambda: mk.log_mel_frames_plain(frames, 128))
+        bound = _mel_bound(frames)
+        print(f"  K1 at {frames.shape[0]} frames x 128 mels: kernel {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+              f"{bound['bound_ms'] / ms:.1%} of it)")
 
 
 def _copies(tensors, n: int = 8) -> list[tuple]:
@@ -893,12 +935,12 @@ def phase_main_path() -> dict:
         mk.LAUNCHES = dn.LAUNCHES = da.LAUNCHES = 0
         t0 = time.perf_counter()
         # random weights fail every fallback threshold, so each window walks
-        # the whole ladder, cut from the CLI's six rungs to three to keep the
-        # run short: T = 0, then best_of 5 sampling at 0.5 and 1.0
+        # the whole ladder, cut from the CLI's six rungs to two to keep the
+        # run short: T = 0, then best_of 5 sampling at 1.0
         rc = cli.main([wav, "-f", "txt", "--output-name", "out", "-o", tmp,
                        "--model", "large-v3", "--condition-on-previous-text", "False",
                        "--hallucination-silence-threshold", "1", "--verbose", "False",
-                       "--temperature-increment-on-fallback", "0.5"])
+                       "--temperature-increment-on-fallback", "1.0"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES}
@@ -915,8 +957,10 @@ def phase_main_path() -> dict:
     return launches
 
 
-def _time_batch() -> None:
-    """8 windows through log_mel_spectrogram -> decode(), sample_len 224."""
+def _time_batch(runs: int = 1) -> None:
+    """8 windows through log_mel_spectrogram -> decode(), sample_len 224,
+    ``runs`` timed runs after a warm-up (two where two trees are set side by
+    side, one in the whole script)."""
     dev = torch.device("cuda")
     base = WHISPER_CONFIGS["large-v3"]
     params, config = apply_asr_serving_config(
@@ -941,7 +985,7 @@ def _time_batch() -> None:
         assert torch.isfinite(logits).all(), "non-finite large-v3 logits"
     torch.cuda.synchronize()
     times = []
-    for _ in range(2):
+    for _ in range(runs):
         t0 = time.perf_counter()
         _, results = pipeline()
         torch.cuda.synchronize()
@@ -1029,9 +1073,9 @@ def phase_beam_main_path() -> dict:
                        "--model", "large-v3", "--condition-on-previous-text", "False",
                        "--beam-size", "5", "--verbose", "False",
                        # random weights fail every fallback threshold: the ladder
-                       # is cut to three rungs (beam at T = 0, then best_of 5
-                       # sampling at 0.5 and 1.0) to keep the run short
-                       "--temperature-increment-on-fallback", "0.5"])
+                       # is cut to two rungs (beam at T = 0, then best_of 5
+                       # sampling at 1.0) to keep the run short
+                       "--temperature-increment-on-fallback", "1.0"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         txt = os.path.join(tmp, "out.txt")
@@ -1081,9 +1125,10 @@ def phase_beam_main_path() -> dict:
     return launches
 
 
-def _time_beam_batch(params, config, tok, audio) -> None:
+def _time_beam_batch(params, config, tok, audio, runs: int = 1) -> None:
     """8 windows x beam 5 through log_mel_spectrogram -> decode(), sample_len
-    224, then a per-step breakdown of beam_decode."""
+    224, ``runs`` timed runs after a warm-up, then a per-step breakdown of
+    beam_decode."""
     batch = audio.shape[0]
     opts = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
 
@@ -1096,7 +1141,7 @@ def _time_beam_batch(params, config, tok, audio) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(2):
+    for _ in range(runs):
         t0 = time.perf_counter()
         results = pipeline()
         torch.cuda.synchronize()
@@ -1130,8 +1175,9 @@ def _beam_breakdown(params, config, tok, audio) -> None:
     """Per-step wall time, device busy time and kernel time by name of the
     beam loop: two beam_decode runs of 8 and 24 steps (pools never fill
     at random weights), the difference over 16 steps, without and with
-    torch.profiler; then the device time and K8's over steps 208-224, and
-    K8's over the whole 224-step decode."""
+    torch.profiler; then the device time and K8's over the whole 224-step
+    decode (one profiled run: the late steps' window, the difference of a
+    208- and a 224-step run, was cut to keep the script within its time)."""
     dev = audio.device
     beam_cfg = dataclasses.replace(config, attn_mxu=True)
     with torch.inference_mode():
@@ -1197,21 +1243,16 @@ def _beam_breakdown(params, config, tok, audio) -> None:
     for us, calls, key in diff:
         if "Synchronize" in key or "Memcpy" in key:
             print(f"  {key[:60]:60s} host {us:9.1f} us/step, calls {calls:.1f}/step")
-    # the late steps, the self cache about 200 positions deep: device events
-    # alone (a long profiled run with the host's events would be slow)
-    late = {}
-    for steps in (208, 224):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            run(steps)
-            torch.cuda.synchronize()
-        total, events = _kernel_us(prof)
-        k8 = [e for e in events if "beamflat" in e.key]
-        late[steps] = (total, sum(e.self_device_time_total for e in k8),
-                       sum(e.count for e in k8))
-    print(f"  steps 208-224: device {(late[224][0] - late[208][0]) / 1e3 / 16:.3f} ms/step, "
-          f"K8 (beamflat) {(late[224][1] - late[208][1]) / 1e3 / 16:.4f} ms/step")
-    print(f"  whole decode (224 steps): device {late[224][0] / 1e3:.3f} ms, K8 (beamflat) "
-          f"{late[224][1] / 1e3:.4f} ms over {late[224][2]} calls")
+    # the whole decode: device events alone (a long profiled run with the
+    # host's events would be slow)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(224)
+        torch.cuda.synchronize()
+    total, events = _kernel_us(prof)
+    k8 = [e for e in events if "beamflat" in e.key]
+    print(f"  whole decode (224 steps): device {total / 1e3:.3f} ms, K8 (beamflat) "
+          f"{sum(e.self_device_time_total for e in k8) / 1e3:.4f} ms over "
+          f"{sum(e.count for e in k8)} calls")
 
 
 # ---------------------------------------------------------------------------
@@ -1702,23 +1743,34 @@ def _mbt_beside_k5(q, copies, gen, sums: dict) -> None:
           + " (M = 1 unless named; summed over the linears so far)")
 
 
+def _spin_pad(launches: int) -> None:
+    """``launches`` short device spins (``spin_kernel``, left out of every
+    count)."""
+    for _ in range(launches):
+        torch.cuda._sleep(100)
+
+
 def _device_kernels(fn, calls: int = 64) -> tuple[int, float]:
     """The device kernels (and copies) of ``fn``'s calls, from the
     profiler's device events over ``calls`` calls after one that warms
-    them: (distinct names, events a call). The window opens on a spin of
-    the device (left out of the count): without it the profiler dropped the
-    first kernels of short windows on the H100, often after earlier
-    profiled phases. A window that saw no kernel of ``fn`` measured nothing
-    and is taken again, at most twice; the events a call may still
-    undercount, a name seen in the window ran."""
+    them: (distinct names, events a call). The profiler drops events at a
+    window's edges on the H100, more as a run goes on: about 30 of a
+    window's first kernels late in a whole run, all 32 of 16 two-kernel
+    calls once. So the window opens on a long spin of the device and 256
+    short ones, and closes on 64 short ones, all left out of the count. A
+    window that saw no kernel of ``fn`` measured nothing and is taken
+    again, at most twice; the events a call may still undercount, a name
+    seen in the window ran."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
         with torch.profiler.profile(activities=activities) as prof:
             torch.cuda._sleep(int(1e7))
+            _spin_pad(256)
             for _ in range(calls):
                 fn()
+            _spin_pad(64)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and "spin" not in e.key]
@@ -1730,15 +1782,14 @@ def _device_kernels(fn, calls: int = 64) -> tuple[int, float]:
 def _time_residency(label, leaf, call, plain, copies, nbytes, kind, gen, errs, exact=False,
                     one_kernel=False):
     """One leaf against its plain version at M = 1, 4, 128 and 384 (``exact``:
-    bit-equal at M <= 8; ``one_kernel``: one device kernel a call at M <=
-    8); returns the M = 1 (kernel ms, plain ms, host us a call) with L2
-    cold."""
+    bit-equal; ``one_kernel``: one device kernel a call at M <= 8); returns
+    the M = 1 (kernel ms, plain ms, host us a call) with L2 cold."""
     n, k = leaf.shape
     out = None
     for m in (1, 4, 128, 384):
         x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
         got, ref = call(x, leaf), plain(x, leaf)
-        tol = 0.0 if exact and m <= 8 else QMM_TOL * max(1.0, ref.float().abs().max().item())
+        tol = 0.0 if exact else QMM_TOL * max(1.0, ref.float().abs().max().item())
         errs.append(_check(f"{label} N={n} K={k} M={m}", got, ref, tol))
         del got, ref
         if one_kernel and m <= 8:
@@ -1807,6 +1858,8 @@ def phase_residency_kernels() -> dict:
         ms, plain, host = _time_residency(f"a8_matmul {name}", at, a8.a8_matmul_kernel,
                                           a8.a8_matmul_plain, copies, nbytes, "int8", gen,
                                           errs["a8"], exact=True, one_kernel=True)
+        if name in ("qkv", "o"):
+            _check_a8_tiled(f"a8_matmul {name}", at, gen)
         for i, v in enumerate((ms, plain, nbytes + x1, 2 * n * k, host)):
             sums["a8"][i] += v
         # the library's int8 GEMM: the int32 product alone, at the fewest
@@ -1835,6 +1888,7 @@ def phase_residency_kernels() -> dict:
     tiled = _tiled_layer(gen, lambda q: mb.transpose_quant(q, codes=False), label="K6 packed")
     _tiled_layer(gen, lambda q: mb.transpose_quant(q, codes=True), m_values=(384,),
                  label="K6 codes-resident (down packed: K past 8192)")
+    a8_tiled = _a8_tiled_layer(gen)
     for key, (ms, plain, nbytes, ops, host) in sums.items():
         what = "the four linears and the head" if key == "a8" else "the four linears"
         print(f"  {key} at M = 1 over {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -1854,8 +1908,96 @@ def phase_residency_kernels() -> dict:
     rows["a8"] = dict(
         name="a8_matmul", route="cuda", source="whisper_mlx_tpu_torch/csrc/a8_matmul.cu",
         replaces="whisper_mlx_tpu/ops/quant_a8.py:198", max_abs_err=max(errs["a8"]),
-        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "int8"), library_ms=lib_ms)
+        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "int8"), library_ms=lib_ms,
+        ms_tiled=a8_tiled[384]["ms"], bound_tiled=a8_tiled[384]["bound_ms"],
+        bound_tiled_by=a8_tiled[384]["bound_by"], library_tiled_ms=a8_tiled[384]["int_mm_ms"],
+        quantize_tiled_ms=a8_tiled[384]["quantize_ms"])
     return rows
+
+
+# the row counts at which K7's tiled route (more than 8 rows) is held
+# bit-equal to its plain version: each edge of its 16-, 32-, 64- and 128-row
+# blocks, and past 512 rows (the VMEM rule admits qkv to about 810 rows)
+A8_TILED_M = (9, 16, 17, 63, 64, 65, 127, 128, 129, 384, 511, 512, 1000)
+# the prefill lengths at which it is timed
+A8_TILED_TIMED = (128, 384, 512)
+
+
+def _check_a8_tiled(label, at, gen, m_values=A8_TILED_M) -> None:
+    """K7's tiled route on one linear at each of ``m_values`` rows: bit-equal
+    to its plain version and on a repeat, one tiled launch, two device
+    kernels a call (x's quantization, the GEMM)."""
+    n, k = at.shape
+    seen = []
+    for m in m_values:
+        x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+        before = a8.TILED_LAUNCHES
+        got = a8.a8_matmul_kernel(x, at)
+        if a8.TILED_LAUNCHES != before + 1:
+            raise AssertionError(f"{label} M={m}: not one launch of the tiled route")
+        if not torch.equal(got, a8.a8_matmul_plain(x, at)):
+            raise AssertionError(f"{label} N={n} K={k} M={m}: not bit-equal to the plain version")
+        if not torch.equal(got, a8.a8_matmul_kernel(x, at)):
+            raise AssertionError(f"{label} N={n} K={k} M={m}: a repeat is not bit-equal")
+        del got
+        names, events = _device_kernels(lambda: a8.a8_matmul_kernel(x, at))
+        if names != 2 or events > 2:
+            raise AssertionError(f"{label} M={m}: {names} device kernels by name, {events} "
+                                 "events a call; two expected (quantize, GEMM)")
+        seen.append(events)
+    print(f"  {label} N={n} K={k}, tiled route at M = {', '.join(map(str, m_values))}: bit-equal "
+          "to the plain version and on a repeat, two device kernels a call (events a call "
+          f"{min(seen):g}-{max(seen):g})")
+
+
+def _a8_tiled_layer(gen, m_values=A8_TILED_TIMED) -> dict:
+    """K7's tiled route over one Qwen3-32B layer's four linears (qkv, o,
+    gate_up, down; the VMEM rule's verdict aside) at each of ``m_values``
+    rows, L2 cold: the whole call, x's quantization launch alone (x warm, as
+    the layer before leaves it), and torch._int_mm's int32 product of the
+    same rows (a yardstick: no activation quantization, no scales), beside
+    the bound. Only public calls and the quantization's C entry, so that an
+    earlier tree runs it too. -> {m: dict(ms, quantize_ms, int_mm_ms,
+    bound_ms, bound_by)}."""
+    dev = gen.device
+    lib = _build.lib()
+    sums = {m: [0.0, 0.0, 0.0, 0, 0] for m in m_values}  # call, quantize, int_mm, bytes, ops
+    for name, n, k in QWEN_LINEARS[:4]:
+        q = _random_quant(gen, n, k)
+        at = a8.requant_a8(q)
+        del q
+        nbytes = _nbytes(at.codes, at.scale)
+        copies = _layer_copies(lambda: _a8_copy(at), nbytes)
+        for m in m_values:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+            sx = torch.empty((m,), dtype=torch.float32, device=dev)
+            xi = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+
+            def quantize():
+                _build.check(lib.wmt_a8_quantize(x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
+                                                 1, torch.cuda.current_stream().cuda_stream),
+                             "wmt_a8_quantize")
+
+            for i, v in enumerate((_cold_ms(lambda c: a8.a8_matmul_kernel(x, c), copies, reps=8),
+                                   _device_ms(quantize),
+                                   _cold_ms(lambda c: torch._int_mm(xi, c.codes.t()), copies,
+                                            reps=8),
+                                   nbytes + 2 * m * (n + k), 2 * m * n * k)):
+                sums[m][i] += v
+        del at, copies
+        torch.cuda.empty_cache()
+    res = {}
+    for m, (ms, qms, ims, nbytes, ops) in sums.items():
+        bound = _bound(nbytes, ops, "int8")
+        res[m] = dict(ms=ms, quantize_ms=qms, int_mm_ms=ims, **bound)
+        print(f"  K7 tiled route, one Qwen3-32B layer's four linears at M={m}, L2 cold: {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOP/s, {bound['bound_ms'] / ms:.1%} of the bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}); torch._int_mm, the int32 "
+              f"product alone: {ims:.4f} ms ({ms / ims:.2f}x)")
+        print(f"  K7 tiled route's x quantization launch alone at M={m}, over the four: "
+              f"{qms:.4f} ms")
+    return res
 
 
 # whisper large-v3's decoder linears under WTPU_FEWROW_MBT=1, (N, K, calls a
@@ -1965,7 +2107,8 @@ def phase_llm_residency(env: str) -> dict:
         rng = np.random.default_rng(7)
         new = 32
         mb.LAUNCHES = a8.LAUNCHES = qm.LAUNCHES = fa.LAUNCHES = 0
-        mb.TILED_LAUNCHES = qm.TILED_LAUNCHES = 0
+        mb.TILED_LAUNCHES = qm.TILED_LAUNCHES = a8.TILED_LAUNCHES = 0
+        a8.VMEM_DEQUANT_CALLS = a8.ROWS_DEQUANT_CALLS = 0
         t0 = time.perf_counter()
         r = engine.chat([{"role": "user", "content": _prompt_text(rng, 270)}], max_tokens=new,
                         temperature=0.0)
@@ -1985,6 +2128,13 @@ def phase_llm_residency(env: str) -> dict:
         if module is mb:  # the prefills on K6's tiled core
             launches["mbt_tiled"] = mb.TILED_LAUNCHES
             assert mb.TILED_LAUNCHES > 0, "K6's tiled core was not launched under MBT"
+        if module is a8:  # the prefills' qkv and o on K7's tiled route
+            launches["a8_tiled"] = a8.TILED_LAUNCHES
+            print(f"  A8 calls by route over the chat and the batch: K7 GEMV "
+                  f"{a8.LAUNCHES - a8.TILED_LAUNCHES}, K7 tiled {a8.TILED_LAUNCHES}, dequantize + "
+                  f"matmul by the VMEM rule {a8.VMEM_DEQUANT_CALLS}, past 512 rows "
+                  f"{a8.ROWS_DEQUANT_CALLS}")
+            assert a8.TILED_LAUNCHES > 0, "K7's tiled route was not launched under A8"
         print(f"  continuous batching: 6 requests x {new} tokens on 4 slots in {batch_s:.3f} s "
               f"({6 * new / batch_s:.2f} tok/s); launches {key} {module.LAUNCHES} (tiled core "
               f"{getattr(module, 'TILED_LAUNCHES', 0)}), quant_matmul {qm.LAUNCHES}, "
@@ -1992,10 +2142,90 @@ def phase_llm_residency(env: str) -> dict:
         assert module.LAUNCHES > 0, f"kernel {key} was not launched under {env}=1"
         batch.close()
         _llm_rates(engine.params, config)
+        if module is a8:
+            _a8_prefill_split(engine.params, config)
         print(f"  llm {env}=1 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return launches
     finally:
         for name in settings:
+            os.environ.pop(name, None)
+
+
+def _a8_prefill_split(params, config, t: int = 384) -> None:
+    """One profiled t-token prefill under WTPU_QWEN_A8=1: the device ms of
+    the calls on K7 (its kernels by name: the tiled GEMM, x's quantization,
+    the GEMV) against the calls the VMEM rule sends to dequantize + matmul
+    (a record_function range around each such call), and the calls by
+    route."""
+    orig = a8.a8_matmul
+
+    def traced(x, at):
+        kernel = a8.a8_fits(at, x.numel() // x.shape[-1])
+        with torch.profiler.record_function("a8_kernel_route" if kernel else "a8_dequant_route"):
+            return orig(x, at)
+
+    before = (a8.LAUNCHES, a8.TILED_LAUNCHES, a8.VMEM_DEQUANT_CALLS, a8.ROWS_DEQUANT_CALLS)
+    _prefill_ms(params, config, t)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    a8.a8_matmul = traced
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda._sleep(int(1e7))
+            ms = _prefill_ms(params, config, t)
+    finally:
+        a8.a8_matmul = orig
+    _, events = _kernel_us(prof)
+    # the ranges also appear among the device's events: left out of the sum
+    ranges = ("a8_kernel_route", "a8_dequant_route")
+    total = sum(e.self_device_time_total for e in events
+                if e.key not in ranges and "spin" not in e.key)
+    by_name = {"tiled GEMM": "a8_gemm_kernel", "quantize": "a8_quantize_kernel",
+               "GEMV": "a8_gemv_kernel"}
+    k7 = {label: sum(e.self_device_time_total for e in events if key in e.key) / 1e3
+          for label, key in by_name.items()}
+    under = {}
+    for e in prof.key_averages():
+        if e.key in ranges:
+            under[e.key] = max(under.get(e.key, 0.0), e.device_time_total / 1e3)
+    after = (a8.LAUNCHES, a8.TILED_LAUNCHES, a8.VMEM_DEQUANT_CALLS, a8.ROWS_DEQUANT_CALLS)
+    calls = [b - a for a, b in zip(before, after)]
+    print(f"  A8 prefill T={t} under the profiler: wall {ms:.2f} ms, device {total / 1e3:.3f} ms; "
+          f"K7 kernels {', '.join(f'{k} {v:.3f} ms' for k, v in k7.items())}; device ms under "
+          f"the calls on K7 {under.get('a8_kernel_route', 0.0):.3f}, under the VMEM rule's "
+          f"dequantize + matmul {under.get('a8_dequant_route', 0.0):.3f}")
+    print(f"  A8 prefill T={t}: calls by route (two prefills, the warm-up's included): K7 GEMV "
+          f"{calls[0] - calls[1]}, K7 tiled {calls[1]}, VMEM rule dequantize + matmul "
+          f"{calls[2]}, past 512 rows {calls[3]}")
+
+
+def phase_a8_times() -> None:
+    """Phase 21, run only when named: K7's tiled route, its quantization
+    launch and torch._int_mm over one Qwen3-32B layer's four linears at 128,
+    384 and 512 rows, K1 at 3000 and 9,500 frames, and the A8 prefill (16
+    layers under WTPU_QWEN_A8=1) at 128, 384, 512 and 1536 tokens. Public
+    calls only and no check of one tree's design, so that two trees run it
+    in turn in one call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    _a8_tiled_layer(gen)
+    rng = np.random.default_rng(0)
+    cases = {}
+    for label, seconds in (("3000", 30), ("9500", 95)):
+        audio = torch.from_numpy(rng.standard_normal(seconds * 16000).astype(np.float32)
+                                 * 0.1).to(dev)
+        cases[label] = _frame_signal(audio, 400, 160)[:-1].contiguous()
+    _mel_times(cases)
+    os.environ.update({"WTPU_QWEN_A8": "1", "WTPU_A8_FREE_SRC": "1"})
+    try:
+        config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True,
+                                     num_hidden_layers=RESIDENCY_LAYERS)
+        engine = LLMEngine(qw.init_random_quant_params(config, seed=0, device=dev), config,
+                           _CountingTokenizer(), max_context=4096)
+        _prefill_rates(engine.params, config, f"WTPU_QWEN_A8=1, {RESIDENCY_LAYERS} layers",
+                       lengths=(128, 384, 512, 1536))
+        del engine
+    finally:
+        for name in ("WTPU_QWEN_A8", "WTPU_A8_FREE_SRC"):
             os.environ.pop(name, None)
 
 
@@ -2415,16 +2645,16 @@ def phase_quant_main_path() -> dict:
         torch.cuda.empty_cache()
 
         # (a) the CLI on the 65 s WAV. Random weights fail every fallback
-        # threshold, so each window walks the ladder, cut to three rungs to
-        # keep the run short: 1 row at T = 0, then best_of 5 -> 5 rows at 0.5
-        # and 1.0. All stay packed (<= 16 rows), so no conversion is cached.
+        # threshold, so each window walks the ladder, cut to two rungs to
+        # keep the run short: 1 row at T = 0, then best_of 5 -> 5 rows at
+        # 1.0. All stay packed (<= 16 rows), so no conversion is cached.
         wav = os.path.join(tmp, "clip.wav")
         _write_wav(wav, 65.0)
         _zero_whisper_counts()
         t0 = time.perf_counter()
         rc = cli.main([wav, "-f", "txt", "--output-name", "out", "-o", tmp, "--model", ckpt,
                        "--condition-on-previous-text", "False", "--verbose", "False",
-                       "--temperature-increment-on-fallback", "0.5"])
+                       "--temperature-increment-on-fallback", "1.0"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _whisper_counts()
@@ -2585,7 +2815,7 @@ def phase_tiled_times() -> None:
 def phase_batches() -> None:
     """Phase 16: the 8-window greedy batches of phases 5 (dense bf16) and 15
     (4-bit packed, K5), two timed runs each, each with its breakdown."""
-    _time_batch()
+    _time_batch(runs=2)
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
@@ -2625,7 +2855,7 @@ def phase_beam_batches() -> None:
         init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
     rng = np.random.default_rng(3)
     audio = torch.from_numpy(rng.standard_normal((8, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
-    _time_beam_batch(params, config, _bench_tokenizer(config.n_vocab), audio)
+    _time_beam_batch(params, config, _bench_tokenizer(config.n_vocab), audio, runs=2)
 
 
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
@@ -2661,7 +2891,7 @@ def main(argv: list[str] | None = None) -> int:
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
                         "quant_main, and batches, residency_times, beam_times, "
-                        "beam_batches and tiled_times, which run only when named")
+                        "beam_batches, tiled_times and a8_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2696,8 +2926,10 @@ def main(argv: list[str] | None = None) -> int:
         "beam_times": ("beam kernel times", phase_beam_times, None),
         "beam_batches": ("beam batches", phase_beam_batches, None),
         "tiled_times": ("tiled times", phase_tiled_times, None),
+        "a8_times": ("a8 and mel times", phase_a8_times, None),
     }
-    only_named = ("batches", "residency_times", "beam_times", "beam_batches", "tiled_times")
+    only_named = ("batches", "residency_times", "beam_times", "beam_batches", "tiled_times",
+                  "a8_times")
     unknown = [name for name in only if name not in phases]
     if unknown:
         parser.error(f"unknown phases {unknown}")
@@ -2715,8 +2947,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"partial run ({', '.join(only)}): no result line, exit code 2")
         return 2
     launches["dense_fast"] = on_4bit["dense_fast"]
-    # the tiled core's launches (phase 9's prefills for K5, phase 11's for K6)
-    tiled = {key: launches.pop(f"{key}_tiled") for key in ("quant", "mbt")}
+    # the tiled launches (phase 9's prefills for K5, phase 11's for K6 and K7)
+    tiled = {key: launches.pop(f"{key}_tiled") for key in ("quant", "mbt", "a8")}
     kernels = []
     for key, mod_launches in launches.items():
         row = dict(rows[key])

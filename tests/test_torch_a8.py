@@ -419,3 +419,73 @@ def test_a8_plain_divides_truly():
     amax = x.abs().amax(dim=-1, keepdim=True)
     assert torch.equal(torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0),
                        torch.clamp(amax, min=1e-8) / 127.0)
+
+
+# the tiled GEMM's row counts: every edge of its 16-, 32-, 64- and 128-row
+# blocks, the prefill lengths, and past 512 rows (the VMEM rule admits qkv
+# to about 810 rows and o to about 1,090)
+A8_TILED_M = [9, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 295, 384, 511, 512, 513,
+              810, 1000, 1090]
+
+
+@pytest.mark.parametrize("n,k", K7_SHAPES + [(200, 320), (130, 2112), (1000, 64), (33, 192)])
+def test_a8_tiled_plan_covers_every_unit_once(n, k):
+    """The tiled GEMM's launch plan on a 132-SM card above 8 rows: blocks
+    of 16, 32 or 64 rows up to 128 rows, then 128, every row and channel in
+    one block, each block of a cluster at least one 128-k stage and the
+    cluster every stage once, clusters of 1, 2, 4 or 8 only (none of
+    128-row blocks), the deepest ring (2-8 stages) and the cluster sum
+    within a block's 227 KB of shared memory, and the cheapest split by
+    the plan's own cost."""
+    units = -(-k // 128)
+    for m in A8_TILED_M:
+        p = ta8.a8_tiled_plan(m, n, k, 132)
+        assert p.nt == (16 if m <= 16 else 32 if m <= 32 else 64 if m <= 128 else 128)
+        assert p.cols == (256 if p.nt == 128 else 128) and p.units == units
+        assert (p.row_blocks - 1) * p.nt < m <= p.row_blocks * p.nt
+        assert (p.col_blocks - 1) * p.cols < n <= p.col_blocks * p.cols
+        split = p.cluster
+        assert split in (1, 2, 4, 8) and split <= units
+        covered = np.zeros(units, np.int64)
+        for rank in range(split):
+            first, last = rank * units // split, (rank + 1) * units // split
+            assert last > first
+            covered[first:last] += 1
+        assert (covered == 1).all()
+        assert 2 <= p.stages <= 8 and p.stages == (4 if p.nt == 128 else 8)
+        assert p.smem == ta8._tiled_smem(p.nt, p.stages)[0] <= 227 * 1024
+        if p.stages < 8:  # the deepest ring that fits
+            assert ta8._tiled_smem(p.nt, p.stages + 1)[0] > 227 * 1024
+        if split > 1:  # the cluster's sums: every block's chunks, through the ring
+            assert 4 * p.cols * p.nt <= ta8._tiled_smem(p.nt, p.stages)[1]
+        blocks = p.row_blocks * p.col_blocks
+        charge = ta8.TILED_SPLIT_COST
+        cost = {c: -(-blocks * c // 132) * (-(-units // c) + 1 + (charge if c > 1 else 0))
+                for c in ((1, 2, 4, 8) if p.nt < 128 else (1,)) if c <= units}
+        assert cost[split] == min(cost.values())
+        assert min(c for c in cost if cost[c] == min(cost.values())) == split
+
+
+@pytest.mark.parametrize("m,k", [(8, 512), (9, 96), (100, 100)])
+def test_a8_tiled_plan_refuses_gemv_shapes(m, k):
+    """At most 8 rows, or K not a multiple of 64, is the fused GEMV's."""
+    with pytest.raises(ValueError):
+        ta8.a8_tiled_plan(m, 256, k, 132)
+
+
+@pytest.mark.parametrize("rows", [1, 384])
+def test_a8_route_counters(monkeypatch, rows):
+    """On the CPU the wrapper runs the plain version and counts no kernel
+    launch; the VMEM rule's and the row bound's dequantize + matmul calls
+    are counted by route."""
+    at = ta8.requant_a8(torch.randn((51200 // 8, 512)), tile_n=512, depth=4)
+    monkeypatch.setenv("WTPU_A8_MAX_VMEM_MB", "1")
+    before = (ta8.LAUNCHES, ta8.TILED_LAUNCHES, ta8.VMEM_DEQUANT_CALLS, ta8.ROWS_DEQUANT_CALLS)
+    x = torch.randn((rows, 512))
+    out = ta8.a8_matmul(x, at)
+    assert torch.equal(out, torch.matmul(x, at.dequantize(x.dtype).T))
+    assert (ta8.LAUNCHES, ta8.TILED_LAUNCHES, ta8.VMEM_DEQUANT_CALLS - 1,
+            ta8.ROWS_DEQUANT_CALLS) == before
+    monkeypatch.delenv("WTPU_A8_MAX_VMEM_MB")
+    tq.quant_matmul(torch.randn((513, 512)), at)
+    assert ta8.ROWS_DEQUANT_CALLS == before[3] + 1

@@ -19,8 +19,8 @@ quantized matmul ``1e-2 * max(1, |ref|max)`` in
 bf16 (sums in another order can move a result by one bf16 ulp) and
 ``1e-4 * max(1, |ref|max)`` in fp32, the same for the transposed
 dequant-matmul (K6); the W8A8 matmul (K7) computes the same int32 sums and
-fp32 products as its plain version, so one bf16 ulp in bf16 and ``1e-5 *
-max(1, |ref|max)`` in fp32. The integer-dot modes (K3, K8) take
+fp32 products as its plain version on both routes: bit-equal. The
+integer-dot modes (K3, K8) take
 the attention tolerance too: the card's expf and the CPU's exp may differ
 in an ulp, which can move one dynamic w * vs code by one step, at most
 max(w * vs) on the output. The lane kernel (K9) moves bytes: exact. The
@@ -111,6 +111,22 @@ def test_mel_kernel_matches_plain(cuda, n_mels, seconds):
     torch.cuda.synchronize()
     assert mk.LAUNCHES == before + 1
     assert _max_err(got, mk.log_mel_frames_plain(frames, n_mels)) <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("n_frames", [1, 15, 16, 17, 3000, 9500, 24000])
+def test_mel_kernel_frame_tiles_match_plain(cuda, n_mels, n_frames):
+    """K1 at the edges of its 32-frame cluster tile, a 30 s window, the 65
+    s file and 4 minutes: within 2e-4 of the plain version, bit-equal on a
+    repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(n_frames + n_mels)
+    frames = torch.randn((n_frames, 400), generator=gen, device=cuda) * 0.1
+    got = mk.log_mel_frames(frames, n_mels)
+    torch.cuda.synchronize()
+    assert got.shape == (n_frames, n_mels)
+    assert _max_err(got, mk.log_mel_frames_plain(frames, n_mels)) <= 2e-4
+    assert torch.equal(got, mk.log_mel_frames(frames, n_mels))
 
 
 @pytest.mark.cuda
@@ -644,16 +660,107 @@ def test_a8_kernel_matches_plain(cuda, m, n, k, depth, dtype):
     got = tq.quant_matmul(x, at)
     torch.cuda.synchronize()
     assert a8.LAUNCHES == before + 1 and got.dtype == dtype and got.shape == (m, n)
-    ref = a8.a8_matmul_plain(x, at)
-    if m <= a8.GEMV_ROWS:  # the fused GEMV: exact sums, the plain version's roundings
-        assert torch.equal(got, ref)
-        return
-    rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
-    assert _max_err(got, ref) <= rel * max(1.0, ref.float().abs().max().item())
+    # both routes (the fused GEMV, the tiled GEMM) take exact int32 sums and
+    # the plain version's roundings: bit-equal
+    assert torch.equal(got, a8.a8_matmul_plain(x, at))
+
+
+# row counts at each edge of the tiled GEMM's 16-, 32-, 64- and 128-row
+# blocks, past 512 rows, and the Qwen3-32B shapes a prefill gives it
+A8_TILED_M = [9, 16, 17, 63, 64, 65, 127, 128, 129, 384, 511, 512, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", A8_TILED_M)
+@pytest.mark.parametrize("n,k", [(200, 320), (1000, 1024), (130, 2112), (5120, 8192)])
+def test_a8_tiled_bit_equal(cuda, m, n, k):
+    """K7's tiled route (x quantized, then wgmma s8 from a TMA ring, K split
+    across a cluster as a8_tiled_plan says) at its row-block edges, ragged
+    N, K an odd multiple of 64: bit-equal to the plain version with bf16
+    and fp32 x, and on a repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    at = a8.requant_a8(torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        before = (a8.LAUNCHES, a8.TILED_LAUNCHES)
+        got = a8.a8_matmul_kernel(x, at)
+        torch.cuda.synchronize()
+        assert (a8.LAUNCHES, a8.TILED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert torch.equal(got, a8.a8_matmul_plain(x, at))
+        assert torch.equal(got, a8.a8_matmul_kernel(x, at))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,cluster", [
+    (24, 10240, 5120, 1), (64, 5120, 25600, 2), (24, 3000, 16384, 4), (16, 1000, 8192, 8),
+    (128, 5120, 25600, 1), (384, 10240, 5120, 1)])
+def test_a8_tiled_cluster_edges_bit_equal(cuda, m, n, k, cluster):
+    """The tiled GEMM as its plan splits K over 1, 2, 4 and 8 blocks a
+    cluster (Qwen3-32B's qkv and down among them): the int32 partials
+    summed in block order are the plain version's sums, bit for bit."""
+    assert a8.a8_tiled_plan(m, n, k, _sms()).cluster == cluster
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    at = a8.requant_a8(torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    got = a8.a8_matmul_kernel(x, at)
+    torch.cuda.synchronize()
+    assert torch.equal(got, a8.a8_matmul_plain(x, at))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", [16, 32, 64, 128])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_a8_tiled_forced_splits_bit_equal(cuda, nt, cluster):
+    """The tiled GEMM's entry at every block height and cluster size, past
+    what the plan would choose (a cluster's sum of chunks of one value a
+    thread at 16 rows and 8 blocks): bit-equal to the plain version, ragged
+    rows, channels and K."""
+    m, n, k = nt + 3, 300, 1088
+    gen = torch.Generator(device=cuda).manual_seed(nt * cluster)
+    at = a8.requant_a8(torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    xq = torch.empty((m, k), dtype=torch.int8, device=cuda)
+    sx = torch.empty((m,), dtype=torch.float32, device=cuda)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.lib()
+    _build.check(lib.wmt_a8_quantize(x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, 1, stream),
+                 "wmt_a8_quantize")
+    _build.check(lib.wmt_a8_gemm(xq.data_ptr(), sx.data_ptr(), at.codes.data_ptr(),
+                                 at.scale.data_ptr(), out.data_ptr(), m, n, k, 1, nt, cluster,
+                                 4 if nt == 128 else 2, stream), "wmt_a8_gemm")
+    torch.cuda.synchronize()
+    assert torch.equal(out, a8.a8_matmul_plain(x, at))
 
 
 def _sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 24])
+@pytest.mark.parametrize("bits,codes,gs", [
+    (4, False, 16), (4, False, 48), (4, False, 80), (4, False, 96), (4, True, 16),
+    (4, True, 48), (4, True, 80), (4, True, 96), (8, False, 8), (8, False, 48), (4, False, 8)])
+def test_mbt_group_sizes_match_plain(cuda, m, bits, codes, gs):
+    """K6 at group sizes the reference takes that neither the tensor-core
+    GEMV nor the tiled core does (F4): the SIMT GEMV's slot carries every
+    group its codes touch. Packed and codes-resident, 1, 8 and 24 rows."""
+    k, n = 1920 if gs in (48, 80, 96) else 2048, 300
+    gen = torch.Generator(device=cuda).manual_seed(m + gs + bits)
+    qt = mb.transpose_quant(tq.quantize(torch.randn((n, k), generator=gen, device=cuda)
+                                        / k ** 0.5, bits=bits, group_size=gs),
+                            tile_n=16, depth=2, codes=codes)
+    assert qt.codes_resident == codes
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    before = mb.LAUNCHES
+    got = tq.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES == before + 1
+    ref = mb.quant_matmul_mbt_plain(x, qt)
+    assert _max_err(got, ref) <= 1e-2 * max(1.0, ref.float().abs().max().item())
+    assert torch.equal(got, tq.quant_matmul(x, qt))
 
 
 @pytest.mark.cuda

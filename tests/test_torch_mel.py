@@ -121,3 +121,87 @@ def test_load_audio_rejects_non_wav(tmp_path):
     p.write_bytes(b"ID3")
     with pytest.raises(RuntimeError, match="M7"):
         t_decode.load_audio(p)
+
+
+@pytest.mark.parametrize("n_frames", [1, 31, 32, 33, 3000, 9500, 24000])
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_plan_covers_every_bin_and_frame_once(n_frames, n_mels):
+    """csrc/mel.cu's grid: every frame in one cluster, the cluster's blocks
+    taking the 208 padded bins and then the mels, each exactly once."""
+    p = mk.mel_plan(n_frames, n_mels)
+    frames = np.zeros(p["clusters"] * p["frames"], np.int64)
+    bins = np.zeros(mk.N_BINS_PAD, np.int64)
+    mels = np.zeros(p["blocks"] * p["mels"], np.int64)
+    for c in range(p["clusters"]):
+        frames[c * p["frames"]:(c + 1) * p["frames"]] += 1
+    for r in range(p["blocks"]):
+        bins[r * p["bins"]:(r + 1) * p["bins"]] += 1
+        mels[r * p["mels"]:(r + 1) * p["mels"]] += 1
+    assert (frames[:n_frames] == 1).all() and frames.size - n_frames < p["frames"]
+    assert (bins == 1).all() and p["blocks"] * p["bins"] == mk.N_BINS_PAD
+    assert (mels[:n_mels] == 1).all() and mels.size - n_mels < p["blocks"]
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_tables(n_mels):
+    """The bases hold each bin's cosine and sine side by side, a block's 52
+    bins (104 columns) contiguous, the padded bins zero; every
+    filter is zero outside its [lo, hi), so the kernel's sum over that range
+    in bin order is the dense loop's, bit for bit (float32, emulated)."""
+    blocks, fb_t, ranges = mk._padded_tables(n_mels)
+    assert blocks.shape == (mk.CLUSTER, 400, 2 * mk.BINS_A_BLOCK)
+    basis = np.concatenate(list(blocks), axis=1)  # block r's columns side by side
+    w_real, w_imag = t_mel._dft_bases()
+    np.testing.assert_array_equal(basis[:, 0:402:2], w_real)
+    np.testing.assert_array_equal(basis[:, 1:402:2], w_imag)
+    assert not basis[:, 402:].any()
+    np.testing.assert_array_equal(fb_t[:201], t_mel.mel_filterbank(n_mels).T)
+    assert not fb_t[201:].any()
+    for mel, (lo, hi) in enumerate(ranges):
+        assert not fb_t[:lo, mel].any() and not fb_t[hi:, mel].any()
+        assert lo < hi and fb_t[lo, mel] != 0 and fb_t[hi - 1, mel] != 0
+    power = np.random.default_rng(n_mels).random((4, mk.N_BINS_PAD)).astype(np.float32)
+    for f in range(power.shape[0]):
+        for mel, (lo, hi) in enumerate(ranges):
+            dense = np.float32(0)
+            for b in range(mk.N_BINS_PAD):
+                dense = np.float32(dense + np.float32(power[f, b] * fb_t[b, mel]))
+            sparse = np.float32(0)
+            for b in range(lo, hi):
+                sparse = np.float32(sparse + np.float32(power[f, b] * fb_t[b, mel]))
+            assert dense == sparse
+
+
+@pytest.mark.parametrize("n_frames", [1, 33, 3000])
+def test_mel_kernel_dataflow_matches_plain(n_frames):
+    """The kernel's data flow in plain PyTorch on the CPU: each block's
+    interleaved columns give its bins' re and im, the cluster's spectra
+    are gathered, each mel sums its [lo, hi): within 2e-4 of the plain
+    version and of the JAX package's XLA mel."""
+    n_mels = 128
+    rng = np.random.default_rng(n_frames)
+    frames = torch.from_numpy((rng.standard_normal((n_frames, 400)) * 0.1).astype(np.float32))
+    basis, fb_t, ranges = (torch.from_numpy(a) for a in mk._padded_tables(n_mels))
+    p = mk.mel_plan(n_frames, n_mels)
+    out = torch.empty((n_frames, n_mels))
+    for c in range(p["clusters"]):
+        tile = frames[c * p["frames"]:(c + 1) * p["frames"]]
+        spectra = []
+        for r in range(p["blocks"]):
+            cols = tile @ basis[r]
+            spectra.append(cols[:, 0::2] ** 2 + cols[:, 1::2] ** 2)
+        spec = torch.cat(spectra, dim=1)
+        for r in range(p["blocks"]):
+            for mel in range(r * p["mels"], min((r + 1) * p["mels"], n_mels)):
+                lo, hi = ranges[mel].tolist()
+                acc = spec[:, lo:hi] @ fb_t[lo:hi, mel]
+                out[c * p["frames"]:c * p["frames"] + tile.shape[0], mel] = torch.log10(
+                    torch.clamp_min(acc, 1e-10))
+    np.testing.assert_allclose(out.numpy(), mk.log_mel_frames_plain(frames, n_mels).numpy(),
+                               atol=TOL, rtol=0)
+    j_frames = jnp.asarray(frames.numpy())
+    wr, wi = (jnp.asarray(a) for a in j_mel._dft_bases())
+    re, im = j_frames @ wr, j_frames @ wi
+    mel = (re * re + im * im) @ jnp.asarray(j_mel.mel_filterbank(n_mels)).T
+    ref = np.asarray(jnp.log10(jnp.maximum(mel, 1e-10)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)

@@ -416,3 +416,75 @@ def test_mbt_tiled_plan_covers_every_stage_once(n, k, layout):
     from tests.test_torch_quant import check_tiled_plans
 
     check_tiled_plans(n, k, 32 if layout == "packed4" else 64, affine_window=False)
+
+
+# group sizes the reference takes (any multiple of 8 that divides K) that
+# neither K6's tensor-core GEMV (groups of 32 k or more dividing a stage) nor
+# the tiled core (16, 32, multiples of 64) takes at every row count: the
+# SIMT GEMV runs them, its ring slot carrying every group its codes touch
+F4_GROUPS = [(4, False, 8), (4, False, 16), (4, False, 48), (4, False, 80), (4, False, 96),
+             (4, True, 8), (4, True, 16), (4, True, 48), (4, True, 80), (4, True, 96),
+             (8, False, 8), (8, False, 16), (8, False, 48), (8, False, 96)]
+
+
+@pytest.mark.parametrize("bits,codes,gs", F4_GROUPS)
+@pytest.mark.parametrize("n,k", [(300, 1920), (5120, 3840), (151936, 960), (10240, 4800)])
+def test_mbt_route_takes_every_group_size(bits, codes, gs, n, k):
+    """At 1, 8, 24 and 512 rows, bf16 and fp32 x, K6's route function sends
+    each group size to a kernel that takes it: the tensor-core GEMV, the
+    tiled core, or the SIMT GEMV with a plan whose slots hold the affines
+    of every group their codes touch and whose ring fits shared memory."""
+    q = tq.quantize(torch.zeros((16, k)), bits=bits, group_size=gs)
+    qt = tmb.transpose_quant(q, tile_n=16, depth=8, codes=codes)
+    vpe = 1 if codes else 32 // bits
+    slot_k = tmb._SLOT_ROWS[codes] * vpe
+    for m in (1, 8, 24, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            route = tmb.mbt_route(m, k, dtype, qt)
+            if route == "mma":
+                assert tmb.mma_route(dtype, qt) and (m <= 8 or k % 64)
+            elif route == "tiled":
+                assert dtype == torch.bfloat16 and m > 8 and k % 64 == 0
+                plan = tmb.tiled_plan(m, n, k, gs, 32 if bits == 4 and not codes else 64, 132)
+                assert plan.units * plan.cluster >= plan.cluster
+            else:
+                assert route == "simt"
+                splits, per_split, stages = tmb.simt_plan(m, n, k, qt, 132)
+                assert per_split % tmb._SLOT_ROWS[codes] == 0 and splits * per_split >= k // vpe
+                assert (splits - 1) * per_split < k // vpe and 1 <= stages <= 8
+                # every slot starts on a multiple of slot_k: the groups its
+                # codes touch fit the slot's affine room
+                ng = -(-slot_k // gs) + 1
+                assert ng <= tmb._SIMT_MAX_GROUPS
+                touched = max((k0 + slot_k - 1) // gs - k0 // gs + 1
+                              for k0 in range(0, k, slot_k))
+                assert touched <= ng
+                xg = 8 * (per_split * vpe // gs + 2) * 4
+                assert stages * (tmb._SLOT_CODES + 2 * ng * 256 * 4) + xg <= tmb._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bits,codes,gs", F4_GROUPS)
+def test_mbt_plain_matches_pallas_f4_groups(bits, codes, gs):
+    """K6's plain version at those group sizes against the reference's
+    Pallas kernel in interpret mode, fp32 x."""
+    rng = np.random.default_rng(gs * 10 + bits + codes)
+    n, k, m = 200, 960, 3
+    w_q, s, b = jq.quantize(rng.standard_normal((n, k)).astype(np.float32), bits, gs)
+    q = jq.QuantTensor(jnp.asarray(w_q), jnp.asarray(s), jnp.asarray(b), bits, gs)
+    jqt = jmb.transpose_quant(q, tile_n=128, depth=2, codes=codes)
+    tqt = tmb.transpose_quant(_port(q), tile_n=128, depth=2, codes=codes)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    ref = np.asarray(jmb.quant_matmul_mbt.__wrapped__(jnp.asarray(x), jqt, None, None, True))
+    got = tmb.quant_matmul_mbt(torch.from_numpy(x), tqt)
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_simt_plan_raises_not_implemented_naming_f4(monkeypatch):
+    """A group size whose slot or ring cannot fit raises NotImplementedError
+    naming F4, never an opaque CUDA error: here a slot room of one group."""
+    q = tq.quantize(torch.zeros((16, 512)), bits=4, group_size=8)
+    qt = tmb.transpose_quant(q, tile_n=16, depth=2)
+    monkeypatch.setattr(tmb, "_SIMT_MAX_GROUPS", 1)
+    with pytest.raises(NotImplementedError, match="F4"):
+        tmb.simt_plan(1, 300, 512, qt, 132)

@@ -44,22 +44,46 @@
 //   through the swizzle; B x's rows, zero past M), an exact sum. The
 //   blocks of a cluster push their int32 partials to the output's owner
 //   through distributed shared memory, which sums them in block order.
-// - a8_quantize_kernel + a8_gemm_kernel (M > 8, K a multiple of 64): x's
-//   rows quantized into device memory by one block each, then 64 x 64
-//   output tiles, K in steps of 64; the quantized x tile and the code tile
-//   go to shared memory in 16-wide k slices and wmma s8 x s8 -> s32
-//   multiplies them. Not yet TMA or wgmma: later work.
+// - a8_quantize_kernel, then a8_gemm_kernel (M > 8, K a multiple of 64):
+//   x's rows quantized into device memory by a block each (16-byte loads
+//   held in registers, the row's absmax, true division, round half to
+//   even), then the Hopper tiled GEMM. What bounds it: a prefill's 128-512
+//   rows are a GEMM near the ridge (one Qwen3-32B layer's four linears at
+//   384 rows: 374.5 GOP, 0.189 ms at 1,979 TOP/s, against 0.15 ms of
+//   codes). The design:
+//   * both operands K-major through a TMA ring: the codes (N, K) are
+//     wgmma's A (64 channels a consumer warpgroup, one or two 64-channel
+//     tiles), x's quantized rows its N (16, 32, 64 or 128 a block), both
+//     read by wgmma.m64nNk32.s32.s8.s8 from shared memory in the 128-byte
+//     swizzle TMA writes (8-bit wgmma takes no transpose, and neither
+//     operand needs one);
+//   * stages of 128 k, one swizzle row a channel and a row of x, in a ring
+//     of 2-8 with full and empty mbarriers; the producer warpgroup (24
+//     registers; a lone producer warp's setmaxnreg never returned,
+//     attn_tile.cuh) has one lane issue the boxes, fencing the async
+//     proxy after each empty wait; K's tail past a multiple of 128 is
+//     zero-filled by TMA;
+//   * blocks of 128 channels x 16, 32 or 64 rows up to 128 rows, 256 x 128
+//     above, one an SM with the deepest ring that fits (8 stages below 128
+//     rows: bytes in flight gave more than a second block an SM); where the
+//     grid would not fill the card, K split across a cluster of 1, 2, 4 or
+//     8 blocks below 128 rows a block (the wrapper's plan,
+//     ops/quant_a8.py:a8_tiled_plan), whose int32 partials are summed in
+//     block order through distributed shared memory (each block owning a
+//     chunk of every thread's accumulators, stored as the unsplit epilogue
+//     stores them): integer sums, exact, so the result does not depend on
+//     the split;
+//   * the epilogue in registers, (float(acc) * s_n) * sx_m and the cast:
+//     the plain version's roundings, so the route is bit-equal to it.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "attn_tile.cuh"
 #include "sm90_async.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -74,39 +98,6 @@ __device__ __forceinline__ float x_at(const void* x, size_t i) {
   } else {
     return reinterpret_cast<const float*>(x)[i];
   }
-}
-
-// ---------------------------------------------------------------------------
-// per-row dynamic int8 quantization of x
-// ---------------------------------------------------------------------------
-
-constexpr int Q_THREADS = 256;
-
-template <bool BF16>
-__global__ void __launch_bounds__(Q_THREADS)
-a8_quantize_kernel(const void* __restrict__ x, int8_t* __restrict__ xq,
-                   float* __restrict__ sx, int k) {
-  __shared__ float part[Q_THREADS / 32];
-  const size_t row = (size_t)blockIdx.x * k;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < k; i += Q_THREADS) {
-    amax = fmaxf(amax, fabsf(x_at<BF16>(x, row + i)));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
-  if (lane == 0) part[warp] = amax;
-  __syncthreads();
-  amax = 0.f;
-#pragma unroll
-  for (int j = 0; j < Q_THREADS / 32; ++j) amax = fmaxf(amax, part[j]);
-  const float scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
-  for (int i = threadIdx.x; i < k; i += Q_THREADS) {
-    const float q = rintf(__fdiv_rn(x_at<BF16>(x, row + i), scale));  // half to even
-    xq[row + i] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
-  }
-  if (threadIdx.x == 0) sx[blockIdx.x] = scale;
 }
 
 template <bool BF16>
@@ -417,82 +408,439 @@ a8_gemv_kernel(const __grid_constant__ CUtensorMap cmap, const void* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: more rows, int8 tensor cores
+// More rows: x quantized by a launch of its own, then the tiled GEMM on
+// wgmma s8 from a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int TM = 64;
-constexpr int TN = 64;
-constexpr int TK = 64;
-constexpr int KS = 16;  // k slice of one wmma step
-constexpr int GM_THREADS = 128;
-constexpr int LDC = TN + 4;  // int32 row stride of the output tile
+constexpr int Q_THREADS = 256;
+constexpr int Q_HELD = 4;  // 16-byte vectors a thread keeps in registers (a bf16 row of 8192)
 
-using IFragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-using IFragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
-using IFragC = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
+// Row blockIdx.x of x quantized: xq = clip(rint(x / sx), +-127), sx =
+// max(amax, 1e-8) / 127 (true divisions). A thread's 16-byte vectors are
+// all loaded before the row's absmax is reduced (one round trip to memory)
+// and kept in registers for the quantization; a longer row's rest is
+// loaded again (from L1 or L2). k a multiple of 8 (bf16) or 4 (fp32).
 template <bool BF16>
-__global__ void __launch_bounds__(GM_THREADS)
-a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-               const int8_t* __restrict__ codes, const float* __restrict__ scale,
-               void* __restrict__ out, int m, int n, int k) {
-  // tiles stored as 16-wide k slices (slice, row, 16): every fragment
-  // pointer is 32-byte aligned and its leading dimension is 16
-  __shared__ __align__(128) signed char as[TK / KS][TM][KS];
-  __shared__ __align__(128) signed char bs[TK / KS][TN][KS];
-  __shared__ __align__(128) int cs[TM * LDC];
+__global__ void __launch_bounds__(Q_THREADS)
+a8_quantize_kernel(const void* __restrict__ x, int8_t* __restrict__ xq,
+                   float* __restrict__ sx, int k) {
+  constexpr int VEC = BF16 ? 8 : 4;
+  __shared__ float part[Q_THREADS / 32];
+  const size_t row = (size_t)blockIdx.x * k;
+  const int nv = k / VEC;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-
-  IFragC acc[TN / 16];
+  uint4 held[Q_HELD];
+  float amax = 0.f;
+  auto absmax = [&](uint4 u) {
+    float v[VEC];
+    x_unpack<BF16>(u, v);
 #pragma unroll
-  for (int j = 0; j < TN / 16; ++j) wmma::fill_fragment(acc[j], 0);
-
-  for (int k0 = 0; k0 < k; k0 += TK) {
-    __syncthreads();
-    for (int i = tid; i < TM * (TK / KS); i += GM_THREADS) {
-      const int r = i / (TK / KS);
-      const int q = i % (TK / KS);
-      int4 a = make_int4(0, 0, 0, 0);
-      int4 b = make_int4(0, 0, 0, 0);
-      if (m0 + r < m) {
-        a = __ldg(reinterpret_cast<const int4*>(xq + (size_t)(m0 + r) * k + k0) + q);
-      }
-      if (n0 + r < n) {
-        b = __ldg(reinterpret_cast<const int4*>(codes + (size_t)(n0 + r) * k + k0) + q);
-      }
-      *reinterpret_cast<int4*>(&as[q][r][0]) = a;
-      *reinterpret_cast<int4*>(&bs[q][r][0]) = b;
-    }
-    __syncthreads();
+    for (int e = 0; e < VEC; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  };
 #pragma unroll
-    for (int q = 0; q < TK / KS; ++q) {
-      IFragA fa;
-      wmma::load_matrix_sync(fa, &as[q][warp * 16][0], KS);
-#pragma unroll
-      for (int j = 0; j < TN / 16; ++j) {
-        IFragB fb;
-        wmma::load_matrix_sync(fb, &bs[q][j * 16][0], KS);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
+  for (int j = 0; j < Q_HELD; ++j) {
+    const int p = tid + Q_THREADS * j;
+    if (p < nv) held[j] = x_raw<BF16>(x, row + (size_t)p * VEC);
   }
 #pragma unroll
-  for (int j = 0; j < TN / 16; ++j) {
-    wmma::store_matrix_sync(cs + (warp * 16) * LDC + j * 16, acc[j], LDC, wmma::mem_row_major);
+  for (int j = 0; j < Q_HELD; ++j) {
+    if (tid + Q_THREADS * j < nv) absmax(held[j]);
+  }
+  for (int p = tid + Q_THREADS * Q_HELD; p < nv; p += Q_THREADS) {
+    absmax(x_raw<BF16>(x, row + (size_t)p * VEC));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
+  if ((tid & 31) == 0) part[tid >> 5] = amax;
+  __syncthreads();
+  amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < Q_THREADS / 32; ++j) amax = fmaxf(amax, part[j]);
+  const float scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  auto quantize = [&](uint4 u, int p) {
+    float v[VEC];
+    x_unpack<BF16>(u, v);
+    uint32_t packed[VEC / 4] = {};
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {  // true division, round half to even
+      const float q = fminf(fmaxf(rintf(__fdiv_rn(v[e], scale)), -127.f), 127.f);
+      packed[e / 4] |= ((uint32_t)(int)q & 0xffu) << (8 * (e % 4));
+    }
+    store_codes<BF16>(xq + row + (size_t)p * VEC, packed);
+  };
+#pragma unroll
+  for (int j = 0; j < Q_HELD; ++j) {
+    if (tid + Q_THREADS * j < nv) quantize(held[j], tid + Q_THREADS * j);
+  }
+  for (int p = tid + Q_THREADS * Q_HELD; p < nv; p += Q_THREADS) {
+    quantize(x_raw<BF16>(x, row + (size_t)p * VEC), p);
+  }
+  if (tid == 0) sx[blockIdx.x] = scale;
+}
+
+namespace tiled8 {
+
+constexpr int THREADS = 384;    // two consumer warpgroups and one producer warpgroup
+constexpr int CONSUMERS = 256;
+constexpr int SK = 128;         // k of a ring stage: one 128-byte swizzle row
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int SMEM_LIMIT = 227 * 1024;
+// setmaxnreg at 128 rows: 2 x 128 x 240 + 128 x 24 = 64,512, the 168 a
+// thread ptxas gives a block of 384 at entry
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
+
+// 64-channel A tiles of a consumer warpgroup, and a block's channels
+__host__ __device__ constexpr int tiles_of(int nt) { return nt == 128 ? 2 : 1; }
+__host__ __device__ constexpr int cols_of(int nt) { return 128 * tiles_of(nt); }
+
+// Shared memory (mirrored by ops/quant_a8.py:_tiled_smem): `stages` slots
+// of [codes cols x 128 B | x nt x 128 B], each a multiple of 1024 bytes
+// (the swizzle's period), then the full and empty barriers; 1024 bytes
+// more to align the base.
+struct Layout {
+  int x, slot, bars, bytes;
+  __host__ __device__ Layout(int nt, int stages) {
+    x = cols_of(nt) * SK;
+    slot = x + nt * SK;
+    bars = stages * slot;
+    bytes = bars + 2 * stages * 8 + 1024;
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_iregs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x N] += A[64 x 32] . B[32 x N], s8 x s8 -> s32, A (the codes) and B
+// (x's rows) K-major in shared memory; generated, one asm statement a shape.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<16>(int (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// (float(acc) * s_n) * s_m into out[row, col], in x's dtype
+template <bool BF16>
+__device__ __forceinline__ void put(void* out, int m, int n, int row, int col, int acc, float s_n,
+                                    float s_m) {
+  if (row < m && col < n) store_out<BF16>(out, (size_t)row * n + col, acc, s_n, s_m);
+}
+
+// Block (rank r of a cluster of C along grid.x, row block blockIdx.y of NT
+// rows, column block blockIdx.z of cols_of(NT) channels; the row blocks of
+// a column block run next to each other, so its codes come from device
+// memory once) takes K's 128-k stages [r * U / C, (r + 1) * U / C).
+template <int NT, bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+a8_gemm_kernel(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap xmap,
+               const float* __restrict__ sx, const float* __restrict__ scale,
+               void* __restrict__ out, int m, int n, int k, int stages) {
+  constexpr int TILES = tiles_of(NT);
+  constexpr int COLS = cols_of(NT);
+  constexpr int NA = NT / 2;  // accumulator registers of one 64-channel tile
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from the array, so the compiler keeps the shared
+  // address space
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const Layout L(NT, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  // the warp's index, known warp-uniform to the compiler (a role branch on
+  // threadIdx alone made ptxas serialize wgmma in the tiled core)
+  const int warp_id = __shfl_sync(FULL, tid >> 5, 0);
+  const int m0 = blockIdx.y * NT;
+  const int n0 = blockIdx.z * COLS;
+  const int units = (k + SK - 1) / SK;
+  const int u0 = rank * units / csize;
+  const int ns = (rank + 1) * units / csize - u0;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  for (int i = tid; i < TM * TN; i += GM_THREADS) {
-    const int r = i / TN;
-    const int c = i % TN;
-    if (m0 + r < m && n0 + c < n) {
-      store_out<BF16>(out, (size_t)(m0 + r) * n + n0 + c, cs[r * LDC + c], __ldg(scale + n0 + c),
-                      __ldg(sx + m0 + r));
+
+  if (warp_id >= CONSUMERS / 32) {
+    if constexpr (NT == 128) attn::regs_dec<PRODUCER_REGS>();
+    if (warp_id == CONSUMERS / 32 && lane == 0) {
+      // the ring's loads, `stages` ahead of the consumers
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < ns; ++i) {
+        if (i >= stages) {
+          mbar_wait(&empty[slot], phase ^ 1u);
+          fence_proxy_async();  // the consumers' reads of the slot before TMA's writes
+        }
+        unsigned char* st = smem + slot * L.slot;
+        const int k0 = (u0 + i) * SK;
+        mbar_expect_tx(&full[slot], (COLS + NT) * SK);
+        tma_load_2d(st, &cmap, &full[slot], k0, n0);
+        tma_load_2d(st + L.x, &xmap, &full[slot], k0, m0);
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    if (csize > 1) {  // the consumers' cluster sum
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+
+  if constexpr (NT == 128) attn::regs_inc<CONSUMER_REGS>();
+  const int wg = warp_id >> 2;
+  const int wt = tid & 127;
+  const int warp = warp_id & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  int acc[TILES][NA];
+#pragma unroll
+  for (int tau = 0; tau < TILES; ++tau) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[tau][i] = 0;
+  }
+  // Each stage: four k steps of 32 a tile in one commit group; the group
+  // before it completes (wait_group 1) before its slot is released, so one
+  // group runs while the next stage's wait and issue go on.
+  int slot = 0, held = -1;
+  uint32_t phase = 0;
+  for (int i = 0; i < ns; ++i) {
+    mbar_wait(&full[slot], phase);
+    const unsigned char* st = smem + slot * L.slot;
+    attn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SK / 32; ++kk) {
+      const uint64_t db = attn::sw128_desc(st + L.x + 32 * kk, 16, 1024);
+#pragma unroll
+      for (int tau = 0; tau < TILES; ++tau) {
+        wgmma_s8<NT>(acc[tau],
+                     attn::sw128_desc(st + (wg * TILES + tau) * 64 * SK + 32 * kk, 16, 1024), db);
+      }
+    }
+    attn::wgmma_commit();
+    wgmma_wait<1>();
+    if (held >= 0) mbar_arrive(&empty[held]);  // every consumer thread: no divergent branch
+    held = slot;
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int tau = 0; tau < TILES; ++tau) fence_iregs(acc[tau]);
+
+  // acc[tau][4j + e]: channel (wg * TILES + tau) * 64 + 16 warp + g + 8 (e >> 1),
+  // row 8 j + 2 t + (e & 1)
+  if (csize == 1) {
+#pragma unroll
+    for (int tau = 0; tau < TILES; ++tau) {
+      const int c0 = n0 + (wg * TILES + tau) * 64 + 16 * warp + g;
+      const float s0 = c0 < n ? __ldg(scale + c0) : 0.f;
+      const float s1 = c0 + 8 < n ? __ldg(scale + c0 + 8) : 0.f;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int r = m0 + 8 * j + 2 * t;
+        const float x0 = r < m ? __ldg(sx + r) : 0.f;
+        const float x1 = r + 1 < m ? __ldg(sx + r + 1) : 0.f;
+        put<BF16>(out, m, n, r, c0, acc[tau][4 * j], s0, x0);
+        put<BF16>(out, m, n, r + 1, c0, acc[tau][4 * j + 1], s0, x1);
+        put<BF16>(out, m, n, r, c0 + 8, acc[tau][4 * j + 2], s1, x0);
+        put<BF16>(out, m, n, r + 1, c0 + 8, acc[tau][4 * j + 3], s1, x1);
+      }
+    }
+    return;
+  }
+  // The cluster's sum through the ring (every block is past its main loop
+  // after the first barrier): each consumer thread's V accumulators (v =
+  // tau * NA + i) fall into C chunks of cs = V / C; block b owns chunk b of
+  // every thread and receives it from the same thread of every block, four
+  // neighbouring values in one 16-byte store where a chunk holds whole
+  // fours: red4[(src * cs / 4 + v % cs / 4) * CONSUMERS + thread] (a warp's
+  // stores contiguous: no bank conflicts), else one value a store:
+  // red[(src * cs + v % cs) * CONSUMERS + thread]. It sums them in block
+  // order and stores as the epilogue above does, coalesced alike.
+  constexpr int V = TILES * NA;
+  int* red = reinterpret_cast<int*>(smem);
+  const int cs = V / csize;  // a power of two: V is one, csize 2, 4 or 8
+  const bool quad = cs % 4 == 0;
+  cluster.sync();
+#pragma unroll
+  for (int tau = 0; tau < TILES; ++tau) {
+#pragma unroll
+    for (int i = 0; i < NA; i += 4) {
+      const int v = tau * NA + i;
+      if (quad) {
+        reinterpret_cast<int4*>(cluster.map_shared_rank(red, v / cs))
+            [(rank * (cs / 4) + v % cs / 4) * CONSUMERS + tid] =
+            make_int4(acc[tau][i], acc[tau][i + 1], acc[tau][i + 2], acc[tau][i + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          cluster.map_shared_rank(red, (v + e) / cs)[(rank * cs + (v + e) % cs) * CONSUMERS + tid] =
+              acc[tau][i + e];
+        }
+      }
+    }
+  }
+  cluster.sync();
+#pragma unroll
+  for (int tau = 0; tau < TILES; ++tau) {
+    const int c0 = n0 + (wg * TILES + tau) * 64 + 16 * warp + g;
+#pragma unroll
+    for (int i = 0; i < NA; i += 4) {
+      const int v = tau * NA + i;
+      int sum[4] = {0, 0, 0, 0};
+      bool mine[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[e] = (v + e) / cs == rank;
+      if (quad) {
+        if (mine[0]) {
+          for (int src = 0; src < csize; ++src) {  // block 0 first
+            const int4 p = reinterpret_cast<const int4*>(red)[(src * (cs / 4) + v % cs / 4) *
+                                                               CONSUMERS + tid];
+            sum[0] += p.x;
+            sum[1] += p.y;
+            sum[2] += p.z;
+            sum[3] += p.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (mine[e]) {
+            for (int src = 0; src < csize; ++src) {
+              sum[e] += red[(src * cs + (v + e) % cs) * CONSUMERS + tid];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 8 * (((i + e) >> 1) & 1);
+        const int row = m0 + 8 * ((i + e) >> 2) + 2 * t + ((i + e) & 1);
+        if (mine[e] && row < m && col < n) {
+          store_out<BF16>(out, (size_t)row * n + col, sum[e], __ldg(scale + col), __ldg(sx + row));
+        }
+      }
     }
   }
 }
+
+// The tiled GEMM's launch: nt, cluster and stages from the wrapper's plan
+// (ops/quant_a8.py:a8_tiled_plan), checked here.
+template <bool BF16>
+int launch(const void* xq, const void* sx, const void* codes, const void* scale, void* out, int m,
+           int n, int k, int nt, int cluster, int stages, cudaStream_t s) {
+  if (m < 1 || n < 1 || k < 64 || k % 64) return (int)cudaErrorInvalidValue;
+  if (nt != 16 && nt != 32 && nt != 64 && nt != 128) return (int)cudaErrorInvalidValue;
+  const int units = (k + SK - 1) / SK;
+  if (cluster < 1 || cluster > MAX_CLUSTER || cluster > units || stages < 2 ||
+      stages > MAX_STAGES) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int cols = cols_of(nt);
+  const Layout L(nt, stages);
+  const long long red = cluster > 1 ? 4LL * cols * nt : 0;  // every block's chunks
+  const dim3 grid(cluster, (m + nt - 1) / nt, (n + cols - 1) / cols);
+  if (L.bytes > SMEM_LIMIT || red > (long long)L.bars || grid.y > 65535 || grid.z > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap cmap, xmap;
+  if (!tensor_map_2d(&cmap, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, n, k, k, cols, SK,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, m, k, k, nt, SK,
+                     CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* sxf = (const float*)sx;
+  const float* sc = (const float*)scale;
+#define WMT_A8_TILED(NT)                                                                   \
+  launch_cluster<a8_gemm_kernel<NT, BF16>>(grid, THREADS, L.bytes, cluster, s, cmap, xmap, \
+                                           sxf, sc, out, m, n, k, stages)
+  switch (nt) {
+    case 16: return (int)WMT_A8_TILED(16);
+    case 32: return (int)WMT_A8_TILED(32);
+    case 64: return (int)WMT_A8_TILED(64);
+    default: return (int)WMT_A8_TILED(128);
+  }
+#undef WMT_A8_TILED
+}
+
+}  // namespace tiled8
 
 // The fused GEMV's launch: a cluster of `cluster` blocks splits K (the
 // wrapper's plan: ops/quant_a8.py:a8_gemv_plan), `stages` ring stages.
@@ -532,7 +880,7 @@ extern "C" int wmt_a8_gemv(const void* x, const void* codes, const void* scale, 
 
 extern "C" int wmt_a8_quantize(const void* x, void* xq, void* sx, int m, int k, int x_bf16,
                                void* stream) {
-  if (m < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || k < 64 || k % 64) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16) {
     a8_quantize_kernel<true><<<m, Q_THREADS, 0, s>>>(x, (int8_t*)xq, (float*)sx, k);
@@ -543,19 +891,11 @@ extern "C" int wmt_a8_quantize(const void* x, void* xq, void* sx, int m, int k, 
 }
 
 extern "C" int wmt_a8_gemm(const void* xq, const void* sx, const void* codes, const void* scale,
-                           void* out, int m, int n, int k, int out_bf16, void* stream) {
-  if (m < 1 || n < 1 || k < TK || k % TK) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+                           void* out, int m, int n, int k, int out_bf16, int nt, int cluster,
+                           int stages, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int8_t* q = (const int8_t*)xq;
-  const float* sxf = (const float*)sx;
-  const int8_t* c = (const int8_t*)codes;
-  const float* sc = (const float*)scale;
   if (out_bf16) {
-    a8_gemm_kernel<true><<<grid, GM_THREADS, 0, s>>>(q, sxf, c, sc, out, m, n, k);
-  } else {
-    a8_gemm_kernel<false><<<grid, GM_THREADS, 0, s>>>(q, sxf, c, sc, out, m, n, k);
+    return tiled8::launch<true>(xq, sx, codes, scale, out, m, n, k, nt, cluster, stages, s);
   }
-  return (int)cudaGetLastError();
+  return tiled8::launch<false>(xq, sx, codes, scale, out, m, n, k, nt, cluster, stages, s);
 }

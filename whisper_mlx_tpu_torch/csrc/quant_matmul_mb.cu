@@ -48,9 +48,12 @@
 //   x comes into shared memory once, in the mma's permuted k order, with
 //   its sums over each group (the bias term xg * b).
 // - mbt_gemv_kernel (fp32 x, 8-bit codes, other group sizes; at most 8
-//   rows or K not a multiple of 64): the first form without its tensor-core
-//   branch, one column a thread in SIMT through a cp.async ring of `depth`
-//   slots; a second kernel sums its K splits.
+//   rows or K not a multiple of 64, and every call whose group size no
+//   other route takes): the first form without its tensor-core branch, one
+//   column a thread in SIMT through a cp.async ring of `depth` slots, each
+//   slot carrying the scales and biases of every group its codes touch
+//   (ceil(slot_k / g) + 1 of them, so any group of a multiple of 8 k runs:
+//   neither has to divide the other); a second kernel sums its K splits.
 // - quant_gemm_kernel (bf16 x, M > 8; quant_tile.cuh, shared with K5): the
 //   Hopper tiled core; ColTiles below reads the N-major words (a box of 8
 //   or 16 word rows x a block's columns, a lane's two neighbouring columns
@@ -77,10 +80,13 @@ using namespace wmt_async;
 
 constexpr int MB_THREADS = 256;  // columns of a block
 constexpr int MB_CODES = 8192;   // code bytes of one ring slot
-constexpr int MB_AFF = 4 * MB_THREADS * 4;  // scales and biases of two groups
 constexpr int MB_ROWS = 8;       // rows of x per block (grid.z walks the rest)
-constexpr int MB_SLOT = MB_CODES + MB_AFF;
 constexpr int MB_MAX_STAGES = 8;
+constexpr int MB_MAX_GROUPS = 64 / 8 + 1;  // groups a slot's 64 k of codes touch at most
+
+// bytes of one ring slot: the codes, then the scales and the biases of its
+// `ng` groups (256 columns each)
+__host__ __device__ constexpr int mb_slot(int ng) { return MB_CODES + 2 * ng * MB_THREADS * 4; }
 constexpr int XG_LANES = 8;    // threads that sum one (row, group) of x
 
 // BITS 4 or 8: packed words; 0: int8 codes, one per byte
@@ -89,7 +95,7 @@ __global__ void __launch_bounds__(MB_THREADS, 4)  // four blocks per SM: at most
 mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
                 const float* __restrict__ scales, const float* __restrict__ biases,
                 void* __restrict__ out, float* __restrict__ partial, int m, int n, int k,
-                int group_size, int np, int stages, int rows_per_split, int xg_stride) {
+                int group_size, int np, int stages, int rows_per_split, int xg_stride, int ng) {
   constexpr int ESZ = BITS ? 4 : 1;            // bytes of one stored element
   constexpr int VPE = BITS ? 32 / BITS : 1;    // k values of one stored element
   constexpr int EPU = 8 / VPE;                 // stored rows of 8 k values
@@ -101,7 +107,8 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
   constexpr uint32_t MASK = BITS ? (1u << BITS) - 1u : 0xffu;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
-  float* xg_s = reinterpret_cast<float*>(smem + stages * MB_SLOT);  // (MB_ROWS, xg_stride)
+  const int slot_bytes = mb_slot(ng);
+  float* xg_s = reinterpret_cast<float*>(smem + stages * slot_bytes);  // (MB_ROWS, xg_stride)
 
   const int tid = threadIdx.x;
   const int col = blockIdx.x * MB_THREADS + tid;
@@ -119,15 +126,9 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
   const int crow = tid / CPR;
   const int ccol = blockIdx.x * MB_THREADS + cc * (16 / ESZ);
   const bool cvalid = ccol < np;
-  // affine copies: 4 columns of scales (which 0, 1: the slot's first group
-  // and the next) or biases (which 2, 3)
-  const int which = tid / (MB_THREADS / 4);
-  const int acol = blockIdx.x * MB_THREADS + (tid % (MB_THREADS / 4)) * 4;
-  const float* asrc = which < 2 ? scales : biases;
-
   auto issue = [&](int slot) {  // copy the split's slot `slot` into the ring
     if (slot < n_slots) {
-      unsigned char* dst = ring + (slot % stages) * MB_SLOT;
+      unsigned char* dst = ring + (slot % stages) * slot_bytes;
       const int r0 = r_begin + slot * SR;
 #pragma unroll
       for (int j = 0; j < COPIES; ++j) {
@@ -136,10 +137,16 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
         const unsigned char* src = ok ? w + ((long long)(r0 + rr) * np + ccol) * ESZ : w;
         cp_async16(dst + rr * ROW_BYTES + cc * 16, src, ok);
       }
-      const int g = r0 * VPE / group_size + (which & 1);
-      const bool ok = g < groups && acol < np;
-      cp_async16(dst + MB_CODES + which * MB_THREADS * 4 + (tid % (MB_THREADS / 4)) * 16,
-                 ok ? asrc + (size_t)g * np + acol : scales, ok);
+      // affine copies: 4 columns of the scales (which < ng: of the slot's
+      // group which) or of the biases (which - ng)
+      for (int c = tid; c < 2 * ng * (MB_THREADS / 4); c += MB_THREADS) {
+        const int which = c / (MB_THREADS / 4);
+        const int acol = blockIdx.x * MB_THREADS + (c % (MB_THREADS / 4)) * 4;
+        const int g = r0 * VPE / group_size + (which < ng ? which : which - ng);
+        const bool ok = g < groups && acol < np;
+        cp_async16(dst + MB_CODES + which * MB_THREADS * 4 + (c % (MB_THREADS / 4)) * 16,
+                   ok ? (which < ng ? scales : biases) + (size_t)g * np + acol : scales, ok);
+      }
     }
     cp_async_commit();  // one group per call, empty or not, so the count holds
   };
@@ -188,7 +195,7 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
     cp_async_wait(stages - 1);  // this thread's copies of `slot` have landed
     __syncthreads();            // ... and every thread's
     if (!active) continue;
-    const unsigned char* sl = ring + (slot % stages) * MB_SLOT;
+    const unsigned char* sl = ring + (slot % stages) * slot_bytes;
     const float* aff = reinterpret_cast<const float*>(sl + MB_CODES);
     const int r0 = r_begin + slot * SR;
     const int units = min(SR, r_end - r0) / EPU;
@@ -204,7 +211,7 @@ mbt_gemv_kernel(const void* __restrict__ x, const unsigned char* __restrict__ w,
       left -= 8;
       if (g != g_have) {
         s = aff[(g - g0) * MB_THREADS + tid];
-        const float b = aff[(2 + g - g0) * MB_THREADS + tid];
+        const float b = aff[(ng + g - g0) * MB_THREADS + tid];
 #pragma unroll
         for (int r = 0; r < MB_ROWS; ++r) {
           if (r < mcount) acc[r] = fmaf(xg_s[r * xg_stride + g - g_begin], b, acc[r]);
@@ -806,12 +813,12 @@ template <int BITS, bool BF16>
 int launch_gemv(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w,
                 const void* scales, const void* biases, void* out, void* partial, int m, int n,
                 int k, int group_size, int np, int stages, int rows_per_split,
-                int xg_stride) {
+                int xg_stride, int ng) {
   const cudaError_t e = wmt_async::allow_smem<mbt_gemv_kernel<BITS, BF16>>(smem);
   if (e != cudaSuccess) return (int)e;
   mbt_gemv_kernel<BITS, BF16><<<grid, MB_THREADS, smem, s>>>(
       x, (const unsigned char*)w, (const float*)scales, (const float*)biases, out,
-      (float*)partial, m, n, k, group_size, np, stages, rows_per_split, xg_stride);
+      (float*)partial, m, n, k, group_size, np, stages, rows_per_split, xg_stride, ng);
   return 0;
 }
 
@@ -880,10 +887,10 @@ extern "C" int wmt_mbt_gemv(const void* x, const void* w, const void* scales,
   const int vpe = bits ? 32 / bits : 1;
   const int slot_rows = MB_CODES / (MB_THREADS * (bits ? 4 : 1));
   const int slot_k = slot_rows * vpe;
-  // a slot's codes touch at most two groups, whose affines ride with them
-  if (2 * group_size < slot_k || (group_size % slot_k && slot_k % group_size)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  // a slot's codes (slot_k k from a multiple of slot_k) touch at most
+  // ceil(slot_k / g) + 1 groups, whose affines ride with them
+  const int ng = (slot_k + group_size - 1) / group_size + 1;
+  if (ng > MB_MAX_GROUPS) return (int)cudaErrorInvalidValue;
   if (stages < 1 || stages > MB_MAX_STAGES || splits < 1 || rows_per_split < 1 ||
       rows_per_split % slot_rows || (long long)splits * rows_per_split < k / vpe ||
       (splits > 1) != (partial != nullptr)) {
@@ -894,12 +901,12 @@ extern "C" int wmt_mbt_gemv(const void* x, const void* w, const void* scales,
   const cudaStream_t s = (cudaStream_t)stream;
   // groups a split touches, a partial one at each end included
   const int xg_stride = rows_per_split * vpe / group_size + 2;
-  const int smem = stages * MB_SLOT + MB_ROWS * xg_stride * 4;
+  const int smem = stages * mb_slot(ng) + MB_ROWS * xg_stride * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   int rc;
 #define WMT_MBT_GEMV(B, F)                                                                 \
   launch_gemv<B, F>(grid, smem, s, x, w, scales, biases, out, partial, m, n, k, group_size, \
-                    np, stages, rows_per_split, xg_stride)
+                    np, stages, rows_per_split, xg_stride, ng)
   if (bits == 4) {
     rc = x_bf16 ? WMT_MBT_GEMV(4, true) : WMT_MBT_GEMV(4, false);
   } else if (bits == 8) {

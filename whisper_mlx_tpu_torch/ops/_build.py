@@ -33,7 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every exported launcher: (argtypes) -> int (cudaError_t)
 SIGNATURES: dict[str, list] = {
-    # frames, cos, sin, fbT, out, n_frames, n_bins, n_mels, stream
+    # frames, basis (cos, sin interleaved), fbT, mel ranges, out, n_frames,
+    # n_bins, n_mels, stream
     "wmt_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, bh, tq, tk, fast_softmax, stream
     "wmt_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -64,8 +65,8 @@ SIGNATURES: dict[str, list] = {
     "wmt_mbt_gemm": [_P] * 5 + [_I] * 9 + [_P],
     # x, xq, sx, m, k, x_bf16, stream
     "wmt_a8_quantize": [_P, _P, _P, _I, _I, _I, _P],
-    # xq, sx, codes, scale, out, m, n, k, out_bf16, stream
-    "wmt_a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xq, sx, codes, scale, out, m, n, k, out_bf16, nt, cluster, stages, stream
+    "wmt_a8_gemm": [_P] * 5 + [_I] * 7 + [_P],
     # x, codes, scale, out, m, n, k, x_bf16, cluster, stages, stream
     "wmt_a8_gemv": [_P] * 4 + [_I] * 6 + [_P],
     # x, xg, w, scales, biases, scale_w, bias_w, out, m, n, k, bits,

@@ -3,7 +3,8 @@
 ``log_mel_frames`` maps frames ``(n_frames, 400)`` fp32, already framed
 and reflect-padded, to the unclamped ``log10`` mel spectrogram
 ``(n_frames, n_mels)`` fp32. On a CUDA tensor it launches the hand-written
-kernel in ``csrc/mel.cu``; on a CPU tensor it runs
+kernel in ``csrc/mel.cu`` (clusters of blocks along the bins of a frame
+tile, as :func:`mel_plan` says); on a CPU tensor it runs
 :func:`log_mel_frames_plain`. The global ``max - 8`` clamp and the
 ``(x + 4) / 4`` scale stay with the caller (``audio/mel.py``).
 
@@ -22,20 +23,54 @@ from whisper_mlx_tpu_torch.ops import _build
 
 LAUNCHES = 0
 N_BINS_PAD = 208  # 201 rfft bins padded to a multiple of 16 with zero columns
+# csrc/mel.cu's launch: a cluster of CLUSTER blocks takes FRAMES frames,
+# block r of it the bins [r * BINS_A_BLOCK, (r + 1) * BINS_A_BLOCK) and
+# then its share of the mels
+CLUSTER = 4
+BINS_A_BLOCK = N_BINS_PAD // CLUSTER
+FRAMES = 32
 
 
 @functools.lru_cache(maxsize=8)
 def _padded_tables(n_mels: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """cos/sin bases ``(400, 208)`` and the transposed filterbank
-    ``(208, n_mels)``; the padded bins carry zero weight."""
+    """The kernel's tables: the bases ``(CLUSTER, 400, 2 * BINS_A_BLOCK)``,
+    block r's bins ``[r * BINS_A_BLOCK, (r + 1) * BINS_A_BLOCK)`` with each
+    bin's cosine and sine side by side (column 2j, 2j + 1 for bin r *
+    BINS_A_BLOCK + j), contiguous for the block; the transposed filterbank
+    ``(208, n_mels)`` (the padded bins carry zero weight); and each mel's
+    nonzero bins ``[lo, hi)`` ``(n_mels, 2)`` int32."""
     w_real, w_imag = _dft_bases(N_FFT)
-    cos_b = np.zeros((N_FFT, N_BINS_PAD), np.float32)
-    sin_b = np.zeros((N_FFT, N_BINS_PAD), np.float32)
-    cos_b[:, :N_FREQS] = w_real
-    sin_b[:, :N_FREQS] = w_imag
+    basis = np.zeros((N_FFT, 2 * N_BINS_PAD), np.float32)
+    basis[:, 0:2 * N_FREQS:2] = w_real
+    basis[:, 1:2 * N_FREQS:2] = w_imag
+    blocks = np.ascontiguousarray(
+        basis.reshape(N_FFT, CLUSTER, 2 * BINS_A_BLOCK).transpose(1, 0, 2))
     fb_t = np.zeros((N_BINS_PAD, n_mels), np.float32)
     fb_t[:N_FREQS] = mel_filterbank(n_mels).T
-    return cos_b, sin_b, fb_t
+    return blocks, fb_t, mel_ranges(fb_t)
+
+
+def mel_ranges(fb_t: np.ndarray) -> np.ndarray:
+    """Each mel's ``[lo, hi)``: its first and one past its last nonzero
+    filterbank bin (``[0, 0)`` for an empty filter), ``(n_mels, 2)`` int32.
+    Summing only these bins in bin order gives the dense loop's sum bit for
+    bit on finite inputs: the terms left out are products with +0."""
+    out = np.zeros((fb_t.shape[1], 2), np.int32)
+    for mel in range(fb_t.shape[1]):
+        nz = np.flatnonzero(fb_t[:, mel])
+        if nz.size:
+            out[mel] = (nz[0], nz[-1] + 1)
+    return out
+
+
+def mel_plan(n_frames: int, n_mels: int) -> dict:
+    """csrc/mel.cu's grid for ``n_frames``: ``clusters`` clusters of
+    ``CLUSTER`` blocks, cluster c taking frames ``[FRAMES * c, FRAMES * (c +
+    1))`` (those past ``n_frames`` zero and not stored), block r of it the
+    bins ``[r * BINS_A_BLOCK, (r + 1) * BINS_A_BLOCK)`` of those frames and
+    the mels ``[r * mels, (r + 1) * mels)`` (those past ``n_mels`` idle)."""
+    return dict(clusters=-(-n_frames // FRAMES), blocks=CLUSTER, frames=FRAMES,
+                bins=BINS_A_BLOCK, mels=-(-n_mels // CLUSTER))
 
 
 @functools.lru_cache(maxsize=8)
@@ -65,12 +100,14 @@ def log_mel_frames(frames: torch.Tensor, n_mels: int) -> torch.Tensor:
     if frames.device.type != "cuda":
         raise ValueError(f"log_mel_frames: unsupported device {frames.device}")
     n_frames = frames.shape[0]
-    cos_b, sin_b, fb_t = _device_tables(frames.device, n_mels)
+    basis, fb_t, ranges = _device_tables(frames.device, n_mels)
     out = torch.empty((n_frames, n_mels), dtype=torch.float32, device=frames.device)
     if n_frames == 0:
         return out
+    if frames.data_ptr() % 16:  # the kernel copies frames 16 bytes at a time
+        frames = frames.clone()
     rc = _build.lib().wmt_log_mel(
-        frames.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), fb_t.data_ptr(),
+        frames.data_ptr(), basis.data_ptr(), fb_t.data_ptr(), ranges.data_ptr(),
         out.data_ptr(), n_frames, N_BINS_PAD, n_mels,
         torch.cuda.current_stream(frames.device).cuda_stream,
     )

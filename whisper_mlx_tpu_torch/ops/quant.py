@@ -380,6 +380,7 @@ def quant_matmul(x: torch.Tensor, q: Any) -> torch.Tensor:
     tensors a bound below 512 raises: it would take calls away from the
     kernels.
     """
+    from whisper_mlx_tpu_torch.ops import quant_a8
     from whisper_mlx_tpu_torch.ops.quant_a8 import A8Tensor, a8_matmul
     from whisper_mlx_tpu_torch.ops.quant_matmul_mb import (
         QuantTensorT,
@@ -395,6 +396,8 @@ def quant_matmul(x: torch.Tensor, q: Any) -> torch.Tensor:
     rows = x.numel() // x.shape[-1]
     if isinstance(q, (A8Tensor, QuantTensorT)):
         if rows > max_rows:
+            if isinstance(q, A8Tensor):
+                quant_a8.ROWS_DEQUANT_CALLS += 1
             return torch.matmul(x, q.dequantize(x.dtype).T)
         return a8_matmul(x, q) if isinstance(q, A8Tensor) else quant_matmul_mbt(x, q)
     _check_leaf(q)

@@ -42,9 +42,14 @@ import torch
 
 from whisper_mlx_tpu_torch.ops import _build
 from whisper_mlx_tpu_torch.ops.quant import QuantTensor
-from whisper_mlx_tpu_torch.ops.quant_matmul import cluster_split
+from whisper_mlx_tpu_torch.ops.quant_matmul import SMEM_LIMIT, cluster_split
 
 LAUNCHES = 0
+TILED_LAUNCHES = 0  # of LAUNCHES, those on the tiled GEMM (more than 8 rows)
+# calls the VMEM rule (a8_fits) sends to dequantize + matmul, and calls past
+# WTPU_QMM_PALLAS_MAX_ROWS that ops/quant.py sends there: no kernel of K7
+VMEM_DEQUANT_CALLS = 0
+ROWS_DEQUANT_CALLS = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -149,6 +154,8 @@ def a8_matmul(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
     if k != at.shape[1]:
         raise ValueError(f"a8_matmul: x {tuple(x.shape)} against weights {at!r}")
     if not a8_fits(at, x.numel() // k):
+        global VMEM_DEQUANT_CALLS
+        VMEM_DEQUANT_CALLS += 1
         return torch.matmul(x, at.dequantize(x.dtype).T)
     return a8_matmul_kernel(x, at)
 
@@ -190,6 +197,82 @@ def a8_gemv_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     return c, _STAGES
 
 
+# csrc/a8_matmul.cu's tiled GEMM (more than 8 rows): x rows a block (the
+# wgmma's N) by the rows of the call, 128 k a ring stage of codes (cols x
+# 128 B) and x (rows x 128 B), 2-8 stages, one block an SM. From sweeps of
+# forced plans over Qwen3-32B's four linears at 24-512 rows on the H100:
+# blocks of 64 rows and 128 channels took qkv, o and down at 128 rows in
+# less time than blocks of 128 x 256, and a ring of 8 stages with one block
+# an SM mostly less than 4 stages with two
+TILED_ROWS = {16: 16, 32: 32, 128: 64}
+_TILED_SK = 128
+_TILED_MAX_STAGES = 8
+# a split's cost to a block (the cluster sum of int32 partials through
+# distributed shared memory, two cluster barriers), in 128-k stages, from
+# the same sweeps: a split paid off only where it kept the grid in one wave
+# over a long K (down at 24-64 rows), and every split of blocks of 128 rows
+# ran as long as the unsplit launch or up to 4x longer, so those take none
+TILED_SPLIT_COST = 32
+
+
+def _tiled_smem(nt: int, stages: int) -> tuple[int, int]:
+    """(a block's dynamic shared memory, its ring's bytes) on the tiled
+    GEMM (``tiled8::Layout``): each stage the codes (``cols`` channels x 128
+    k) and x's rows (``nt`` x 128 k), then two barriers a stage and the room
+    to align."""
+    cols = 256 if nt == 128 else 128
+    slot = (cols + nt) * _TILED_SK
+    return stages * slot + 16 * stages + 1024, stages * slot
+
+
+@dataclasses.dataclass(frozen=True)
+class A8TiledPlan:
+    """A launch of the tiled GEMM: blocks of ``nt`` x rows by ``cols``
+    channels on a grid of ``cluster`` x ``row_blocks`` x ``col_blocks``;
+    block r of a cluster of C takes K's ``units`` 128-k stages ``[r * units
+    // C, (r + 1) * units // C)``; a ring of ``stages``; ``smem`` bytes of
+    shared memory a block, one block an SM."""
+
+    nt: int
+    cols: int
+    row_blocks: int
+    col_blocks: int
+    units: int
+    cluster: int
+    stages: int
+    smem: int
+
+
+def a8_tiled_plan(m: int, n: int, k: int, sms: int) -> A8TiledPlan:
+    """The tiled GEMM's launch for an (m, k) x (n, k) product, K a multiple
+    of 64 (the last stage's upper half zero-filled when K is not one of
+    128): blocks of 16, 32 or 64 rows (up to 16, 32 and 128 rows) and 128
+    channels, or of 128 rows and 256 channels past 128 rows, one block an
+    SM; below 128 rows a block, K split across a cluster of 1, 2, 4 or 8
+    blocks by :func:`~whisper_mlx_tpu_torch.ops.quant_matmul.cluster_split`
+    where the grid would not fill ``sms`` SMs, a split charged
+    ``TILED_SPLIT_COST`` stages; the deepest ring (2-8 stages) shared
+    memory holds, at least the cluster sum's room."""
+    if m <= GEMV_ROWS or k % 64:
+        raise ValueError(f"a8 tiled GEMM: M {m}, K {k}")
+    nt = next((nt for rows, nt in TILED_ROWS.items() if m <= rows), 128)
+    cols = 256 if nt == 128 else 128
+    row_blocks, col_blocks = -(-m // nt), -(-n // cols)
+    units = -(-k // _TILED_SK)
+    # clusters of 1, 2, 4 or 8 blocks (3, 5, 6 or 7 leave SMs of a GPC idle)
+    cluster = 1 if nt == 128 else cluster_split(
+        row_blocks * col_blocks, units, sms, lambda c: True, sizes=(1, 2, 4, 8),
+        split_cost=TILED_SPLIT_COST)
+    red = 4 * cols * nt if cluster > 1 else 0  # every block's chunks of the sums
+    stages = _TILED_MAX_STAGES
+    while stages > 2 and _tiled_smem(nt, stages)[0] > SMEM_LIMIT:
+        stages -= 1
+    smem, ring = _tiled_smem(nt, stages)
+    if smem > SMEM_LIMIT or ring < red:
+        raise ValueError(f"a8 tiled GEMM: no ring fits N {n}, K {k}")
+    return A8TiledPlan(nt, cols, row_blocks, col_blocks, units, cluster, stages, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -197,8 +280,9 @@ def _sm_count(index: int) -> int:
 
 def a8_matmul_kernel(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
     """Kernel K7 on CUDA tensors (the fused GEMV for at most 8 rows or K
-    not a multiple of 64, else quantize x, then the int8 tensor-core
-    tiles); its plain version on CPU tensors."""
+    not a multiple of 64, else x quantized by a launch of its own, then the
+    tiled GEMM as :func:`a8_tiled_plan` says); its plain version on CPU
+    tensors."""
     *lead, k = x.shape
     n = at.n_orig
     if k != at.shape[1]:
@@ -234,13 +318,16 @@ def a8_matmul_kernel(x: torch.Tensor, at: A8Tensor) -> torch.Tensor:
                                      out.data_ptr(), m, n, k, bf16, cluster, stages, stream),
                      "wmt_a8_gemv")
     else:
+        plan = a8_tiled_plan(m, n, k, _sm_count(x.device.index or 0))
         xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
         sx = torch.empty((m,), dtype=torch.float32, device=x.device)
         _build.check(lib.wmt_a8_quantize(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, bf16,
                                          stream), "wmt_a8_quantize")
         _build.check(lib.wmt_a8_gemm(xq.data_ptr(), sx.data_ptr(), codes.data_ptr(),
-                                     at.scale.data_ptr(), out.data_ptr(), m, n, k, bf16, stream),
-                     "wmt_a8_gemm")
+                                     at.scale.data_ptr(), out.data_ptr(), m, n, k, bf16, plan.nt,
+                                     plan.cluster, plan.stages, stream), "wmt_a8_gemm")
+        global TILED_LAUNCHES
+        TILED_LAUNCHES += 1
     global LAUNCHES
     LAUNCHES += 1
     return out.reshape(*lead, n)

@@ -56,10 +56,13 @@ LAUNCHES = 0
 TILED_LAUNCHES = 0  # of LAUNCHES, those on the tiled core
 MAX_STAGES = 8  # ring stages the kernels' shared memory holds
 # csrc/quant_matmul_mb.cu, the SIMT GEMV (fp32 x, 8-bit codes, group sizes
-# the tensor-core route does not take): a block owns 256 columns; a ring
-# slot holds 8 KB of codes, i.e. 8 rows of packed words or 32 rows of codes
+# the other routes do not take): a block owns 256 columns; a ring slot holds
+# 8 KB of codes, i.e. 8 rows of packed words or 32 rows of codes, and the
+# scales and biases of every group they touch
 _BLOCK_COLS = 256
 _SLOT_ROWS = {False: 8, True: 32}  # by codes_resident
+_SLOT_CODES = 8192
+_SIMT_MAX_GROUPS = 64 // 8 + 1  # groups a slot's codes touch at most (64 k, groups of 8)
 # ... and the tensor-core GEMV (bf16 x, 4-bit codes): a block owns 128
 # columns; a stage holds 16 KB of codes, 256 k of packed words or 128 k of
 # codes, and the scales and biases of its groups
@@ -183,6 +186,48 @@ def _gemv_splits(n: int, rows: int, slot_rows: int, sms: int) -> tuple[int, int]
     return -(-slots // per), per * slot_rows
 
 
+def simt_plan(m: int, n: int, k: int, qt: QuantTensorT, sms: int) -> tuple[int, int, int]:
+    """The SIMT GEMV's launch: K's stored rows split for about four blocks
+    an SM (:func:`_gemv_splits`), each slot carrying the affines of the
+    ``ceil(slot_k / g) + 1`` groups its ``slot_k`` k can touch, and the
+    ring as deep as ``qt.depth`` while shared memory holds it. -> (splits,
+    stored rows a split, stages). A group size whose slot or ring cannot
+    fit raises ``NotImplementedError`` (fault F4 of ROADMAP.md)."""
+    codes = qt.codes_resident
+    vpe = 1 if codes else 32 // qt.bits
+    rows = k // vpe
+    splits, per_split = _gemv_splits(n, rows, _SLOT_ROWS[codes], sms)
+    g = qt.group_size
+    ng = -(-_SLOT_ROWS[codes] * vpe // g) + 1
+    xg = 8 * (per_split * vpe // g + 2) * 4
+
+    def smem(stages: int) -> int:
+        return stages * (_SLOT_CODES + 2 * ng * _BLOCK_COLS * 4) + xg
+
+    stages = min(max(qt.depth, 1), MAX_STAGES)
+    while stages > 1 and smem(stages) > _SMEM_LIMIT:
+        stages -= 1
+    if ng > _SIMT_MAX_GROUPS or smem(stages) > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"quant_matmul_mbt: group size {g} at K {k} does not fit the SIMT GEMV on the "
+            "card (fault F4, ROADMAP.md)")
+    return splits, per_split, stages
+
+
+def mbt_route(m: int, k: int, dtype: torch.dtype, qt: QuantTensorT) -> str:
+    """Which kernel of K6 a CUDA call takes: ``"mma"`` (the tensor-core
+    GEMV: at most ``GEMV_ROWS`` rows or K not a multiple of 64, where
+    :func:`mma_route` says), ``"tiled"`` (more bf16 rows, K a multiple of
+    64, groups the tiled core takes) or ``"simt"`` (every other call: fp32
+    x, 8-bit codes, any group of a multiple of 8 k, as
+    :func:`simt_plan` says)."""
+    if (m <= GEMV_ROWS or k % 64) and mma_route(dtype, qt):
+        return "mma"
+    if dtype == torch.float32 or m <= GEMV_ROWS or k % 64 or not tiled_route(qt.group_size):
+        return "simt"
+    return "tiled"
+
+
 def mma_route(dtype: torch.dtype, qt: QuantTensorT) -> bool:
     """Whether a few-row call takes the tensor-core GEMV: bf16 x, 4-bit
     codes (packed or codes-resident), groups of 32 k or more that divide
@@ -236,8 +281,9 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
     kernel K6 on CUDA tensors: at most ``GEMV_ROWS`` rows (or K not a
     multiple of 64) on the tensor-core GEMV in one launch where
     :func:`mma_route` says (bf16 x, 4-bit codes), else on the SIMT ring
-    GEMV (fp32 x, 8-bit codes, other group sizes: a second launch sums
-    its K splits); more bf16 rows on the tiled core (``csrc/quant_tile.cuh``,
+    GEMV (fp32 x, 8-bit codes, group sizes no other route takes, at any row
+    count: a second launch sums its K splits); more bf16 rows on the tiled
+    core (:func:`mbt_route` decides) (``csrc/quant_tile.cuh``,
     one launch, as :func:`~whisper_mlx_tpu_torch.ops.quant_matmul.tiled_plan`
     says)."""
     _check_inputs(x, qt)
@@ -264,23 +310,22 @@ def quant_matmul_mbt(x: torch.Tensor, qt: QuantTensorT) -> torch.Tensor:
     bits = 0 if qt.codes_resident else qt.bits
     np_ = qt.scalest.shape[1]
     sms = _sm_count(x.device.index or 0)
-    if (m <= GEMV_ROWS or k % 64) and mma_route(x.dtype, qt):
+    route = mbt_route(m, k, x.dtype, qt)
+    if route == "mma":
         cluster, stages = mbt_gemv_plan(m, n, k, qt.codes_resident, qt.group_size, qt.depth, sms)
         rc = _build.lib().wmt_mbt_gemv_mma(
             x2.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(), qt.biasest.data_ptr(),
             out.data_ptr(), m, n, k, int(qt.codes_resident), qt.group_size, np_, stages,
             cluster, stream)
         _build.check(rc, "wmt_mbt_gemv_mma")
-    elif x.dtype == torch.float32 or m <= GEMV_ROWS or k % 64 or not tiled_route(qt.group_size):
-        codes = qt.codes_resident
-        rows = k if codes else k // (32 // qt.bits)
-        splits, per_split = _gemv_splits(n, rows, _SLOT_ROWS[codes], sms)
+    elif route == "simt":
+        splits, per_split, stages = simt_plan(m, n, k, qt, sms)
         partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
         rc = _build.lib().wmt_mbt_gemv(
             x2.data_ptr(), qt.wqt.data_ptr(), qt.scalest.data_ptr(), qt.biasest.data_ptr(),
             out.data_ptr(), None if partial is None else partial.data_ptr(), m, n, k, bits,
-            qt.group_size, np_, min(max(qt.depth, 1), MAX_STAGES), splits, per_split,
+            qt.group_size, np_, stages, splits, per_split,
             int(x.dtype == torch.bfloat16), stream)
         _build.check(rc, "wmt_mbt_gemv")
     else:
