@@ -115,14 +115,35 @@ is non-zero and the result line is not printed:
    quantization launch and torch._int_mm over one Qwen3-32B layer's four
    linears at 128, 384 and 512 rows, K1 at 3000 and 9,500 frames, and the
    A8 prefill (16 layers) at 128, 384, 512 and 1536 tokens, for the same
-   use.
+   use;
+22. serve, run in every whole run after phase 15: which WAV reader and DTW
+   ran (the C++ library or NumPy) and whether ffmpeg and aiohttp exist;
+   the tiny config card vs CPU (the batcher on three concurrent requests of
+   65, 20 and 40 s with token agreement per request, the mel windows within
+   MEL_TOL, prefill logits within TINY_LOGIT_TOL, the alignment pass's
+   cross-attention weights within ALIGN_TOL_FP32 at fp32 on the same
+   encoder states and ALIGN_TOL_BF16 end to end, with two controls that
+   must exceed it, the card's weights giving the CPU's alignment path
+   exactly, the words of one text, the batched transcribe with words); then
+   large-v3 at full width (bf16, int4 cross, int8 self, random weights of
+   seed 0): a burst of four requests of 65, 30, 20 and 65 s (8 windows,
+   read by load_audio_serving as int16) through TranscriptionBatcher at the
+   serving knobs' default buckets and flush, one of them streamed, with its
+   windows, batches, fill, wall, audio-s/s, launches and peak memory; one
+   request of 56 windows at the largest default bucket, with its wall and
+   peak memory; then transcribe(batch_windows=True,
+   word_timestamps=True, temperature=(0.0, 1.0)) on the 65 s file (the
+   pending-only retry rung runs once), its rungs, words and stages.
+   Tokens come from a four-letter-word tokenizer (_wordy_tokenizer), so
+   that random weights' segments carry words.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
 11 for K6 and K7, 13 for K10-K12, 15 for K2's bf16-softmax
 mode), with every count set to 0 just before that run; phase 15 also
 prints and checks the launches of K1, K2, K3, K5 and K6 on the 4-bit path
-(the JSON line carries them as ``launches_4bit``, K5's and K6's errors
+(the JSON line carries them as ``launches_4bit``, and K1-K3's launches over
+phase 22's large-v3 runs as ``launches_serve``, K5's and K6's errors
 against their plain versions at the large-v3 shapes as ``max_abs_err_4bit``,
 and K5's 8-row large-v3 step as ``ms_4bit_step_8rows``). The K5 and K6 rows
 also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
@@ -149,6 +170,7 @@ import importlib.util
 import itertools
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -160,6 +182,7 @@ import torch
 import torch.nn.functional as F
 
 from whisper_mlx_tpu_torch import cli
+from whisper_mlx_tpu_torch.audio.decode import load_audio_serving
 from whisper_mlx_tpu_torch.audio.mel import N_SAMPLES, _frame_signal, log_mel_spectrogram
 from whisper_mlx_tpu_torch.checkpoint.io_util import save_safetensors_file
 from whisper_mlx_tpu_torch.checkpoint.quant_loader import export_mlx_whisper, load_mlx_whisper
@@ -171,6 +194,8 @@ from whisper_mlx_tpu_torch.decoding.tokenizer import (
     WhisperTokenizer,
     bytes_to_unicode,
 )
+from whisper_mlx_tpu_torch.inference import transcribe as transcribe_mod
+from whisper_mlx_tpu_torch.inference import word_timestamps as word_timestamps_mod
 from whisper_mlx_tpu_torch.inference.generate import LLMEngine
 from whisper_mlx_tpu_torch.models import qwen as qw
 from whisper_mlx_tpu_torch.models import whisper as tw
@@ -200,6 +225,7 @@ from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.probes import bench_da_ablation, bench_decode_attention, bench_quant_kernel
 from whisper_mlx_tpu_torch.probes.timing import profiled_us, time_us
+from whisper_mlx_tpu_torch.runtime.batcher import TranscriptionBatcher
 from whisper_mlx_tpu_torch.runtime.device import setup_device
 from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
 from whisper_mlx_tpu_torch.serving.chat import QwenModel, serving_config
@@ -971,12 +997,13 @@ def _time_batch(runs: int = 1) -> None:
         (batch, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
     opts = DecodingOptions(sample_len=224, without_timestamps=False)
 
-    def pipeline():
+    def pipeline(options=opts):
         mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
-        return mel, decode(params, mel, tok, config, opts)
+        return mel, decode(params, mel, tok, config, options)
 
     with torch.inference_mode():
-        mel, _ = pipeline()  # warm-up: cuBLAS handles, allocator
+        # warm-up (cuBLAS handles, allocator): 16 steps are enough
+        mel, _ = pipeline(dataclasses.replace(opts, sample_len=16))
         states = encode(params, mel[:1], config)
         init = torch.tensor([tok.sot_sequence], device=dev)
         logits, _ = decode_step(params, init, 0, init_kv_cache(config, 1, dev, 8),
@@ -1132,12 +1159,12 @@ def _time_beam_batch(params, config, tok, audio, runs: int = 1) -> None:
     batch = audio.shape[0]
     opts = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
 
-    def pipeline():
+    def pipeline(options=opts):
         mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
-        return decode(params, mel, tok, config, opts)
+        return decode(params, mel, tok, config, options)
 
     with torch.inference_mode():
-        pipeline()  # warm-up
+        pipeline(dataclasses.replace(opts, sample_len=16))  # warm-up: 16 steps are enough
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -2858,6 +2885,326 @@ def phase_beam_batches() -> None:
     _time_beam_batch(params, config, _bench_tokenizer(config.n_vocab), audio, runs=2)
 
 
+# ---------------------------------------------------------------------------
+# serving: the cross-request batcher and batched transcription with words
+# ---------------------------------------------------------------------------
+
+# the alignment pass's cross-attention weights, card vs CPU: at fp32 on the
+# same encoder states (the route's plain ops, TF32 off), and end to end in
+# the bf16 serving config (the card's encoder on K2, bf16 activations). The
+# weights are near uniform (1/1500 = 6.7e-4 on random weights), so the bf16
+# limit sits between the card's reading (9.8e-5 on the H100) and the two
+# controls the phase prints and requires above it: the next window's
+# weights (3.9e-4) and uniform weights (3.7e-3)
+ALIGN_TOL_FP32 = 1e-5
+ALIGN_TOL_BF16 = 2e-4
+
+
+def _wordy_tokenizer(n_vocab: int):
+    """The real special-token layout over a base vocabulary of the 256
+    byte tokens and 50,001 four-letter ones, every other one opening a word,
+    so that random weights' tokens decode to words (the byte-level
+    _bench_tokenizer leaves most of them without text)."""
+    vocab = {c: i for i, c in enumerate(bytes_to_unicode().values())}
+    for i in range(50257 - 256):
+        letters = "".join(chr(97 + (i // 26 ** k) % 26) for k in range(4))
+        vocab[("\u0120" if i % 2 == 0 else "") + letters] = len(vocab)
+    tok = WhisperTokenizer(ByteLevelBPE(vocab, []), n_base=50257,
+                           num_languages=100 if n_vocab == 51866 else 99)
+    assert tok.n_vocab == n_vocab, (tok.n_vocab, n_vocab)
+    return tok
+
+
+def _request_audio(seconds: float, seed: int) -> np.ndarray:
+    """phase 4's synthetic audio: two tones under a 2.5 Hz envelope and noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    return (0.3 * np.sin(2 * np.pi * (150 + 100 * seed) * t) * (1 + np.sin(2 * np.pi * 2.5 * t))
+            + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def _burst(batcher, audios, stream_index=None):
+    """The requests at once, the one at ``stream_index`` (if any) through
+    stream_transcribe. -> (results, that request's windows in arrival order)."""
+    import asyncio
+
+    async def streamed(audio):
+        events = [ev async for ev in batcher.stream_transcribe(audio)]
+        return ({"segments": [s for ev in events for s in ev["segments"]]},
+                [ev["window"] for ev in events])
+
+    async def run():
+        out = await asyncio.gather(*(streamed(a) if i == stream_index else batcher.transcribe(a)
+                                     for i, a in enumerate(audios)))
+        batcher.shutdown()
+        return out
+
+    out = asyncio.run(run())
+    if stream_index is None:
+        return out, None
+    out[stream_index], order = out[stream_index]
+    return out, order
+
+
+def _check_segments(results, seconds) -> int:
+    """Every segment inside its request's span (its windows), every word
+    with start <= end; -> the number of words."""
+    words = 0
+    for r, sec in zip(results, seconds):
+        span = -(-sec // 30) * 30.0
+        for s in r["segments"]:
+            assert 0.0 <= s["start"] <= s["end"] <= span, (s["start"], s["end"], span)
+            for w in s.get("words") or []:
+                assert w["start"] <= w["end"], w
+                words += 1
+    return words
+
+
+def _serve_tiny() -> None:
+    """The tiny config in the serving config, card vs CPU: the batcher on
+    three concurrent requests, prefill logits, the alignment weights, the
+    words' times, and the batched transcribe with words."""
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    base = WHISPER_CONFIGS["tiny"]
+    params_cpu, config = apply_asr_serving_config(init_params(base, seed=0), base, dev)
+    runs = (("cpu", cpu, params_cpu), ("cuda", dev, _to(params_cpu, dev)))
+    tok = _wordy_tokenizer(config.n_vocab)
+    seconds = (65.0, 20.0, 40.0)
+    audios = [_request_audio(sec, i) for i, sec in enumerate(seconds)]
+
+    def agreement(a, b) -> str:
+        ta = [t for s in a["segments"] for t in s["tokens"]]
+        tb = [t for s in b["segments"] for t in s["tokens"]]
+        same = sum(x == y for x, y in zip(ta, tb))
+        return f"cpu {len(ta)} tokens, cuda {len(tb)}; token agreement {same}/{max(len(ta), len(tb))}"
+
+    results = {}
+    for label, device, params in runs:
+        b = TranscriptionBatcher(params, config, tok, device=device, batch_size=(2, 8),
+                                 max_wait_ms=200, decoding=DecodingOptions(sample_len=64))
+        results[label], _ = _burst(b, audios)
+    for i, (a, b) in enumerate(zip(results["cpu"], results["cuda"])):
+        print(f"  tiny batcher request {i} ({seconds[i]:.0f} s): {agreement(a, b)}")
+    _check_segments(results["cuda"], seconds)
+
+    # the 65 s request's mel windows (K1) and prefill logits, card vs CPU
+    windows = {label: TranscriptionBatcher(p, config, tok, device=d)._windows(audios[0])
+               for label, d, p in runs}
+    _check("tiny batcher mel windows cuda vs cpu", windows["cuda"].cpu(), windows["cpu"], MEL_TOL)
+    mel = windows["cpu"]
+    logits = {}
+    with torch.inference_mode():
+        for label, device, params in runs:
+            states = encode(params, mel.to(device), config)
+            init = torch.tensor([tok.sot_sequence] * 3, device=device)
+            out, _ = decode_step(params, init, 0, init_kv_cache(config, 3, device, 8),
+                                 cross_kv(params, states, config), config)
+            logits[label] = out.float().cpu()
+    ref = logits["cpu"]
+    _check("tiny serve prefill logits cuda vs cpu", logits["cuda"], ref,
+           TINY_LOGIT_TOL * max(1.0, ref.abs().max().item()))
+
+    # the alignment pass's weights, card vs CPU
+    fp = dataclasses.replace(config, kv_bits=0, self_kv_bits=0)
+    f32 = dataclasses.replace(fp, dtype=torch.float32)
+    text = tok.encode(" the quick brown fox jumps over the lazy dog")
+    tokens = list(tok.sot_sequence) + [tok.no_timestamps] + text + [tok.eot]
+    weights = {}
+    with torch.inference_mode():
+        # the control: the CPU's weights of the next window (wrong states)
+        st = encode(params_cpu, mel[1:2], fp)
+        weights["control"] = decode_step(
+            params_cpu, torch.tensor([tokens]), 0, init_kv_cache(fp, 1, cpu),
+            cross_kv(params_cpu, st, fp), fp, collect_cross_attn=True)[2]
+        states = encode(runs[1][2], mel[:1].to(dev), fp).float()
+        p32 = init_params(f32, seed=0)
+        for label, device, params in runs:
+            p = _to(p32, device)
+            out = decode_step(p, torch.tensor([tokens], device=device), 0,
+                              init_kv_cache(f32, 1, device), cross_kv(p, states.to(device), f32),
+                              f32, collect_cross_attn=True)
+            weights[f"fp32_{label}"] = out[2].cpu()
+            st = encode(params, mel[:1].to(device), fp)
+            out = decode_step(params, torch.tensor([tokens], device=device), 0,
+                              init_kv_cache(fp, 1, device), cross_kv(params, st, fp), fp,
+                              collect_cross_attn=True)
+            weights[f"bf16_{label}"] = out[2].cpu()
+    for kind, tol in (("fp32", ALIGN_TOL_FP32), ("bf16", ALIGN_TOL_BF16)):
+        got = weights[f"{kind}_cuda"]
+        assert torch.isfinite(got).all(), f"non-finite {kind} alignment weights"
+        _check(f"tiny alignment weights {kind} cuda vs cpu {tuple(got.shape)}", got,
+               weights[f"{kind}_cpu"], tol)
+    ref = weights["bf16_cpu"]
+    for control, other in (("the next window's", weights["control"]),
+                           ("uniform", torch.full_like(ref, 1.0 / ref.shape[-1]))):
+        err = (other.float() - ref).abs().max().item()
+        print(f"  control: {control} weights vs cpu: max_abs_err {err:.3e} "
+              f"(must exceed {ALIGN_TOL_BF16:.0e})")
+        assert err > ALIGN_TOL_BF16, f"the bf16 limit does not tell {control} weights apart"
+
+    # the card's weights through the rest of the alignment (normalization,
+    # the median filter on the card, DTW) give the path the CPU gives on the
+    # same weights, exactly: the card adds no error after the weights
+    heads = word_timestamps_mod.default_alignment_heads(config)
+    w = torch.stack([weights["bf16_cuda"][l, 0, h] for l, h in heads]).numpy()
+    paths = [word_timestamps_mod.alignment_path(w, 3000, n_skip_rows=len(tok.sot_sequence),
+                                                device=d) for d in (dev, cpu)]
+    assert all(np.array_equal(a, b) for a, b in zip(*paths)), "alignment paths differ"
+    print(f"  tiny alignment path of the card's weights: median filter on the card equals "
+          f"the CPU's ({len(paths[0][0])} steps)")
+
+    # the words of the same text in the same window, card vs CPU
+    words = {label: word_timestamps_mod.find_alignment(p, config, tok, text, mel[0].to(d),
+                                                       num_frames=3000)
+             for label, d, p in runs}
+    assert len(words["cuda"]) == len(words["cpu"]) > 0, (len(words["cuda"]), len(words["cpu"]))
+    d_start = max(abs(a.start - b.start) for a, b in zip(words["cuda"], words["cpu"]))
+    d_end = max(abs(a.end - b.end) for a, b in zip(words["cuda"], words["cpu"]))
+    # near-uniform random weights leave the DTW many near ties, so bf16
+    # noise within the limit above moves words: printed, not bounded
+    print(f"  tiny words of the same text: {len(words['cuda'])} on both, start times differ by "
+          f"at most {d_start:.2f} s, end times by {d_end:.2f} s")
+
+    # transcribe(batch_windows=True, word_timestamps=True) on the 65 s clip
+    out = {label: transcribe_mod.transcribe(
+        audios[0], params=p, config=config, tokenizer=tok, device=d, temperature=0.0,
+        batch_windows=True, word_timestamps=True, no_speech_threshold=None, sample_len=64,
+        language="en", verbose=False) for label, d, p in runs}
+    n = {label: _check_segments([r], (65.0,)) for label, r in out.items()}
+    print(f"  tiny batched transcribe with words (65 s): {agreement(out['cpu'], out['cuda'])}; "
+          f"words cpu {n['cpu']}, cuda {n['cuda']}")
+    assert n["cuda"] > 0, "no aligned word on the card"
+
+
+def phase_serve() -> dict:
+    """Phase 22: the tiny config card vs CPU (_serve_tiny), then large-v3 at
+    full width (bf16, int4 cross, int8 self, random weights of seed 0): a
+    burst of four requests through TranscriptionBatcher (one streamed), then
+    transcribe(batch_windows=True, word_timestamps=True) with a two-rung
+    ladder. Returns K1, K2 and K3's launches over the large-v3 runs."""
+    from whisper_mlx_tpu_torch import native
+
+    reader = (f"the C++ library ({native.library_path().name})" if native.load() is not None
+              else "NumPy (no g++)")
+    print(f"serve: WAV reader and DTW: {reader}; ffmpeg {shutil.which('ffmpeg') or 'absent'}; "
+          f"aiohttp {'present' if importlib.util.find_spec('aiohttp') else 'absent'}")
+    _serve_tiny()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    params, config = apply_asr_serving_config(
+        init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+    tok = _wordy_tokenizer(config.n_vocab)
+    seconds = (65.0, 30.0, 20.0, 65.0)  # 3 + 1 + 1 + 3 windows
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = []
+        for i, sec in enumerate(seconds):
+            wavs.append(os.path.join(tmp, f"req{i}.wav"))
+            _write_wav(wavs[-1], sec)
+        audios = [load_audio_serving(w) for w in wavs]  # 16-bit mono 16 kHz: int16
+        assert all(a.dtype == np.int16 for a in audios)
+        # warm-up: cuBLAS handles, the allocator, one short batch
+        warm = TranscriptionBatcher(params, config, tok, device=dev,
+                                    decoding=DecodingOptions(sample_len=8))
+        _burst(warm, audios[2:3], stream_index=0)
+        # buckets and flush from the serving knobs' defaults (8,16,32,56 on
+        # CUDA; 50/25 ms)
+        batcher = TranscriptionBatcher(params, config, tok, device=dev,
+                                       decoding=DecodingOptions(sample_len=224))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        results, order = _burst(batcher, audios, stream_index=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        burst = {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats = batcher.stats
+        assert order == [0, 1, 2], f"streamed windows out of order: {order}"
+        assert stats["windows"] == 8, stats
+        _check_segments(results, seconds)
+        print(f"serve burst: large-v3 bf16 kv4/self8, {len(seconds)} requests "
+              f"({', '.join(f'{s:.0f}' for s in seconds)} s, int16 upload), {stats['windows']} "
+              f"windows, buckets {batcher.buckets}, flush {batcher.max_wait_ms:g}/"
+              f"{batcher.idle_gap_ms:g} ms: {stats['batches']} "
+              f"batches, fill {stats['fill_sum'] / stats['batches']:.3f}, wall {wall:.3f} s, "
+              f"{sum(seconds) / wall:.2f} audio-s/s; streamed request windows {order}; "
+              f"launches {burst}; peak memory {peak:.2f} GiB; "
+              f"{sum(len(s['tokens']) for r in results for s in r['segments'])} tokens")
+
+        # the largest default bucket once: one request of 56 windows
+        # (1,675 s) rides one batch of 56, greedy to 224 tokens
+        big = TranscriptionBatcher(params, config, tok, device=dev,
+                                   decoding=DecodingOptions(sample_len=224))
+        long_audio = _request_audio(1675.0, 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (long_result,), _ = _burst(big, [long_audio])
+        torch.cuda.synchronize()
+        wall_big = time.perf_counter() - t0
+        assert big.stats["batches"] == 1 and big.stats["windows"] == 56, big.stats
+        _check_segments([long_result], (1675.0,))
+        print(f"serve bucket 56: one request of 1675 s, 56 windows in {big.stats['batches']} "
+              f"batch (fill {big.stats['fill_sum']:.3f}), wall {wall_big:.3f} s, "
+              f"{1675.0 / wall_big:.2f} audio-s/s, {56 / wall_big:.3f} windows/s "
+              f"(the 8-window burst: {8 / wall:.3f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del big, long_audio, long_result
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the batched transcribe with words: random weights fail every
+        # threshold at T = 0, so the retry rung decodes the 3 pending
+        # windows (gathered to 4) at T = 1.0
+        calls, cross_shapes = [], []
+        real, real_step = transcribe_mod.decode, word_timestamps_mod.decode_step
+
+        def spy(*a, **kw):
+            calls.append((a[1].shape[0], a[4].temperature))
+            return real(*a, **kw)
+
+        def step_spy(*a, **kw):  # the alignment passes: every cross weight finite
+            out = real_step(*a, **kw)
+            assert torch.isfinite(out[2]).all(), "non-finite cross-attention weights"
+            cross_shapes.append(tuple(out[2].shape))
+            return out
+
+        transcribe_mod.decode, word_timestamps_mod.decode_step = spy, step_spy
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        try:
+            t0 = time.perf_counter()
+            out = transcribe_mod.transcribe(
+                wavs[0], params=params, config=config, tokenizer=tok, device=dev,
+                temperature=(0.0, 1.0), batch_windows=True, word_timestamps=True,
+                no_speech_threshold=None, language="en", verbose=False)
+            torch.cuda.synchronize()
+            wall_words = time.perf_counter() - t0
+        finally:
+            transcribe_mod.decode, word_timestamps_mod.decode_step = real, real_step
+    words_launches = {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES}
+    n_words = _check_segments([out], (65.0,))
+    stages = {k: v["total_ms"] for k, v in out["stages"].items()}
+    print(f"serve alignment passes: cross-attention weights {cross_shapes}, all finite")
+    print(f"serve batched transcribe with words: 65 s, 3 windows, rungs (rows, T) {calls}, "
+          f"{len(out['segments'])} segments, {n_words} words, wall {wall_words:.3f} s "
+          f"({65.0 / wall_words:.2f} audio-s/s), stages ms {stages}, launches {words_launches}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert len(calls) == 2 and calls[0] == (8, 0.0) and calls[1][1] == 1.0 \
+        and calls[1][0] <= 4, f"expected rung 0 over 8 rows, then the pending windows: {calls}"
+    assert n_words > 0 and cross_shapes, "no aligned word"
+    print(f"serve: {_smi()}")
+    launches = {k: burst[k] + words_launches[k] for k in burst}
+    for key, count in launches.items():
+        assert burst[key] > 0 and words_launches[key] > 0, \
+            f"kernel {key} was not launched on the serving path: {burst}, {words_launches}"
+    return {f"{k}_serve": v for k, v in launches.items()}
+
+
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
     call (1500 rows a window is past the kernels' 512): its time beside the
@@ -2890,13 +3237,13 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, and batches, residency_times, beam_times, "
+                        "quant_main, serve, and batches, residency_times, beam_times, "
                         "beam_batches, tiled_times and a8_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    rows, launches, on_4bit = {}, {}, {}
+    rows, launches, on_4bit, serve = {}, {}, {}, {}
 
     def residency():
         out = {}
@@ -2921,6 +3268,7 @@ def main(argv: list[str] | None = None) -> int:
         "probe_mains": ("probe entry points", phase_probe_mains, launches),
         "tiny_quant": ("tiny 4-bit whisper", phase_tiny_quant, None),
         "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
+        "serve": ("serve", phase_serve, serve),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
@@ -2957,6 +3305,8 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_tiled"] = tiled[key]
         if key in ("mel", "dense", "decode", "quant", "mbt"):
             row["launches_4bit"] = on_4bit[key]
+        if key in ("mel", "dense", "decode"):  # the serving path (phase 22)
+            row["launches_serve"] = serve[f"{key}_serve"]
         if key in ("quant", "mbt"):  # at the large-v3 shapes, beside the Qwen3-32B ones
             row["max_abs_err_4bit"] = on_4bit[f"{key}_err"]
         if key == "quant":  # a large-v3 decode step's K5 calls at 8 rows, L2 cold

@@ -155,6 +155,9 @@ def test_dense_kernel_matches_plain(cuda, b, h, tq, tk):
     (4, 4, 1, 1, 1500, dict(valid_len=1500)),
     (4, 2, 5, 1, 1500, dict(valid_len=1500)),
     (4, 2, 1, 3, 384, dict(valid_len=333)),
+    # the largest default serving bucket's cross call: 1,120 clusters of 6
+    # blocks, where a block writing into another before it had started faulted
+    (4, 56, 1, 1, 1500, dict(valid_len=1500)),
 ])
 def test_decode_kernel_matches_plain(cuda, bits, n, g, tq, t, kw):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -1317,3 +1320,163 @@ def test_whisper_tiny_4bit_card_matches_cpu(cuda, tmp_path, monkeypatch):
                    states_precomputed=True)  # 4 windows x beam 5 = 20 rows
     assert qm.LAUNCHES == 0 and mb.LAUNCHES == 0 and len(dense) == 4
     tq._DENSE_DECODE_CACHE.clear()
+
+
+def _tiny_serving(cuda):
+    """The tiny config in the card's serving config (bf16, K2, int4 cross,
+    int8 self), its params on the CPU and on the card, the synthetic tokenizer."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.decoding.tokenizer import make_synthetic_tokenizer
+    from whisper_mlx_tpu_torch.models import whisper as tw
+    from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
+
+    tok = make_synthetic_tokenizer()
+    base = dataclasses.replace(tw.WHISPER_CONFIGS["tiny"], n_vocab=tok.n_vocab)
+    params, config = apply_asr_serving_config(tw.init_params(base, seed=0), base, cuda)
+    return params, _to_device(params, cuda), config, tok
+
+
+def _to_device(node, device):
+    if isinstance(node, dict):
+        return {k: _to_device(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_device(v, device) for v in node]
+    return node.to(device)
+
+
+def _speechy(seconds, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    x = (0.3 * np.sin(2 * np.pi * (180 + 40 * np.sin(2 * np.pi * 0.3 * t)) * t)
+         * (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) + 0.02 * rng.standard_normal(t.size))
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_batcher_tiny_card_matches_cpu(cuda):
+    """The batcher on the card: each request's mel windows (K1) within the
+    mel tolerance of the CPU's, K1, K2 and K3 launched, and its tokens
+    equal to the card's own batched transcribe on the same windows."""
+    import asyncio
+
+    from whisper_mlx_tpu_torch.decoding.task import DecodingOptions
+    from whisper_mlx_tpu_torch.inference.transcribe import transcribe
+    from whisper_mlx_tpu_torch.runtime.batcher import TranscriptionBatcher
+
+    params_cpu, params_dev, config, tok = _tiny_serving(cuda)
+    audios = [_speechy(65.0), _speechy(20.0, 1), _speechy(40.0, 2)]
+    opts = DecodingOptions(sample_len=24)
+    card = TranscriptionBatcher(params_dev, config, tok, device=cuda, batch_size=[2, 8],
+                                max_wait_ms=100, decoding=opts)
+    host = TranscriptionBatcher(params_cpu, config, tok, device="cpu")
+    for a in audios:
+        got, ref = card._windows(a), host._windows(a)
+        assert got.is_cuda and got.shape == ref.shape
+        assert _max_err(got.cpu(), ref) <= 2e-4
+
+    async def run():
+        out = await asyncio.gather(*(card.transcribe(a) for a in audios))
+        card.shutdown()
+        return out
+
+    mk.LAUNCHES = dn.LAUNCHES = da.LAUNCHES = 0
+    results = asyncio.run(run())
+    assert mk.LAUNCHES >= 3 and dn.LAUNCHES > 0 and da.LAUNCHES > 0
+    assert card.stats["windows"] == 6
+    for a, r in zip(audios, results):
+        want = transcribe(a, params=params_dev, config=config, tokenizer=tok, device=cuda,
+                          temperature=0.0, batch_windows=True, window_batch_size=8,
+                          sample_len=24, no_speech_threshold=None, verbose=False)
+        assert [s["tokens"] for s in r["segments"]] == [s["tokens"] for s in want["segments"]]
+        for s in r["segments"]:
+            assert 0.0 <= s["start"] <= s["end"] <= len(a) / 16000 + 30.0
+
+
+@pytest.mark.cuda
+def test_alignment_weights_card_match_cpu(cuda):
+    """The alignment pass (route R1, plain tensor ops on the card) card vs
+    CPU: at fp32 on the same encoder states the weights agree within 1e-5;
+    end to end in the bf16 serving config (the card's encoder on K2) within
+    2e-4 (bf16 activations), finite and each row summing to 1, while the
+    weights of another input (1.5e-3 from these on the CPU) fall outside."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.inference.word_timestamps import find_alignment
+    from whisper_mlx_tpu_torch.models import whisper as tw
+
+    params_cpu, params_dev, config, tok = _tiny_serving(cuda)
+    tokens = list(tok.sot_sequence) + [tok.no_timestamps] + tok.encode(" hello world") \
+        + [tok.eot]
+    mel = torch.from_numpy(np.random.default_rng(4).standard_normal((1, 3000, 80))
+                           .astype(np.float32) * 0.5)
+    fp = dataclasses.replace(config, kv_bits=0, self_kv_bits=0)
+    weights = {}
+    with torch.inference_mode():
+        states = tw.encode(params_dev, mel.to(cuda), fp).float()
+        f32 = dataclasses.replace(fp, dtype=torch.float32)
+        for dev, params in (("cpu", params_cpu), ("cuda", params_dev)):
+            p32 = _to_device(tw.init_params(f32, seed=0), dev)
+            out = tw.decode_step(p32, torch.tensor([tokens], device=dev), 0,
+                                 tw.init_kv_cache(f32, 1, dev),
+                                 tw.cross_kv(p32, states.to(dev), f32), f32,
+                                 collect_cross_attn=True)
+            weights[f"fp32_{dev}"] = out[2].cpu()
+            st = tw.encode(params, mel.to(dev), fp)
+            out = tw.decode_step(params, torch.tensor([tokens], device=dev), 0,
+                                 tw.init_kv_cache(fp, 1, dev), tw.cross_kv(params, st, fp), fp,
+                                 collect_cross_attn=True)
+            weights[f"bf16_{dev}"] = out[2].cpu()
+    assert _max_err(weights["fp32_cuda"], weights["fp32_cpu"]) <= 1e-5
+    got = weights["bf16_cuda"]
+    assert torch.isfinite(got).all() and got.shape == (4, 1, 6, len(tokens), 1500)
+    assert _max_err(got.sum(-1), torch.ones(got.shape[:-1])) <= 1e-4
+    assert _max_err(got, weights["bf16_cpu"]) <= 2e-4
+    other = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 3000, 80))
+                             .astype(np.float32) * 0.5)
+    with torch.inference_mode():
+        st = tw.encode(params_cpu, other, fp)
+        control = tw.decode_step(params_cpu, torch.tensor([tokens]), 0,
+                                 tw.init_kv_cache(fp, 1, "cpu"), tw.cross_kv(params_cpu, st, fp),
+                                 fp, collect_cross_attn=True)[2]
+    assert _max_err(control, weights["bf16_cpu"]) > 2e-4
+    text = tok.encode(" hello world again")
+    words = find_alignment(params_dev, config, tok, text, mel[0].to(cuda), num_frames=3000)
+    assert [t for w in words for t in w.tokens] == text
+    assert all(0.0 <= w.start <= w.end <= 30.0 for w in words)
+
+
+@pytest.mark.cuda
+def test_int16_upload_on_card_bit_equal_to_host(cuda):
+    """int16 audio divided by 2^15 on the card (a reciprocal multiply, exact
+    for a power of two) equals the host's conversion bit for bit, and so
+    do the batcher's mel windows."""
+    from whisper_mlx_tpu_torch.runtime.batcher import TranscriptionBatcher
+
+    pcm = (np.clip(_speechy(40.0), -1, 1) * 32767).astype(np.int16)
+    pcm[:4] = (-32768, 32767, 1, -1)
+    host = pcm.astype(np.float32) / 32768.0
+    card = torch.from_numpy(pcm).to(cuda).float() / 32768.0
+    assert torch.equal(card.cpu(), torch.from_numpy(host))
+    _, params_dev, config, tok = _tiny_serving(cuda)
+    batcher = TranscriptionBatcher(params_dev, config, tok, device=cuda)
+    assert torch.equal(batcher._windows(pcm), batcher._windows(host))
+
+
+@pytest.mark.cuda
+def test_plain_decoder_attention_still_raises_on_cuda(cuda):
+    """Outside the alignment pass (collect_cross_attn=False) fp caches on
+    the card still raise: the plain attention is no way around K3."""
+    from whisper_mlx_tpu_torch.models import whisper as tw
+
+    cfg = tw.WhisperConfig(n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                           n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=64)
+    params = tw.init_params(cfg, seed=0, device=cuda)
+    states = torch.zeros((1, 1500, 128), device=cuda)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        tw.decode_step(params, torch.zeros((1, 2), dtype=torch.long, device=cuda), 0,
+                       tw.init_kv_cache(cfg, 1, cuda), tw.cross_kv(params, states, cfg), cfg)
+    out = tw.decode_step(params, torch.zeros((1, 2), dtype=torch.long, device=cuda), 0,
+                         tw.init_kv_cache(cfg, 1, cuda), tw.cross_kv(params, states, cfg), cfg,
+                         collect_cross_attn=True)
+    assert out[2].shape == (1, 1, 2, 2, 1500) and torch.isfinite(out[2]).all()

@@ -116,10 +116,13 @@ def test_wav_reader_matches_jax(tmp_path, kind):
                                   j_decode.resample(ref, ref_rate, 16000))
 
 
-def test_load_audio_rejects_non_wav(tmp_path):
+def test_load_audio_rejects_non_wav(tmp_path, monkeypatch):
+    """Without ffmpeg on PATH a non-WAV file raises the reference's error
+    (with ffmpeg it decodes: tests/test_torch_audio_serving.py)."""
     p = tmp_path / "a.mp3"
     p.write_bytes(b"ID3")
-    with pytest.raises(RuntimeError, match="M7"):
+    monkeypatch.setattr(t_decode.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="not a WAV file and ffmpeg is not installed"):
         t_decode.load_audio(p)
 
 

@@ -170,7 +170,11 @@ def test_decode_step_grouped_cross_matches_jax(pair):
 
 
 def test_decode_step_collect_cross_attn_raises(pair):
+    """The alignment pass takes fp caches: with a quantized self cache the
+    weights are refused (tests/test_torch_word_timestamps.py holds the fp
+    pass against JAX's)."""
     _, _, _, tparams, tcfg = pair
-    with pytest.raises(NotImplementedError, match="M8"):
+    qcfg = dataclasses.replace(tcfg, self_kv_bits=8)
+    with pytest.raises(ValueError, match="collect_cross_attn"):
         tw.decode_step(tparams, torch.zeros((1, 1), dtype=torch.long), 0,
-                       tw.init_kv_cache(tcfg, 1, "cpu"), [], tcfg, collect_cross_attn=True)
+                       tw.init_kv_cache(qcfg, 1, "cpu"), [], qcfg, collect_cross_attn=True)

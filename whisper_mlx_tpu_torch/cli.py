@@ -14,6 +14,8 @@ the synthetic tokenizer, as the JAX CLI does without a checkpoint) or
 ``test-tiny``.
 ``--device`` defaults to ``cuda`` and raises when no GPU is present.
 ``--beam-size B`` (with ``--patience``) decodes the T=0 rung by beam search.
+``--batch-windows True`` decodes fixed-stride windows a batch at a time,
+``--word-timestamps True`` adds each segment's words.
 """
 
 from __future__ import annotations

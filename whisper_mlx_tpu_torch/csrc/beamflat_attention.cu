@@ -220,6 +220,7 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
   const long long head = ((long long)win * n_head + h) * rows;  // row 0 of the head
   const uint8_t* kh = k + head * ROWB;
   const uint8_t* vh = v + head * ROWB;
+  if (csize > 1) cluster_arrive_relaxed();  // waited before the first push to another block
 
   for (int r0 = 0; r0 < group; r0 += LANES) {
     const int nr = min(LANES, group - r0);
@@ -415,6 +416,7 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
     // to itself); one barrier; each block combines them in block order into
     // one factor a lane, w = exp(s - its max) * f, and the int mode's scale,
     // then forms its weights w vs (int mode: their codes).
+    if (csize > 1 && r0 == 0) cluster_wait();  // every block of the cluster has started
     if (warp < nr) {
       float* srow = sc_s + warp * span;
       const float* vrow = vsl + warp * span;

@@ -177,6 +177,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
   const long long se = min((first + cnt + 7) & ~7LL, tail);
   const int soff = (int)(first - sa);
 
+  cluster_arrive_relaxed();  // waited before the first push to another block
   if (tid == 0) {
     mbar_init(&sm.bar[0], 1);
     mbar_init(&sm.bar[1], 1);
@@ -346,6 +347,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
       }
     }
     __syncthreads();
+    if (r0 == 0) cluster_wait();  // every block of the cluster has started
     if (warp == 0 && lane < csize) {
 #pragma unroll
       for (int rr = 0; rr < RP; ++rr) {

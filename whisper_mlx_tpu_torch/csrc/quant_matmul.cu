@@ -206,6 +206,7 @@ quant_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
   const int gq = lane >> 2;
   const int cq = lane & 3;
   const int n0 = blockIdx.y * QV_COLS;
+  if (csize > 1) cluster_arrive_relaxed();  // waited before the push to other blocks
   const int groups = k / group_size;
   // this block's k range: whole groups, split as evenly as they go
   const int g_begin = rank * groups / csize;
@@ -388,6 +389,7 @@ quant_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
   // partials that every block pushed into its slots in block order: one
   // cluster barrier, after which no block reads another's shared memory.
   const int slots = (QV_COLS * m + csize - 1) / csize;
+  cluster_wait();  // every block of the cluster has started
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int col = i < 2 ? c0 : c1;

@@ -390,6 +390,7 @@ mbt_gemv_mma_kernel(const __grid_constant__ CUtensorMap wmap,
   const int lane = tid & 31;
   const int n0 = blockIdx.y * TV_COLS;
   const int m0 = blockIdx.z * TV_ROWS;
+  if (csize > 1) cluster_arrive_relaxed();  // waited before the push to other blocks
   const int mr = min(TV_ROWS, m - m0);
   const int nst = (k + SK - 1) / SK;
   const int s_begin = rank * nst / csize;
@@ -683,6 +684,7 @@ mbt_gemv_mma_kernel(const __grid_constant__ CUtensorMap wmap,
     return;
   }
   const int slots = (TV_COLS * mr + csize - 1) / csize;
+  cluster_wait();  // every block of the cluster has started
   if (owns) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {

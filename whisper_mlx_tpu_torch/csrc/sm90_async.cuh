@@ -113,6 +113,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// A block may write another block's shared memory only once that block
+// has started (CUDA programming guide, distributed shared memory): an
+// earlier write can fault. Every thread arrives (relaxed: no memory order)
+// when the block starts and waits before its block's first remote access,
+// so the wait rarely stalls; both are cluster-wide barriers, executed by
+// every thread of the block, and a wait must follow each arrive.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // `bytes` (a multiple of 16; both addresses 16-byte aligned) global ->
 // shared, completing on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,

@@ -1,7 +1,7 @@
 """Whisper encoder/decoder as PyTorch functions over a parameter dict.
 
 Counterpart of ``whisper_mlx_tpu/models/whisper.py`` for the greedy and
-beam paths.
+beam paths and the word-timestamp alignment pass.
 Parameters are a nested dict of tensors with the JAX package's tree
 structure (``checkpoint/convert.py`` builds it from the JAX tree) in
 PyTorch's layouts: linear ``w`` is ``(n_out, n_in)``, conv ``w`` is
@@ -19,7 +19,8 @@ caches, the JAX package's ``attention_int8_auto`` /
 ``ops/beamflat_attention.py`` for beam self-attention over the flat cache);
 GEMMs and the conv stem are plain torch. The plain attention of the parity
 configuration (flash off, fp caches) runs on CPU tensors only: on CUDA
-tensors it raises.
+tensors it raises, except in the word-timestamp alignment pass
+(``decode_step(collect_cross_attn=True)``, :func:`attention_for_alignment`).
 
 Caches are position-major and updated in place by :func:`decode_step`:
 fp ``{"k", "v"}`` ``(B, H, T, hd)``; quantized ``{"k8", "ks", "v8", "vs"}``
@@ -82,7 +83,7 @@ class WhisperConfig:
     # int_dot mode): q and w * vs re-quantized per row, s8 x s8 -> s32 dots
     attn_mxu: bool = _ATTN_MXU_DEFAULT
     # (layer, head) pairs for word-timestamp alignment, carried through an
-    # mlx-format checkpoint's config.json (word timestamps: ROADMAP.md M8)
+    # mlx-format checkpoint's config.json
     alignment_heads: tuple[tuple[int, int], ...] | None = None
 
     def __post_init__(self):
@@ -191,17 +192,32 @@ def _plain_on_cpu_only(x: torch.Tensor, what: str) -> None:
                          "only path (flash_attention=True, kv_bits and self_kv_bits 4|8)")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Multi-head attention over (batch, heads, time, head_dim); q and k
-    each scaled by ``head_dim**-0.25``; softmax in fp32. CPU tensors only."""
-    _plain_on_cpu_only(q, "plain attention")
+def attention_for_alignment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mask: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-head attention over (batch, heads, time, head_dim) that also
+    returns its fp32 softmax weights; q and k each scaled by
+    ``head_dim**-0.25``. On CUDA tensors it is the route of the
+    word-timestamp alignment pass (ROADMAP.md R1), reached only through
+    ``decode_step(collect_cross_attn=True)``: the reference computes that
+    one teacher-forced pass, fp caches and all, in XLA outside its Pallas
+    kernels (``whisper_mlx_tpu/models/whisper.py:205-229``), so on the card
+    it is plain tensor ops: scores by ``torch.matmul``, the mask, softmax in
+    fp32, then PV."""
     scale = q.shape[-1] ** -0.25
     scores = torch.matmul(q * scale, (k * scale).transpose(-1, -2)).float()
     if mask is not None:
         scores = scores + mask
     w = torch.softmax(scores, dim=-1)
-    return torch.matmul(w.to(v.dtype), v)
+    return torch.matmul(w.to(v.dtype), v), w
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The parity configuration's attention (:func:`attention_for_alignment`
+    without the weights). CPU tensors only."""
+    _plain_on_cpu_only(q, "plain attention")
+    return attention_for_alignment(q, k, v, mask)[0]
 
 
 def _qkv_proj(h: torch.Tensor, attn: Params, n_head: int):
@@ -352,7 +368,7 @@ def decode_step(
     collect_cross_attn: bool = False,
     share_xkv_groups: int = 1,
     beam_ancestry: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, list[Params]]:
+) -> tuple[torch.Tensor, list[Params]] | tuple[torch.Tensor, list[Params], torch.Tensor]:
     """Run the decoder on ``tokens`` at positions ``[pos, pos + t)``.
 
     Serves the prompt prefill (t = prompt length) and the incremental step
@@ -362,10 +378,14 @@ def decode_step(
     consecutive rows (best_of candidates, beam lanes). A beam flat cache
     (:func:`beam_flat_cache`) needs ``beam_ancestry (batch, T)`` int32, the
     lane owning each position of each row's hypothesis, and t = 1.
+
+    ``collect_cross_attn=True`` (the word-timestamp alignment pass) returns
+    ``(logits, kv_cache, cross)`` with the cross-attention weights ``cross``
+    ``(layers, batch, heads, t, n_audio_ctx)`` fp32. It takes fp caches
+    only (``kv_bits=0``, ``self_kv_bits=0``, as ``find_alignment`` sets),
+    one row a window, and runs both attentions through
+    :func:`attention_for_alignment` on any device.
     """
-    if collect_cross_attn:
-        raise NotImplementedError("cross-attention weights for word timestamps: "
-                                  "ROADMAP.md M8")
     p = params["decoder"]
     b, t = tokens.shape
     end = pos + t
@@ -378,6 +398,11 @@ def decode_step(
         raise ValueError("decode_step: the beam flat cache takes one position and "
                          "beam_ancestry")
     quant_self = "k8" in kv_cache[0]
+    if collect_cross_attn and (quant_self or beam_flat or g > 1
+                               or any("k8" in xc for xc in xkv)):
+        raise ValueError("decode_step(collect_cross_attn=True) takes fp self and cross "
+                         "caches (kv_bits=0, self_kv_bits=0) and one row a window")
+    cross_weights = []
     if not quant_self and not beam_flat:
         q_idx = torch.arange(t, device=x.device)[:, None] + pos
         k_idx = torch.arange(end, device=x.device)[None, :]
@@ -404,7 +429,11 @@ def decode_step(
         else:
             c["k"][:, :, pos:end] = k_new
             c["v"][:, :, pos:end] = v_new
-            attn_out = attention(q, c["k"][:, :, :end], c["v"][:, :, :end], mask)
+            k_live, v_live = c["k"][:, :, :end], c["v"][:, :, :end]
+            if collect_cross_attn:
+                attn_out, _ = attention_for_alignment(q, k_live, v_live, mask)
+            else:
+                attn_out = attention(q, k_live, v_live, mask)
         x = x + linear(_merge_heads(attn_out), blk["attn"]["o"])
 
         h = layer_norm(x, blk["cross_attn_ln"])
@@ -423,6 +452,9 @@ def decode_step(
             w5 = torch.softmax(s5, dim=-1).to(xc["v"].dtype)
             cross_out = torch.einsum("nghqk,nhkd->nghqd", w5, xc["v"])
             cross_out = cross_out.reshape(qx.shape).to(qx.dtype)
+        elif collect_cross_attn:
+            cross_out, cw = attention_for_alignment(qx, xc["k"], xc["v"])
+            cross_weights.append(cw)
         else:
             cross_out = attention(qx, xc["k"], xc["v"])
         x = x + linear(_merge_heads(cross_out), blk["cross_attn"]["o"])
@@ -430,6 +462,8 @@ def decode_step(
 
     x = layer_norm(x, p["ln"])
     logits = embed_logits(p["token_emb"], x, config.dtype).float()
+    if collect_cross_attn:
+        return logits, kv_cache, torch.stack(cross_weights)
     return logits, kv_cache
 
 

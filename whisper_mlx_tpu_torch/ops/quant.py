@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any
 
 import torch
@@ -291,8 +292,10 @@ def _has_quant(node: Any) -> bool:
 
 # id(packed tree) -> (packed tree, converted tree): the strong reference to
 # the packed tree keeps its id stable, so the temperature ladder and the
-# windows of a file reuse one conversion
+# windows of a file reuse one conversion. The serving batcher calls the
+# policy from worker threads: the lock keeps one thread at a time on it.
 _DENSE_DECODE_CACHE: dict = {}
+_DENSE_DECODE_LOCK = threading.Lock()
 
 
 def maybe_dense_decode_params(params: Any, rows: int,
@@ -313,19 +316,20 @@ def maybe_dense_decode_params(params: Any, rows: int,
     if few and os.environ.get("WTPU_FEWROW_MBT", "0") != "1":
         return params
     key = ("mbt", id(params)) if few else id(params)
-    hit = _DENSE_DECODE_CACHE.get(key)
-    if hit is not None and hit[0] is params:
-        return hit[1]
-    if few:
-        out = prepare_mbt_params(params)
-    elif not _has_quant(params):
-        return params
-    else:
-        # fused qkv only helps the packed path: split it back first
-        out = dequantize_params(unfuse_whisper_qkv(params), dtype=dtype)
-        if len(_DENSE_DECODE_CACHE) > 2:
-            _DENSE_DECODE_CACHE.clear()
-    _DENSE_DECODE_CACHE[key] = (params, out)
+    with _DENSE_DECODE_LOCK:
+        hit = _DENSE_DECODE_CACHE.get(key)
+        if hit is not None and hit[0] is params:
+            return hit[1]
+        if few:
+            out = prepare_mbt_params(params)
+        elif not _has_quant(params):
+            return params
+        else:
+            # fused qkv only helps the packed path: split it back first
+            out = dequantize_params(unfuse_whisper_qkv(params), dtype=dtype)
+            if len(_DENSE_DECODE_CACHE) > 2:
+                _DENSE_DECODE_CACHE.clear()
+        _DENSE_DECODE_CACHE[key] = (params, out)
     return out
 
 

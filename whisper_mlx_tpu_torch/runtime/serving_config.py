@@ -1,7 +1,7 @@
-"""Apply the ASR serving configuration to a loaded model.
+"""The ASR serving configuration: the model's, and the batcher's knobs.
 
-Counterpart of ``whisper_mlx_tpu/runtime/serving_config.py:
-apply_asr_serving_config``. The converter and ``init_params`` return the
+Counterpart of ``whisper_mlx_tpu/runtime/serving_config.py``. The
+converter and ``init_params`` return the
 parity configuration (fp32, plain attention, fp caches). Serving on CUDA
 is bf16 with the encoder attention kernel, an int4 cross cache and an int8
 self cache; on the CPU the parity configuration stays, as the JAX package
@@ -12,6 +12,18 @@ Environment knobs (same names as the JAX package):
   WTPU_SERVE_FLASH      1|0             (default: 1 on CUDA)
   WTPU_SERVE_KV         4|8|0           (default: 4 on CUDA)
   WTPU_SERVE_SELF_KV    8|4|0           (default: 8 on CUDA)
+  WTPU_TRANSCRIBE_BATCH the serving batcher's window-batch buckets, an int
+                        or a comma list (default: "8,16,32,56" on CUDA, the
+                        reference's accelerator default, which no
+                        measurement on the card has chosen yet; 8 on the
+                        CPU); a flush rides the smallest bucket that fits
+  SERVE_WAIT_MS         the batcher's hard flush deadline (default 50)
+  SERVE_IDLE_GAP_MS     its debounce for a lone request (default 25)
+  WTPU_SERVE_DP         data-parallel width: "auto" (default: every card) or
+                        an int; a width of 2 or more is not ported
+                        (ROADMAP.md M14) and raises (1 serves on one card)
+
+TranscriptionBatcher (runtime/batcher.py) reads the last four by default.
 
 On CUDA the hand-written kernels are the only attention path, so
 float32, FLASH=0 and a KV width of 0 (fp caches with plain attention)
@@ -32,6 +44,58 @@ def _env_choice(name: str, default: str, allowed: tuple[str, ...]) -> str:
     if value not in allowed:
         raise ValueError(f"{name}={value!r}: expected one of {allowed}")
     return value
+
+
+def _env_float(name: str, default: float) -> float:
+    value = os.environ.get(name, "")
+    try:
+        return float(value) if value else default
+    except ValueError:
+        raise ValueError(f"{name}={value!r}: expected a number") from None
+
+
+def serving_flush_knobs() -> tuple[float, float]:
+    """(max_wait_ms, idle_gap_ms) for the batcher's adaptive flush."""
+    return _env_float("SERVE_WAIT_MS", 50.0), _env_float("SERVE_IDLE_GAP_MS", 25.0)
+
+
+def serving_batch_buckets(device: torch.device | str) -> tuple[int, ...]:
+    """Sorted window-batch buckets of the serving batcher on ``device``."""
+    on_cuda = torch.device(device).type == "cuda"
+    raw = os.environ.get("WTPU_TRANSCRIBE_BATCH", "") or ("8,16,32,56" if on_cuda else "8")
+    try:
+        buckets = tuple(sorted({int(p) for p in raw.split(",") if p.strip()}))
+    except ValueError:
+        raise ValueError(f"WTPU_TRANSCRIBE_BATCH={raw!r}: expected an int or a comma "
+                         "list of ints") from None
+    if not buckets or buckets[0] < 1:
+        raise ValueError(f"WTPU_TRANSCRIBE_BATCH={raw!r}: buckets must be positive")
+    return buckets
+
+
+def serving_mesh(device: torch.device | str) -> None:
+    """The ASR serving mesh: ``None`` while one card serves.
+
+    ``WTPU_SERVE_DP``: "auto" takes every card of a CUDA host (one on the
+    CPU), an int pins the width, 1 or less serves on one card. A width of
+    2 or more needs data parallelism over windows, which is not ported
+    (ROADMAP.md M14), and raises ``NotImplementedError``.
+    """
+    raw = os.environ.get("WTPU_SERVE_DP", "auto").strip().lower()
+    on_cuda = torch.device(device).type == "cuda"
+    n = torch.cuda.device_count() if on_cuda else 1
+    if raw in ("", "auto"):
+        dp = n
+    else:
+        try:
+            dp = int(raw)
+        except ValueError:
+            raise ValueError(f"WTPU_SERVE_DP={raw!r}: expected 'auto' or an int") from None
+    if dp <= 1:
+        return None
+    raise NotImplementedError(f"WTPU_SERVE_DP={raw or 'auto'} ({dp} cards): data "
+                              "parallelism over windows is not ported (ROADMAP.md M14); "
+                              "WTPU_SERVE_DP=1 serves on one card")
 
 
 def apply_asr_serving_config(params: Any, config: Any,
