@@ -13,7 +13,10 @@ is non-zero and the result line is not printed:
    with the host's launch work off the clock, the least time the card could
    take, and one PyTorch call computing the same function where one exists):
    K1 (at 3000 frames and at the 65 s CLI file's 9,500, bit-equal on a
-   repeat), K2, K3, then the beam path's K3 integer-dot mode, K8 and K9 (K3 and the
+   repeat), K2, K3 (also in speculative decoding's modes: Tq = 2 and 5,
+   causal at pos 100, 226 and the cache end, and Tq = 5 over the int4
+   cross cache, at 1 and 8 windows, both modes, bit-equal on a repeat),
+   then the beam path's K3 integer-dot mode, K8 and K9 (K3 and the
    beam kernels L2 cold over copies of one layer's caches, K3's warm reading
    and its launcher's host cost beside; K8 row by row in both modes and
    widths at every ancestry case of K8_CHECKED and timed at each of
@@ -35,7 +38,8 @@ is non-zero and the result line is not printed:
    same two rungs: beam at T = 0, then sampling at 1.0),
    2-window beam runs of 16 steps under
    WTPU_BEAM_KV=flat, permp and permi (K9), then
-   an 8-window x beam 5 batch, timed, with a per-step breakdown;
+   an 8-window x beam 5 batch, timed, its tokens at 64 steps beside those
+   with K8's plain version, with a per-step breakdown;
 7. LLM kernels: the quantized matmul (K5) at the five Qwen3-32B linear
    shapes (M = 1 L2 cold over copies of each linear, the warm reading and the
    host cost beside) and the flash prefill (K4) against their plain versions, K4 also
@@ -102,8 +106,8 @@ is non-zero and the result line is not printed:
    lanes (int32 and int64 maps), its permute and index_select, L2 cold, for
    the same use;
 19. beam_batches, run only when named in --only: phase 6's dense 8-window x
-   beam 5 batch, its tokens beside those of the same batch with K8's plain
-   version, and its per-step breakdown (device ms and K8's ms a step, K8's
+   beam 5 batch, its tokens at 64 steps beside those of the same batch with
+   K8's plain version, and its per-step breakdown (device ms and K8's ms a step, K8's
    ms over the whole decode), for the same use;
 20. tiled_times, run only when named in --only: the tiled core (K5, K6
    packed and codes-resident) over one Qwen3-32B layer's four linears at
@@ -135,7 +139,30 @@ is non-zero and the result line is not printed:
    word_timestamps=True, temperature=(0.0, 1.0)) on the 65 s file (the
    pending-only retry rung runs once), its rungs, words and stages.
    Tokens come from a four-letter-word tokenizer (_wordy_tokenizer), so
-   that random weights' segments carry words.
+   that random weights' segments carry words;
+23. spec, run in every whole run after phase 22: speculative decoding
+   (ROADMAP M11). The tiny config card vs CPU: spec_decode_task with an
+   identical and with a 1-layer draft (token agreement with the CPU and
+   with the card's greedy, acceptance), the CLI with --draft-model on a
+   12 s WAV, speculative_generate on a tiny Qwen pair and QWEN_DRAFT_PATH
+   through QwenModel. Then at full width, each run with its wall, tokens,
+   proposed, accepted, target and draft calls, launches of K1-K5 and peak
+   memory: large-v3 (bf16 from seed 0, int4 cross, int8 self, sample_len
+   224, no timestamps) on one 30 s window of noise, plain greedy, then
+   k = 4 with the target as its own draft (the upper bracket) and with a
+   random large-v3-turbo-shaped draft sharing the encoder (the lower
+   bracket); Qwen3-32B packed int4 through LLMEngine.generate, 64 new
+   tokens at T = 0, without a draft, with itself and with a
+   Qwen2.5-0.5B-shaped packed int4 draft of seed 1. The phase's own check:
+   where a speculative run's tokens first part from the plain run's, the
+   plain run's gap between the two tokens' logits must be within
+   SPEC_TIE_FACTOR times D, the largest verify-vs-step logit difference
+   measured in the same run (teacher-forced blocks of k + 1 over the plain
+   run's tokens against its own steps), and every rejection of the
+   self-draft before that point must be such a near tie. Last, K3 at the
+   verify's shape (one window, Tq = 5, pos 226, self + cross) beside its
+   1-row reading, and K5 over Qwen3-32B's five linears at M = 5 beside
+   M = 1 (checked against its plain version), L2 cold, with their bounds.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -145,7 +172,12 @@ prints and checks the launches of K1, K2, K3, K5 and K6 on the 4-bit path
 (the JSON line carries them as ``launches_4bit``, and K1-K3's launches over
 phase 22's large-v3 runs as ``launches_serve``, K5's and K6's errors
 against their plain versions at the large-v3 shapes as ``max_abs_err_4bit``,
-and K5's 8-row large-v3 step as ``ms_4bit_step_8rows``). The K5 and K6 rows
+and K5's 8-row large-v3 step as ``ms_4bit_step_8rows``; K1-K5's launches
+over phase 23's speculative runs as ``launches_spec``, K3's time at the
+verify's shape as ``ms_verify`` with ``bound_verify_ms`` beside its 1-row
+reading ``ms_1row_1window``, K3's largest error over phase 3's speculative
+cases as ``max_abs_err_spec``, and K5's at M = 5 over five Qwen3-32B linears as
+``ms_m5`` with ``bound_m5_ms`` beside ``ms_m1_layer0``). The K5 and K6 rows
 also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
 linears at 384 rows, L2 cold), ``bound_tiled`` and ``bound_tiled_by``,
 ``yardstick_tiled_ms`` and ``launches_tiled`` (phase 9's tiled launches for
@@ -474,6 +506,7 @@ def phase_kernels() -> dict:
         got = da.decode_attention(q, *c, **kw)
         ref = da.decode_attention_plain(q, *c, **kw)
         errs.append(_check_rows(f"decode_attention {name}", got, ref))
+    spec_err = _spec_k3_cases(self_c, cross_c, query)
     q1 = query(8, 1)
     step = ((self_c, dict(pos=226, causal=True)), (cross_c, dict(valid_len=1500)))
     k_ms = p_ms = warm = 0.0
@@ -496,7 +529,7 @@ def phase_kernels() -> dict:
         ms=k_ms, plain_ms=p_ms,
         **_bound(sum(8 * 20 * t * b for t, b in live) + 4 * _nbytes(q1),
                  sum(8 * 20 * t * 2 * 2 * 64 for t, _ in live), "fp32"),
-        library_ms=None)
+        library_ms=None, max_abs_err_spec=spec_err)
     rows.update(_beam_kernels(rng, cache, query))
     torch.cuda.synchronize()
     for r in rows.values():
@@ -504,6 +537,32 @@ def phase_kernels() -> dict:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
               + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"))
     return rows
+
+
+def _spec_k3_cases(self_c, cross_c, query) -> float:
+    """K3 in speculative decoding's modes (ROADMAP R3) at one window a call
+    (the speculative loop's grid) and at eight: the draft's 2-token sync and
+    the verify's 5 rows, causal over the int8 self cache (256 positions,
+    large-v3's horizon) at pos 100, 226 and where pos + Tq meets the cache
+    end, and the verify's 5 rows over the int4 cross cache, with
+    integer-dot off and on: row by row against the plain version, bit-equal
+    on a repeat. -> the largest error."""
+    errs = []
+    for n in (1, 8):
+        caches = [tuple(t[:n].contiguous() for t in c) for c in (self_c, cross_c)]
+        cases = [(f"self int8 Tq={tq} pos={pos}", tq, caches[0], dict(pos=pos, causal=True))
+                 for tq in (2, 5) for pos in (100, 226, 256 - tq)]
+        cases.append(("cross int4 Tq=5", 5, caches[1], dict(valid_len=1500)))
+        for int_dot in (False, True):
+            for name, tq, c, kw in cases:
+                q = query(n, tq)
+                got = da.decode_attention(q, *c, int_dot=int_dot, **kw)
+                ref = da.decode_attention_plain(q, *c, int_dot=int_dot, **kw)
+                label = f"decode_attention spec {name} windows={n}{' int_dot' if int_dot else ''}"
+                errs.append(_check_rows(label, got, ref))
+                if not torch.equal(got, da.decode_attention(q, *c, int_dot=int_dot, **kw)):
+                    raise AssertionError(f"{label}: a repeat is not bit-equal")
+    return max(errs)
 
 
 def _mel_bound(frames: torch.Tensor, n_mels: int = 128) -> dict:
@@ -1183,18 +1242,23 @@ def _time_beam_batch(params, config, tok, audio, runs: int = 1) -> None:
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # the same batch with K8's plain version in its place: the reference
     # for the kernel's tokens (random weights' near-ties can turn an ulp of
-    # the softmax into another beam)
+    # the softmax into another beam). Both at 64 steps: the plain version's
+    # 224 steps took most of this phase's time, which the whole run's time
+    # limit leaves to the speculative phase
+    short = dataclasses.replace(opts, sample_len=64)
+    with torch.inference_mode():
+        results = pipeline(short)
     tw.beamflat_attention = bf.beamflat_attention_plain
     try:
         with torch.inference_mode():
-            ref = pipeline()
+            ref = pipeline(short)
     finally:
         tw.beamflat_attention = bf.beamflat_attention
     same, total = _agreement(results, ref)
     ref_digest = hashlib.sha256(repr([list(r.tokens) for r in ref]).encode()).hexdigest()[:16]
     windows = sum(list(a.tokens) == list(b.tokens) for a, b in zip(results, ref))
-    print(f"  against K8's plain version in the same batch: tokens agree {same}/{total}, "
-          f"{windows}/{batch} windows equal (plain digest {ref_digest})")
+    print(f"  against K8's plain version in the same batch at 64 steps: tokens agree "
+          f"{same}/{total}, {windows}/{batch} windows equal (plain digest {ref_digest})")
     _beam_breakdown(params, config, tok, audio)
 
 
@@ -1471,12 +1535,13 @@ def phase_llm_kernels() -> dict:
     errs = []
     s = 128 ** -0.25
     # the LLM phase's prefill lengths (not multiples of the tile) at GQA rep 8
-    # and rep 1, whisper's non-causal hd 64 over more than 2048 keys
+    # and rep 1, whisper's non-causal hd 64 over more than 2048 keys, and the
+    # speculative phase's Qwen2.5-0.5B-shaped draft (14 q / 2 KV heads of 64)
     for h, kvh, t, hd, causal in ((64, 8, 128, 128, True), (64, 8, 640, 128, True),
                                   (64, 8, 2048, 128, True), (20, 20, 2100, 64, False),
                                   (64, 8, 295, 128, True), (64, 8, 384, 128, True),
                                   (64, 8, 1536, 128, True), (8, 8, 295, 128, True),
-                                  (8, 8, 1536, 128, True)):
+                                  (8, 8, 1536, 128, True), (14, 2, 300, 64, True)):
         q = (torch.randn((1, h, t, hd), generator=gen, device=dev) * s).to(torch.bfloat16)
         k = (torch.randn((1, kvh, t, hd), generator=gen, device=dev) * s).to(torch.bfloat16)
         v = torch.randn((1, kvh, t, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -3205,6 +3270,481 @@ def phase_serve() -> dict:
     return {f"{k}_serve": v for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding (ROADMAP M11): whisper draft-and-verify greedy and the
+# LLM's draft model
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# a flip of the argmax between a k + 1-row verify and a 1-row step needs the
+# two tokens' gap within |d_a| + |d_b| <= 2 D, where D is the largest
+# verify-vs-step logit difference; D is measured in the same run on the plain
+# run's tokens (teacher-forced blocks of k + 1 against the plain run's own
+# steps), so the limit is 2 D with half again for positions and cache
+# histories that measurement did not see
+SPEC_TIE_FACTOR = 3.0
+
+
+class _StepSpy:
+    """Every ``decode_step`` call of a module while in use, as (is the
+    target, tokens, pos, logits); ``target`` is the target's params object,
+    so a self-draft is passed as a shallow copy to tell the two apart."""
+
+    def __init__(self, module, target):
+        self.module, self.target, self.calls = module, target, []
+
+    def __enter__(self):
+        self.real = real = self.module.decode_step
+
+        def spy(params, tokens, pos, *a, **kw):
+            out = real(params, tokens, pos, *a, **kw)
+            self.calls.append((params is self.target, tokens.clone(), pos, out[0]))
+            return out
+
+        self.module.decode_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decode_step = self.real
+
+    def draft_calls(self) -> int:
+        return sum(not t for t, *_ in self.calls)
+
+
+def _spec_counts() -> dict:
+    return {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES,
+            "flash": fa.LAUNCHES, "quant": qm.LAUNCHES, "quant_tiled": qm.TILED_LAUNCHES}
+
+
+def _spec_run(fn):
+    """``fn()`` with every count at 0 before it and peak memory reset:
+    (its result, wall s, launches of K1-K5, peak GiB)."""
+    _zero_counts()
+    fa.LAUNCHES = qm.LAUNCHES = qm.TILED_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _spec_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def _first_difference(a: list, b: list):
+    """The first index where two token lists part (one ending counts), or None."""
+    for i in range(max(len(a), len(b))):
+        if i >= len(a) or i >= len(b) or a[i] != b[i]:
+            return i
+    return None
+
+
+def _verify_vs_step(step_logits: list, verify) -> float:
+    """D: the largest |logit| difference between the plain run's 1-row
+    steps and teacher-forced verify blocks of k + 1 over its tokens.
+    ``step_logits[j]`` is the plain run's (V,) logits for token j;
+    ``verify(start)`` the block's (rows, V) logits for tokens start + 1 ..."""
+    d = 0.0
+    n = len(step_logits)
+    for start in range(0, n - 1, SPEC_K + 1):
+        rows = verify(start)
+        for i in range(min(SPEC_K + 1, n - 1 - start)):
+            d = max(d, (rows[i].float() - step_logits[start + 1 + i].float()).abs().max().item())
+    return d
+
+
+def _spec_check(label, plain: list, got: list, gap_at, d: float, rejections=None) -> None:
+    """The phase's own check of one speculative run against the plain run:
+    token agreement printed; at the first differing position the plain
+    run's gap between the two tokens within SPEC_TIE_FACTOR * D; with a
+    self-draft, every rejection before that position a near tie too
+    (``rejections``: (token index, gap) of each)."""
+    tol = SPEC_TIE_FACTOR * d
+    first = _first_difference(plain, got)
+    same = sum(x == y for x, y in zip(plain, got))
+    msg = (f"    {label}: tokens agree with the plain run on {same}/{max(len(plain), len(got))}, "
+           f"first difference at {first}; verify-vs-step D {d:.4e}, near-tie limit {tol:.4e}")
+    if first is not None:
+        gap = gap_at(first)
+        msg += f"; the plain run's gap there {gap:.4e}"
+        if not gap <= tol:
+            raise AssertionError(f"{label}: tokens part at {first} with a gap of {gap} "
+                                 f"> {tol} (D {d})")
+    if rejections is not None:
+        before = [(i, g) for i, g in rejections if first is None or i < first]
+        msg += f"; self-draft rejections before it {len(before)}"
+        for i, g in before:
+            if not g <= tol:
+                raise AssertionError(f"{label}: the self-draft rejected token {i} with a gap "
+                                     f"of {g} > {tol}")
+    print(msg)
+
+
+def _rejections(spy_calls, tokens: list, index, gap) -> list:
+    """(token index, gap) of each verify's first rejected proposal that
+    stands for a committed token: ``index(pos, i)`` is the token index of
+    proposal i of a verify at ``pos``, ``gap(row, j, a, b)`` the verify
+    logits' gap between the target's token a and the proposal b."""
+    out = []
+    for is_target, toks, pos, logits in spy_calls[2:]:  # past both prefills
+        if not is_target:
+            continue
+        for i in range(1, toks.shape[1]):
+            j = index(pos, i)
+            if j >= len(tokens):
+                break
+            if int(toks[0, i]) != tokens[j]:
+                out.append((j, gap(logits[0, i - 1], j, tokens[j], int(toks[0, i]))))
+                break
+    return out
+
+
+def _spec_tiny() -> None:
+    """The tiny config card vs CPU: spec_decode_task with an identical and
+    with a 1-layer draft beside greedy, the CLI with --draft-model, and
+    speculative_generate on a tiny Qwen pair."""
+    from whisper_mlx_tpu_torch.checkpoint.qwen_loader import load_qwen
+    from whisper_mlx_tpu_torch.decoding.speculative import spec_decode_task
+    from whisper_mlx_tpu_torch.inference.speculative import speculative_generate
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    base = WHISPER_CONFIGS["tiny"]
+    params_cpu, config = apply_asr_serving_config(init_params(base, seed=0), base, dev)
+    dbase = dataclasses.replace(base, n_text_layer=1)
+    draft_cpu, dconfig = apply_asr_serving_config(init_params(dbase, seed=1), dbase, dev)
+    params_dev, draft_dev = _to(params_cpu, dev), _to(draft_cpu, dev)
+    tok = _bench_tokenizer(config.n_vocab)
+    rng = np.random.default_rng(1)
+    t = np.arange(N_SAMPLES) / 16000.0
+    mel = torch.stack([log_mel_spectrogram(torch.from_numpy(
+        (0.3 * np.sin(2 * np.pi * (150 + 100 * i) * t) * (1 + np.sin(2 * np.pi * 2.5 * t))
+         + 0.02 * rng.standard_normal(N_SAMPLES)).astype(np.float32)), config.n_mels)
+        for i in range(2)])
+    opts = DecodingOptions(sample_len=64)
+    greedy = decode(params_dev, mel.to(dev), tok, config, opts)
+    for label, d_cpu, d_dev, dcfg in (("identical draft", params_cpu, params_dev, config),
+                                      ("1-layer draft", draft_cpu, draft_dev, dconfig)):
+        res_cpu = spec_decode_task(params_cpu, d_cpu, mel, tok, config, dcfg, opts, k=SPEC_K)
+        res_dev = spec_decode_task(params_dev, d_dev, mel.to(dev), tok, config, dcfg, opts,
+                                   k=SPEC_K)
+        for r in res_dev:
+            assert r.tokens and 0 <= r.spec_stats["accepted"] <= r.spec_stats["proposed"]
+        acc = [sum(r.spec_stats[key] for r in res) for res in (res_dev, res_cpu)
+               for key in ("accepted", "proposed")]
+        print(f"  spec tiny, {label}, k {SPEC_K}: card vs CPU {'%d/%d' % _agreement(res_dev, res_cpu)}"
+              f" tokens, card spec vs card greedy {'%d/%d' % _agreement(res_dev, greedy)}; "
+              f"accepted/proposed card {acc[0]}/{acc[1]}, CPU {acc[2]}/{acc[3]}")
+
+    calls = []
+    real = transcribe_mod.spec_decode_task
+    transcribe_mod.spec_decode_task = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            wav = os.path.join(tmp, "short.wav")
+            _write_wav(wav, 12.0)
+            t0 = time.perf_counter()
+            rc = cli.main([wav, "-f", "txt", "--output-name", "spec", "-o", tmp, "--model",
+                           "tiny", "--draft-model", "tiny", "--spec-k", str(SPEC_K),
+                           "--verbose", "False", "--condition-on-previous-text", "False",
+                           "--temperature-increment-on-fallback", "None"])
+            wall = time.perf_counter() - t0
+            assert rc == 0 and os.path.exists(os.path.join(tmp, "spec.txt")), "CLI wrote no .txt"
+    finally:
+        transcribe_mod.spec_decode_task = real
+    assert calls, "the CLI's --draft-model never ran spec_decode_task"
+    print(f"  spec tiny CLI --draft-model tiny on a 12 s WAV: {wall:.2f} s, "
+          f"{len(calls)} windows through spec_decode_task")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_tiny_qwen(tmp)
+        os.environ["QWEN_DRAFT_PATH"] = tmp
+        try:
+            card = QwenModel(model_path=tmp, device="cuda").engine
+        finally:
+            del os.environ["QWEN_DRAFT_PATH"]
+        assert card.draft is not None, "QWEN_DRAFT_PATH loaded no draft"
+        target_cpu, qconfig = load_qwen(tmp, dtype=torch.bfloat16, device="cpu")
+    qconfig = serving_config(qconfig, dev)
+    dq = qw.QwenConfig(vocab_size=qconfig.vocab_size, hidden_size=128, intermediate_size=256,
+                       num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+                       head_dim=64, qk_norm=True, attention_bias=False,
+                       tie_word_embeddings=True, dtype=torch.bfloat16, flash_attention=True)
+    dq_cpu = _to(qw.init_params(dq, seed=2), torch.bfloat16)
+    prompt = list(np.random.default_rng(5).integers(0, 263, size=40))
+    ids = [int(x) for x in prompt]
+    out = {}
+    for where, tp, dp in (("cpu", target_cpu, dq_cpu),
+                          ("cuda", card.params, _to(dq_cpu, dev))):
+        for name, draft in (("identical", (dict(tp), qconfig)), ("1-layer", (dp, dq))):
+            out[where, name] = speculative_generate(tp, qconfig, draft[0], draft[1], ids,
+                                                    max_tokens=32, stop_ids=set(), k=SPEC_K,
+                                                    max_len=128)
+    plain = list(card._tokens(ids, 32, 0.0, 1.0, 0, 0))  # the card's greedy, no draft
+    for name in ("identical", "1-layer"):
+        (tc, sc), (tg, sg) = out["cpu", name], out["cuda", name]
+        print(f"  spec tiny qwen, {name} draft: card vs CPU "
+              f"{sum(x == y for x, y in zip(tg, tc))}/{max(len(tg), len(tc))} tokens, card spec "
+              f"vs card greedy {sum(x == y for x, y in zip(tg, plain))}/{max(len(tg), len(plain))};"
+              f" accepted/proposed card {sg.accepted}/{sg.proposed}, CPU {sc.accepted}/"
+              f"{sc.proposed}; target calls {sg.target_calls}, draft calls {sg.draft_calls}")
+    gen = card.generate("hello there", max_tokens=16, temperature=0.0)
+    assert gen.generation_tokens > 0
+
+
+def _spec_print(label, wall, counts, peak, extra="") -> None:
+    print(f"  {label}: wall {wall:.3f} s, {extra}launches {counts}, peak memory {peak:.2f} GiB")
+
+
+def _spec_whisper_full() -> dict:
+    """large-v3 (bf16 from seed 0, int4 cross, int8 self, sample_len 224, no
+    timestamps) on one 30 s window of seeded noise: plain greedy, then
+    spec_decode_task at k = 4 with the target itself as the draft (the
+    upper bracket) and with a random large-v3-turbo-shaped draft sharing the
+    encoder (the lower bracket). -> launches of the speculative runs."""
+    from whisper_mlx_tpu_torch.decoding import greedy as greedy_mod
+    from whisper_mlx_tpu_torch.decoding import speculative as spec_mod
+    from whisper_mlx_tpu_torch.decoding.filters import apply_filters
+
+    dev = torch.device("cuda")
+    base, turbo = WHISPER_CONFIGS["large-v3"], WHISPER_CONFIGS["large-v3-turbo"]
+    params, config = apply_asr_serving_config(
+        init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+    turbo_full = init_params(turbo, seed=1, device=dev, dtype=torch.bfloat16)
+    draft, dconfig = apply_asr_serving_config({"decoder": turbo_full.pop("decoder")}, turbo, dev)
+    del turbo_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = _bench_tokenizer(config.n_vocab)
+    audio = torch.from_numpy(np.random.default_rng(7).standard_normal(N_SAMPLES)
+                             .astype(np.float32) * 0.1).to(dev)
+    opts = DecodingOptions(sample_len=224, without_timestamps=True)
+    setup = decode_setup(tok, opts, config, dev)
+    n_init = len(setup.init_tokens)
+
+    def mel():
+        return log_mel_spectrogram(audio, config.n_mels)[None]
+
+    with torch.inference_mode():  # warm-up: cuBLAS handles, the allocator
+        short = dataclasses.replace(opts, sample_len=8)
+        decode(params, mel(), tok, config, short)
+        spec_mod.spec_decode_task(params, draft, mel(), tok, config, dconfig, short, k=SPEC_K)
+
+    with _StepSpy(greedy_mod, params) as gspy:
+        (plain,), wall, counts, peak = _spec_run(lambda: decode(params, mel(), tok, config, opts))
+    _spec_print("spec large-v3 plain greedy", wall, counts, peak,
+                f"{len(plain.tokens)} tokens, {len(gspy.calls)} decoder calls, ")
+    assert len(plain.tokens) > 0
+    step = [gspy.calls[0][3][0, -1]] + [c[3][0, -1] for c in gspy.calls[1:]]
+    plain_buf = torch.zeros((1, config.n_text_ctx), dtype=torch.long, device=dev)
+    seq = setup.init_tokens + plain.tokens
+    plain_buf[0, :len(seq)] = torch.tensor(seq, device=dev)
+
+    def filtered(row, buf, j):  # a position's filtered logits, its prefix in ``buf``
+        return apply_filters(row.float()[None], buf, n_init + j, setup.suppress_mask,
+                             setup.blank_mask, setup.filter_cfg)[0]
+
+    with torch.inference_mode():  # D: teacher-forced verify blocks over the plain tokens
+        xkv = cross_kv(params, encode(params, mel(), config), config)
+        cache = init_kv_cache(config, 1, dev, max_len=n_init + 224 + SPEC_K + 1)
+        decode_step(params, torch.tensor([setup.init_tokens], device=dev), 0, cache, xkv, config)
+        full = torch.tensor([seq], device=dev)
+        d = _verify_vs_step(step[:len(plain.tokens)], lambda s: decode_step(
+            params, full[:, n_init + s:n_init + s + SPEC_K + 1], n_init + s, cache, xkv,
+            config)[0][0])
+        del xkv, cache
+
+    launches = {}
+    # the self-draft is a shallow copy, told apart from the target by the spy,
+    # and given the target's encoder states, as the turbo-shaped one takes them
+    for label, dp, dc in (("self-draft (upper bracket)", dict(params), config),
+                          ("large-v3-turbo-shaped draft (lower bracket)", draft, dconfig)):
+        with _StepSpy(spec_mod, params) as sspy:
+            (res,), wall, counts, peak = _spec_run(lambda: spec_mod.spec_decode_task(
+                params, dp, mel(), tok, config, dc, opts, k=SPEC_K, draft_shares_encoder=True))
+        st = res.spec_stats
+        committed = len(res.tokens) + (len(res.tokens) < 224)
+        _spec_print(f"spec large-v3 {label}, k {SPEC_K}", wall, counts, peak,
+                    f"{committed} committed tokens, proposed {st['proposed']}, accepted "
+                    f"{st['accepted']} ({st['accepted'] / max(st['proposed'], 1):.3f}), target "
+                    f"calls {st['target_calls']} (+1 prefill), draft calls "
+                    f"{sspy.draft_calls()} (prefill included), ")
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        got_buf = torch.zeros((1, config.n_text_ctx + SPEC_K + 1), dtype=torch.long, device=dev)
+        got_seq = setup.init_tokens + res.tokens
+        got_buf[0, :len(got_seq)] = torch.tensor(got_seq, device=dev)
+        eot = tok.eot
+
+        def tok_at(toks, j):
+            return toks[j] if j < len(toks) else eot
+
+        def gap_at(j):
+            f = filtered(step[j], plain_buf, j)
+            a, b = tok_at(plain.tokens, j), tok_at(res.tokens, j)
+            assert torch.isfinite(f[a]) and torch.isfinite(f[b]), (a, b)
+            return (f[a] - f[b]).item()
+
+        def verify_gap(row, j, a, b):
+            f = filtered(row, got_buf, j)
+            return (f[a] - f[b]).item()
+
+        # the verify holds [last, p1 .. pk] at s_len - 1: proposal i stands for
+        # token pos + i - n_init
+        rejections = (_rejections(sspy.calls, res.tokens, lambda pos, i: pos + i - n_init,
+                                  verify_gap) if dc is config else None)
+        _spec_check(f"large-v3 {label}", plain.tokens, res.tokens, gap_at, d, rejections)
+    return launches
+
+
+def _spec_llm_full() -> dict:
+    """Qwen3-32B packed int4 (phase 9's weights, built again the same way)
+    with two drafts, itself and a Qwen2.5-0.5B-shaped packed int4 draft from
+    seed 1: LLMEngine(draft=...).generate for 64 new tokens at T = 0 beside
+    the engine without a draft. -> launches of the speculative runs."""
+    from whisper_mlx_tpu_torch.inference import generate as generate_mod
+    from whisper_mlx_tpu_torch.inference import speculative as lspec_mod
+
+    dev = torch.device("cuda")
+    config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
+    dconfig = dataclasses.replace(qw.QWEN_CONFIGS["qwen2.5-0.5b"], dtype=torch.bfloat16,
+                                  flash_attention=True)
+    t0 = time.perf_counter()
+    params = qw.init_random_quant_params(config, seed=0, device=dev)
+    dparams = qw.init_random_quant_params(dconfig, seed=1, device=dev)
+    torch.cuda.synchronize()
+    print(f"  spec llm: Qwen3-32B and a Qwen2.5-0.5B-shaped draft (int4) built in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tok = ByteFallbackTokenizer()
+    prompt = _prompt_text(np.random.default_rng(6), 270)
+    ids = tok.encode(prompt)
+    new = 64
+    plain_eng = LLMEngine(params, config, tok, max_context=4096)
+    plain_eng.generate("warm up", max_tokens=4, temperature=0.0)
+    with _StepSpy(generate_mod, params) as gspy:
+        plain, wall, counts, peak = _spec_run(
+            lambda: plain_eng.generate(prompt, max_tokens=new, temperature=0.0))
+    _spec_print("spec Qwen3-32B plain greedy", wall, counts, peak,
+                f"{plain.generation_tokens} tokens, ")
+    assert plain.generation_tokens == new, plain.generation_tokens
+    step = [gspy.calls[0][3][0, len(ids) - 1]] + [c[3][0, -1] for c in gspy.calls[1:]]
+    with torch.inference_mode():  # D: teacher-forced verify blocks over the plain tokens
+        cache = qw.init_kv_cache(config, 1, 4096, dev)
+        qw.decode_step(params, torch.tensor([ids], device=dev), 0, cache, config)
+        full = torch.tensor([ids + plain.tokens], device=dev)
+        n0 = len(ids)
+        d = _verify_vs_step(step[:new], lambda s: qw.decode_step(
+            params, full[:, n0 + s:n0 + s + SPEC_K + 1], n0 + s, cache, config)[0][0])
+        del cache
+
+    launches = {}
+    real_generate = lspec_mod.speculative_generate
+    for label, draft in (("self-draft (upper bracket)", (dict(params), dataclasses.replace(config))),
+                         ("Qwen2.5-0.5B-shaped draft (lower bracket)", (dparams, dconfig))):
+        eng = LLMEngine(params, config, tok, max_context=4096, draft=draft)
+        stats = []
+        lspec_mod.speculative_generate = lambda *a, **kw: stats.append(
+            real_generate(*a, **kw)) or stats[-1]
+        try:
+            with _StepSpy(lspec_mod, params) as sspy:
+                res, wall, counts, peak = _spec_run(
+                    lambda: eng.generate(prompt, max_tokens=new, temperature=0.0))
+        finally:
+            lspec_mod.speculative_generate = real_generate
+        st = stats[0][1]
+        _spec_print(f"spec Qwen3-32B {label}, k {SPEC_K}", wall, counts, peak,
+                    f"{res.generation_tokens} committed tokens, proposed {st.proposed}, accepted "
+                    f"{st.accepted} ({st.acceptance_rate:.3f}), target calls {st.target_calls} "
+                    f"(prefill included), draft calls {st.draft_calls}, ")
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+        def gap_at(j):
+            row = step[j].float()
+            return (row[plain.tokens[j]] - row[res.tokens[j]]).item()
+
+        rejections = (_rejections(sspy.calls, res.tokens, lambda pos, i: pos + i - n0,
+                                  lambda row, j, a, b: (row[a] - row[b]).item())
+                      if draft[0] is not dparams else None)
+        _spec_check(f"Qwen3-32B {label}", plain.tokens, res.tokens, gap_at, d, rejections)
+        del eng
+    return launches, params
+
+
+def _spec_kernel_times(params) -> dict:
+    """K3 at the verify's shape (one window, Tq = 5, pos 226: self int8 of
+    256 positions + cross int4) beside its 1-row reading, and K5 over
+    Qwen3-32B's five linears at M = 5 beside M = 1, L2 cold, each with its
+    bound; K5 at M = 5 against its plain version."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    self_c, cross_c = _quant_cache(rng, 1, 20, 256, 8), _quant_cache(rng, 1, 20, 1500, 4)
+    out = {}
+    for rows_q in (1, 5):
+        q = torch.from_numpy(rng.standard_normal((1, 20, rows_q, 64)).astype(np.float32) * 0.35
+                             ).to(dev, torch.bfloat16)
+        ms = 0.0
+        for c0, kw in ((self_c, dict(pos=226, causal=True)), (cross_c, dict(valid_len=1500))):
+            layers = _layer_copies(lambda: tuple(t.clone() for t in c0), _nbytes(*c0))
+            ms += _cold_ms(lambda c: da.decode_attention(q, *c, **kw), layers)
+            del layers
+        live = [(226 + rows_q, 64 + 64 + 2 + 2), (1500, 32 + 32 + 2 + 2)]
+        bound = _bound(sum(20 * t * b for t, b in live) + 4 * _nbytes(q),
+                       sum(20 * t * rows_q * 2 * 2 * 64 for t, _ in live), "fp32")
+        out[f"k3_tq{rows_q}"] = (ms, bound)
+        print(f"  spec K3 one window, Tq={rows_q}, self pos 226 + cross, L2 cold: {ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    leaves = [("qkv", params["layers"][0]["attn"]["qkv"]["w"]),
+              ("o", params["layers"][0]["attn"]["o"]["w"]),
+              ("gate_up", params["layers"][0]["mlp"]["gate_up"]["w"]),
+              ("down", params["layers"][0]["mlp"]["down"]["w"]),
+              ("lm_head", params["lm_head"]["w"])]
+    for m in (1, 5):
+        ms = nbytes = ops = 0
+        for name, q in leaves:
+            n, k = q.shape
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            if m == 5:
+                ref = qm.quant_matmul_plain(x, q.w_q, q.scales, q.biases, q.bits, q.group_size)
+                _check(f"spec quant_matmul {name} N={n} K={k} M=5", tq.quant_matmul(x, q), ref,
+                       QMM_TOL * max(1.0, ref.float().abs().max().item()))
+                del ref
+            size = _nbytes(q.w_q, q.scales, q.biases)
+            copies = _layer_copies(lambda: dataclasses.replace(
+                q, w_q=q.w_q.clone(), scales=q.scales.clone(), biases=q.biases.clone()), size)
+            ms += _cold_ms(lambda c: tq.quant_matmul(x, c), copies)
+            nbytes += size + _nbytes(x) + 2 * m * n
+            ops += 2 * m * n * k
+            del copies
+            torch.cuda.empty_cache()
+        bound = _bound(nbytes, ops, "bf16")
+        out[f"k5_m{m}"] = (ms, bound)
+        print(f"  spec K5 Qwen3-32B qkv + o + gate_up + down + lm_head at M={m}, L2 cold: "
+              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return out
+
+
+def phase_spec() -> dict:
+    """Phase 23: speculative decoding (ROADMAP M11): the tiny config card vs
+    CPU, large-v3 and Qwen3-32B at full width, each between its two drafts'
+    brackets, then K3 and K5 at the verify's shapes. -> the speculative
+    runs' launches and the kernel times, for the JSON line."""
+    _spec_tiny()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _spec_whisper_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm_launches, params = _spec_llm_full()
+    launches.update({k: v for k, v in llm_launches.items()
+                     if k in ("flash", "quant", "quant_tiled")})
+    times = _spec_kernel_times(params)
+    del params
+    print(f"spec: {_smi()}; launches over the speculative runs {launches}")
+    for key, n in launches.items():
+        assert n > 0, f"kernel {key} was not launched on the speculative path"
+    return {"launches": launches, "times": times}
+
+
+
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
     call (1500 rows a window is past the kernels' 512): its time beside the
@@ -3237,13 +3777,13 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, serve, and batches, residency_times, beam_times, "
+                        "quant_main, serve, spec, and batches, residency_times, beam_times, "
                         "beam_batches, tiled_times and a8_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    rows, launches, on_4bit, serve = {}, {}, {}, {}
+    rows, launches, on_4bit, serve, spec = {}, {}, {}, {}, {}
 
     def residency():
         out = {}
@@ -3269,6 +3809,7 @@ def main(argv: list[str] | None = None) -> int:
         "tiny_quant": ("tiny 4-bit whisper", phase_tiny_quant, None),
         "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
         "serve": ("serve", phase_serve, serve),
+        "spec": ("speculative decoding", phase_spec, spec),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
@@ -3307,6 +3848,17 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_4bit"] = on_4bit[key]
         if key in ("mel", "dense", "decode"):  # the serving path (phase 22)
             row["launches_serve"] = serve[f"{key}_serve"]
+        if key in spec["launches"]:  # the speculative runs (phase 23)
+            row["launches_spec"] = spec["launches"][key]
+        if key == "decode":  # the verify's shape: one window, Tq = 5, pos 226, self + cross
+            ms, bound = spec["times"]["k3_tq5"]
+            row.update(ms_verify=ms, bound_verify_ms=bound["bound_ms"],
+                       bound_verify_by=bound["bound_by"],
+                       ms_1row_1window=spec["times"]["k3_tq1"][0])
+        if key == "quant":  # Qwen3-32B's five linears at the verify's M = 5, beside M = 1
+            ms, bound = spec["times"]["k5_m5"]
+            row.update(ms_m5=ms, bound_m5_ms=bound["bound_ms"], bound_m5_by=bound["bound_by"],
+                       ms_m1_layer0=spec["times"]["k5_m1"][0])
         if key in ("quant", "mbt"):  # at the large-v3 shapes, beside the Qwen3-32B ones
             row["max_abs_err_4bit"] = on_4bit[f"{key}_err"]
         if key == "quant":  # a large-v3 decode step's K5 calls at 8 rows, L2 cold

@@ -245,6 +245,56 @@ def test_decode_kernel_cluster_edges_match_plain(cuda, bits, int_dot, n, g, tq, 
     _assert_rows_close(got, ref)
 
 
+# K3 in speculative decoding's modes (ROADMAP R3): the draft's 2-token sync
+# and the verify of k + 1 = 5 rows, causal over an int8 self cache of 256
+# positions (large-v3's horizon, 224 + 5 rounded up) past position 0 and
+# where pos + Tq meets the cache end, and the verify's cross call over the
+# int4 cache
+SPEC_K3 = [(8, tq, 256, dict(pos=pos, causal=True))
+           for tq in (2, 5) for pos in (100, 226, 256 - tq)] + [(4, 5, 1500, dict(valid_len=1500))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dot", [False, True])
+@pytest.mark.parametrize("n", [1, 8], ids=["1win", "8win"])
+@pytest.mark.parametrize("bits,tq,t,kw", SPEC_K3)
+def test_decode_kernel_spec_modes_match_plain(cuda, bits, tq, t, kw, n, int_dot):
+    """K3 at the speculative loop's query rows, one window a call (the loop's
+    grid) and eight, both modes: row by row within 2e-2 of each row's
+    max|ref|, and bit-equal on a repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(tq * 7 + kw.get("pos", 0) + n)
+    kx, vx = (torch.randn((n, 20, t, 64), generator=gen, device=cuda) for _ in range(2))
+    k8, ks = kq.quantize_kv(kx * 0.35, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    q = (torch.randn((n, 20, tq, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+    before = (da.LAUNCHES, da.INT_DOT_LAUNCHES)
+    got = da.decode_attention(q, k8, ks, v8, vs, int_dot=int_dot, **kw)
+    torch.cuda.synchronize()
+    assert (da.LAUNCHES, da.INT_DOT_LAUNCHES) == (before[0] + (not int_dot),
+                                                  before[1] + int_dot)
+    _assert_rows_close(got, da.decode_attention_plain(q, k8, ks, v8, vs, int_dot=int_dot, **kw))
+    assert torch.equal(got, da.decode_attention(q, k8, ks, v8, vs, int_dot=int_dot, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dot", [False, True])
+def test_decode_kernel_v_scales_after_their_copy(cuda, int_dot):
+    """K3 reads the V scales only after their bulk copy has landed: before
+    the fix the weights w * vs read them while the copy could still be in
+    flight, and a row now and then took stale scales (0.35 of its max|ref|
+    off in an integer-dot self call of 40 rows at pos 226). Many launches on
+    fresh caches, each held row by row."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for rep in range(48):
+        kx, vx = (torch.randn((40, 20, 256, 64), generator=gen, device=cuda) for _ in range(2))
+        k8, ks = kq.quantize_kv(kx * 0.35, 8)
+        v8, vs = kq.quantize_kv(vx, 8)
+        q = (torch.randn((40, 20, 1, 64), generator=gen, device=cuda) * 0.35).bfloat16()
+        kw = dict(pos=226 - rep % 3, causal=True, int_dot=int_dot)
+        got = da.decode_attention(q, k8, ks, v8, vs, **kw)
+        _assert_rows_close(got, da.decode_attention_plain(q, k8, ks, v8, vs, **kw))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     q = torch.zeros((1, 2, 4, 64), device=cuda)  # float32: the kernels take bf16

@@ -174,11 +174,26 @@ def test_converter_keeps_quant_leaves_and_rejects_others():
 
 
 def test_flash_prefill_raises_off_position_zero():
+    """A block of several tokens past position 0 (speculative decoding's
+    verify and draft sync) no longer raises with flash on: it skips the
+    flash kernel and attends over the cache on the grouped path, giving
+    what the same config with flash off gives. A prefill at position 0
+    still takes the flash route."""
     cfg = dataclasses.replace(t_loader.config_from_hf(QWEN2_TINY), flash_attention=True)
     params = tqw.init_params(cfg, seed=0)
-    with pytest.raises(ValueError, match="position 0"):
-        tqw.decode_step(params, torch.zeros((1, 4), dtype=torch.long), 3,
-                        tqw.init_kv_cache(cfg, 1, 16), cfg)
+    prompt = torch.tensor([[5, 9, 11]])
+    block = torch.tensor([[1, 2, 3, 4]])
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, flash_attention=False)):
+        cache = tqw.init_kv_cache(c, 1, 16)
+        tqw.decode_step(params, prompt, 0, cache, c)
+        with mock.patch.object(tqw, "flash_attention",
+                               side_effect=AssertionError("flash past position 0")):
+            outs.append(tqw.decode_step(params, block, 3, cache, c)[0])
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    with mock.patch.object(tqw, "flash_attention", wraps=tqw.flash_attention) as fl:
+        tqw.decode_step(params, prompt, 0, tqw.init_kv_cache(cfg, 1, 16), cfg)
+    assert fl.call_count == cfg.num_hidden_layers
 
 
 @pytest.mark.parametrize("pos", [3, [3, 4]], ids=["scalar", "per_row"])

@@ -210,7 +210,6 @@ def test_serving_config_rejects_skipping_kernels(monkeypatch, name, value, devic
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "M14"),
     (dict(batch_windows=True, mesh=object()), "M14"),
-    (dict(draft_params={}), "M11"),
 ])
 def test_features_out_of_slice_raise(pair, kwargs, item):
     _, _, tparams, tcfg, _ = pair

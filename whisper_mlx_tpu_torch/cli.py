@@ -16,6 +16,10 @@ the synthetic tokenizer, as the JAX CLI does without a checkpoint) or
 ``--beam-size B`` (with ``--patience``) decodes the T=0 rung by beam search.
 ``--batch-windows True`` decodes fixed-stride windows a batch at a time,
 ``--word-timestamps True`` adds each segment's words.
+``--draft-model`` (resolved as ``--model`` is, and given the same serving
+configuration) decodes the sequential mode's T = 0 rung by speculative
+greedy decoding with ``--spec-k`` proposals a verify: token-identical to
+plain greedy.
 """
 
 from __future__ import annotations
@@ -81,7 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--word-timestamps", type=str2bool, default=False)
     p.add_argument("--clip-timestamps", default="0")
     p.add_argument("--batch-windows", type=str2bool, default=False)
-    p.add_argument("--draft-model", default=None)
+    p.add_argument("--draft-model", default=None,
+                   help="draft checkpoint or size for speculative greedy decoding "
+                        "(e.g. large-v3-turbo beside large-v3)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens proposed per verify step")
     p.add_argument("--verbose", type=str2bool, default=True)
     return p
 
@@ -121,8 +129,6 @@ def load_model(model: str, model_dir: str | None, device):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.draft_model:
-        raise NotImplementedError("draft-model speculative decoding: ROADMAP.md M11")
     device = setup_device(args.device)
 
     temperature = args.temperature
@@ -133,6 +139,11 @@ def main(argv: list[str] | None = None) -> int:
 
     params, config, tokenizer = load_model(args.model, args.model_dir, device)
     params, config = apply_asr_serving_config(params, config, device)
+    draft_params = draft_config = None
+    if args.draft_model:
+        draft_params, draft_config, _ = load_model(args.draft_model, args.model_dir, device)
+        draft_params, draft_config = apply_asr_serving_config(draft_params, draft_config,
+                                                              device)
     writer = get_writer(args.output_format, args.output_dir)
     for audio_path in args.audio:
         t0 = time.perf_counter()
@@ -157,6 +168,9 @@ def main(argv: list[str] | None = None) -> int:
             suppress_tokens=args.suppress_tokens,
             verbose=args.verbose,
             batch_windows=args.batch_windows,
+            draft_params=draft_params,
+            draft_config=draft_config,
+            spec_k=args.spec_k,
         )
         name = args.output_name or Path(audio_path).stem
         writer(result, name)

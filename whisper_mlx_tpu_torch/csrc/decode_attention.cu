@@ -37,7 +37,7 @@
 // blocks, so each code leaves device memory once, the bound's own count.
 // When a block starts, one thread issues bulk copies (cp.async.bulk, no
 // tensor map) of its slice of K codes and K scales on one mbarrier and of V
-// codes and V scales on another: V is in flight while QK and the softmax run.
+// codes and V scales on another: V is in flight while QK and the row maxima run.
 // Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 // out): the codes become bf16x2 pairs in one mask-and-or and one bf16x2 FMA
 // each (int8 as its two nibbles, summed as 16 hi + lo), exact, and the query
@@ -327,6 +327,10 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
       }
     }
     __syncthreads();  // the maxima are read before the sums overwrite them
+    // V's codes and scales have landed: the int mode's sums below and both
+    // modes' weights w * vs read the V scales (reading them earlier raced
+    // the bulk copy, and now and then took stale scales)
+    mbar_wait(&sm.bar[1], 0);
 #pragma unroll
     for (int rr = 0; rr < RP; ++rr) {
       if (rr < nr) {
@@ -408,7 +412,6 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
     // tile, paired across two key rows by a byte permute, and B of row gq's
     // weights at those keys. Exact products, fp32 sums (exact in the
     // integer mode, < 2^24).
-    mbar_wait(&sm.bar[1], 0);
     {
       const int gq = lane >> 2;
       const int cq = lane & 3;

@@ -62,6 +62,8 @@ class DecodingResult:
     no_speech_prob: float
     temperature: float
     compression_ratio: float
+    # decoding/speculative.py: {"proposed", "accepted", "target_calls"}
+    spec_stats: dict | None = None
 
 
 def compression_ratio(text: str) -> float:

@@ -15,9 +15,16 @@ The reference's two weight-residency opt-ins convert the packed tree once,
 in :class:`LLMEngine`: ``WTPU_QWEN_A8=1`` re-quantizes the linears to
 per-channel int8 (``ops/quant_a8.py``, kernel K7), then
 ``WTPU_MBT_RESIDENT=1`` transposes the linears still packed
-(``ops/quant_matmul_mb.py``, kernel K6), so A8 wins where both are set.
+(``ops/quant_matmul_mb.py``, kernel K6), so A8 wins where both are set; a
+draft model is converted as the target is.
 Opt-ins of the reference outside the port raise ``NotImplementedError``
-when set: ``WTPU_LLM_KV_BITS``, ``WTPU_NATIVE_RESIDENT`` and a draft model.
+when set: ``WTPU_LLM_KV_BITS`` and ``WTPU_NATIVE_RESIDENT``.
+
+With a draft model (``draft=(params, config)``), ``generate`` at
+temperature 0 runs greedy speculative decoding
+(``inference/speculative.py``), token-identical to the plain loop;
+``stream_generate``, sampling and the batch engine use the target alone,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import TYPE_CHECKING, Iterator, Sequence
 import numpy as np
 import torch
 
+from whisper_mlx_tpu_torch.inference import speculative
 from whisper_mlx_tpu_torch.models.qwen import Params, QwenConfig, decode_step, init_kv_cache
 
 if TYPE_CHECKING:
@@ -139,29 +147,34 @@ def params_device(params: Params) -> torch.device:
 
 
 class LLMEngine:
-    """Loaded model + tokenizer; it runs on the device its params are on."""
+    """Loaded model + tokenizer; it runs on the device its params are on.
+    ``draft``: an optional ``(params, config)`` draft model on the same
+    device, for greedy speculative decoding."""
 
     PROMPT_BUCKET = 128  # prompt lengths are rounded up to a multiple
 
     def __init__(self, params: Params, config: QwenConfig, tokenizer,
-                 max_context: int = 4096, draft=None):
+                 max_context: int = 4096,
+                 draft: "tuple[Params, QwenConfig] | None" = None):
         check_opt_ins()
-        if draft is not None:
-            raise NotImplementedError("a draft model (speculative decoding) is not ported: "
-                                      "ROADMAP.md M11")
         if os.environ.get("WTPU_QWEN_A8", "0") == "1":
             from whisper_mlx_tpu_torch.ops.quant_a8 import prepare_a8_params
 
             params = prepare_a8_params(params)
+            if draft is not None:
+                draft = (prepare_a8_params(draft[0]), draft[1])
         if os.environ.get("WTPU_MBT_RESIDENT", "0") == "1":
             from whisper_mlx_tpu_torch.ops.quant import prepare_mbt_params
 
             params = prepare_mbt_params(params)
+            if draft is not None:
+                draft = (prepare_mbt_params(draft[0]), draft[1])
         self.params = params
         self.config = config
         self.tokenizer = tokenizer
         self.max_context = max_context
         self.device = params_device(params)
+        self.draft = draft
         self._batch_engine = None
         self._batch_lock = threading.Lock()
 
@@ -228,12 +241,27 @@ class LLMEngine:
             raise ValueError("generate() requires a non-empty prompt")
         ids, max_tokens = self._fit_context(ids, max_tokens)
         t0 = time.perf_counter()
-        toks = list(self._tokens(ids, max_tokens, temperature, top_p, top_k, seed))
+        if self.draft is not None and temperature == 0.0:
+            toks = self._speculative_tokens(ids, max_tokens)
+        else:
+            toks = list(self._tokens(ids, max_tokens, temperature, top_p, top_k, seed))
         dt = time.perf_counter() - t0
         return GenerationResult(
             text=self.tokenizer.decode(toks), tokens=toks, prompt_tokens=len(ids),
             generation_tokens=len(toks), prompt_tps=len(ids) / max(dt, 1e-9),
             generation_tps=len(toks) / max(dt, 1e-9))
+
+    def _speculative_tokens(self, ids: list[int], max_tokens: int) -> list[int]:
+        """Greedy speculative decoding with the draft; trailing stop tokens
+        dropped, as the plain loop yields none."""
+        draft_params, draft_config = self.draft
+        stops = set(self._stop_ids())
+        toks, _ = speculative.speculative_generate(
+            self.params, self.config, draft_params, draft_config, ids,
+            max_tokens=max_tokens, stop_ids=stops, max_len=self.max_context)
+        while toks and toks[-1] in stops:
+            toks = toks[:-1]
+        return toks
 
     def stream_generate(self, prompt: str, max_tokens: int = 512, temperature: float = 0.7,
                         top_p: float = 1.0, top_k: int = 0, seed: int = 0) -> Iterator[str]:

@@ -21,8 +21,13 @@ sequential mode the seek then follows the last aligned word, and
 ``hallucination_silence_threshold`` re-seeks past anomalous segments
 surrounded by silence.
 
-Not in this slice (each raises ``NotImplementedError``): a draft model
-(ROADMAP.md M11) and ``mesh=`` (M14).
+With ``draft_params`` (and ``draft_config``, the target's by default) the
+sequential mode's T = 0 rung runs draft-assisted greedy decoding
+(``decoding/speculative.py``, ``spec_k`` proposals a verify) unless a beam
+is asked for: token-identical to plain greedy. The batched mode ignores the
+draft, as the reference does.
+
+Not in this slice: ``mesh=`` (ROADMAP.md M14) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from whisper_mlx_tpu_torch.decoding.task import (
     decode,
     detect_language,
 )
+from whisper_mlx_tpu_torch.decoding.speculative import spec_decode_task
 from whisper_mlx_tpu_torch.decoding.tokenizer import WhisperTokenizer
 from whisper_mlx_tpu_torch.inference.word_timestamps import add_word_timestamps
 from whisper_mlx_tpu_torch.models.whisper import Params, WhisperConfig, encode
@@ -112,6 +118,8 @@ def transcribe(
     window_batch_size: int = 8,
     mesh: Any | None = None,
     draft_params: Params | None = None,
+    draft_config: WhisperConfig | None = None,
+    spec_k: int = 4,
     stage_timer: StageTimer | None = None,
     **decode_options: Any,
 ) -> dict[str, Any]:
@@ -124,8 +132,6 @@ def transcribe(
     if mesh is not None:
         raise NotImplementedError("mesh=: data parallelism over windows is not ported "
                                   "(ROADMAP.md M14)")
-    if draft_params is not None:
-        raise NotImplementedError("draft-model speculative decoding: ROADMAP.md M11")
     device = setup_device(device)
     if isinstance(audio, (str, bytes)) or hasattr(audio, "__fspath__"):
         audio = load_audio(audio)
@@ -201,9 +207,17 @@ def transcribe(
                                best_of=opts.best_of or 5)
             gen = torch.Generator(device=device).manual_seed(
                 int(t * 1000) + 17 * len(all_segments))
+            # best_of is a T > 0 option (decode ignores it at T = 0), so the
+            # draft path needs only greedy and no beam
+            use_spec = t == 0 and draft_params is not None and opts.beam_size is None
             with stage_timer.stage("decode"):
-                result = decode(params, states, tokenizer, config, opts,
-                                states_precomputed=True, generator=gen)[0]
+                if use_spec:
+                    result = spec_decode_task(params, draft_params, states, tokenizer, config,
+                                              draft_config or config, opts, k=spec_k,
+                                              states_precomputed=True)[0]
+                else:
+                    result = decode(params, states, tokenizer, config, opts,
+                                    states_precomputed=True, generator=gen)[0]
             needs_fallback = False
             if (compression_ratio_threshold is not None
                     and result.compression_ratio > compression_ratio_threshold):

@@ -20,7 +20,12 @@ K7 for an ``A8Tensor``: ``ops/quant.py``), every prefill through
 prefill starts at position 0, and on CUDA it needs ``flash_attention=True``.
 Decode attention over the cache is plain torch, as the reference computes
 it in XLA outside any kernel; it reads only positions below ``pos + t``,
-which is exact because later positions carry weight exactly 0.
+which is exact because later positions carry weight exactly 0. A block of
+several tokens past position 0 (speculative decoding's verify and draft
+sync) takes that path too, causal over the cache. The reference's flash
+branch takes any block of several tokens and attends within the block
+only, which at a position past 0 would leave out the cache; it never meets
+one, since its ``load_qwen`` leaves flash off.
 
 One difference from the reference: its flash prefill leaves the attention
 output in fp32 (``models/qwen.py:281``), which promotes a bf16 prefill's
@@ -174,9 +179,10 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
     per_row = not isinstance(pos, int)
     H, KV, hd = config.num_attention_heads, config.num_key_value_heads, config.hd
     rep = H // KV
-    prefill = t > 1 and not per_row
-    if prefill and config.flash_attention and pos != 0:
-        raise ValueError(f"qwen decode_step: a flash prefill starts at position 0, got {pos}")
+    # a prefill (a block at position 0) runs K4; a block past position 0
+    # (speculative decoding's verify and draft sync) attends over the cache
+    # on the grouped path, as a one-token step does
+    prefill = t > 1 and not per_row and pos == 0
     if prefill and not config.flash_attention and tokens.is_cuda:
         raise ValueError("qwen decode_step: on CUDA a prefill runs kernel K4; set "
                          "flash_attention=True")

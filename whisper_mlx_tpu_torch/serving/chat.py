@@ -6,7 +6,9 @@ mlx-community ids; ``QWEN_MODEL_PATH`` (or ``model_path``) loads a local
 HF or mlx-format checkpoint directory with its tokenizer, and without one
 a tiny random model serves, so the engine runs without weights.
 ``QWEN_BATCH_SLOTS`` > 1 routes requests through the continuous-batching
-engine.
+engine. ``QWEN_DRAFT_PATH``, with a model path, loads a draft checkpoint
+the same way for greedy speculative decoding (``inference/speculative.py``);
+without a model path it is ignored, as in the reference.
 
 The model lives on an explicit device, ``cuda`` by default (which raises
 when no GPU is present). On CUDA the model runs in bf16 with the flash
@@ -91,11 +93,10 @@ class QwenModel:
         if os.environ.get("QWEN_SCRIPTED_MODEL"):
             raise NotImplementedError("QWEN_SCRIPTED_MODEL (the scripted engine) is not "
                                       "ported: ROADMAP.md M13")
-        if os.environ.get("QWEN_DRAFT_PATH"):
-            raise NotImplementedError("QWEN_DRAFT_PATH (speculative decoding) is not "
-                                      "ported: ROADMAP.md M11")
         path = self.model_path or os.environ.get("QWEN_MODEL_PATH")
+        draft_path = os.environ.get("QWEN_DRAFT_PATH")
         t0 = time.perf_counter()
+        draft = None
         if path:
             from whisper_mlx_tpu_torch.checkpoint.qwen_loader import load_qwen
             from whisper_mlx_tpu_torch.decoding.llm_tokenizer import load_llm_tokenizer
@@ -103,6 +104,10 @@ class QwenModel:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
             params, config = load_qwen(path, dtype=dtype, device=self.device)
             tokenizer = load_llm_tokenizer(path)
+            if draft_path:
+                draft_params, draft_config = load_qwen(draft_path, dtype=dtype,
+                                                       device=self.device)
+                draft = (draft_params, serving_config(draft_config, self.device))
         else:
             from whisper_mlx_tpu_torch.decoding.llm_tokenizer import ByteFallbackTokenizer
             from whisper_mlx_tpu_torch.models.qwen import QwenConfig, init_params
@@ -115,7 +120,7 @@ class QwenModel:
             params = _to(init_params(config, seed=0), self.device)
             logger.warning("no QWEN_MODEL_PATH set: serving a tiny random model")
         config = serving_config(config, self.device)
-        engine = LLMEngine(params, config, tokenizer)
+        engine = LLMEngine(params, config, tokenizer, draft=draft)
         logger.info("model %s loaded in %.1fs", self.model_size, time.perf_counter() - t0)
         return engine
 
