@@ -39,7 +39,7 @@ is non-zero and the result line is not printed:
    2-window beam runs of 16 steps under
    WTPU_BEAM_KV=flat, permp and permi (K9), then
    an 8-window x beam 5 batch, timed, its tokens at 64 steps beside those
-   with K8's plain version, with a per-step breakdown;
+   with K8's plain version (its per-step breakdown runs in phase 19 only);
 7. LLM kernels: the quantized matmul (K5) at the five Qwen3-32B linear
    shapes (M = 1 L2 cold over copies of each linear, the warm reading and the
    host cost beside) and the flash prefill (K4) against their plain versions, K4 also
@@ -50,7 +50,12 @@ is non-zero and the result line is not printed:
    ragged logits, each within QMM_TOL of the plain version, bit-equal on a
    repeat and one device kernel a call, then timed over one layer's four
    linears at 128, 384 and 512 rows, L2 cold, beside bf16 torch.matmul on
-   the weights dequantized beforehand (a yardstick) and the bound;
+   the weights dequantized beforehand (a yardstick) and the bound; then
+   torch._weight_int4pack_mm (the library's group-wise int4 product, weights
+   packed once, MLX's affine carried over as z = b + 8 s) over the five
+   linears at M = 1 and the four at 384 rows, L2 cold, each held to K5's
+   plain version within QMM_TOL: the library time of the K5, K5 tiled and
+   K6 rows (none where it disagrees or cannot run);
 8. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
    QwenModel on CUDA and on the CPU (plain versions), logits and tokens;
 9. LLM main path: Qwen3-32B at full width with random packed int4 weights
@@ -151,7 +156,7 @@ is non-zero and the result line is not printed:
    224, no timestamps) on one 30 s window of noise, plain greedy, then
    k = 4 with the target as its own draft (the upper bracket) and with a
    random large-v3-turbo-shaped draft sharing the encoder (the lower
-   bracket); Qwen3-32B packed int4 through LLMEngine.generate, 64 new
+   bracket); Qwen3-32B packed int4 through LLMEngine.generate, 32 new
    tokens at T = 0, without a draft, with itself and with a
    Qwen2.5-0.5B-shaped packed int4 draft of seed 1. The phase's own check:
    where a speculative run's tokens first part from the plain run's, the
@@ -162,7 +167,17 @@ is non-zero and the result line is not printed:
    self-draft before that point must be such a near tie. Last, K3 at the
    verify's shape (one window, Tq = 5, pos 226, self + cross) beside its
    1-row reading, and K5 over Qwen3-32B's five linears at M = 5 beside
-   M = 1 (checked against its plain version), L2 cold, with their bounds.
+   M = 1 (checked against its plain version), L2 cold, with their bounds;
+24. daemon, run in every whole run after phase 23: the port's HTTP daemon
+   (ROADMAP M13) at full width, in process on a free port, every request
+   over real HTTP: large-v3 behind /v1/transcribe (a burst of four requests,
+   two uploads and two paths, at a raised flush so that it rides one batch,
+   whose tokens must equal a TranscriptionBatcher's called directly on the
+   same audios in the same arrival order; the same burst at the default
+   flush, its batches counted; the stream; the sequential transcribe with
+   words) and Qwen3-32B packed int4 behind
+   /v1/chat (a chat, a session's SSE chat, two chats at once on one slot),
+   /health and a tool; K1-K5 must each launch over the requests.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -177,10 +192,14 @@ over phase 23's speculative runs as ``launches_spec``, K3's time at the
 verify's shape as ``ms_verify`` with ``bound_verify_ms`` beside its 1-row
 reading ``ms_1row_1window``, K3's largest error over phase 3's speculative
 cases as ``max_abs_err_spec``, and K5's at M = 5 over five Qwen3-32B linears as
-``ms_m5`` with ``bound_m5_ms`` beside ``ms_m1_layer0``). The K5 and K6 rows
+``ms_m5`` with ``bound_m5_ms`` beside ``ms_m1_layer0``; K1-K5's launches over
+phase 24's HTTP requests as ``launches_daemon``). The K5 and K6 rows
 also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
 linears at 384 rows, L2 cold), ``bound_tiled`` and ``bound_tiled_by``,
-``yardstick_tiled_ms`` and ``launches_tiled`` (phase 9's tiled launches for
+``yardstick_tiled_ms``, ``library_tiled_ms`` (torch._weight_int4pack_mm over the
+four linears at 384 rows; K5's row also ``library_err_over_tol``, the library
+call's largest error over QMM_TOL, and ``library_error`` where it could not
+run) and ``launches_tiled`` (phase 9's tiled launches for
 K5, phase 11's under WTPU_MBT_RESIDENT=1 for K6, each counter set to 0 with
 the others); the K7 row its tiled route's ``ms_tiled`` (the four linears at
 384 rows, x's quantization included), ``bound_tiled``, ``library_tiled_ms``
@@ -202,6 +221,7 @@ import importlib.util
 import itertools
 import json
 import os
+import pathlib
 import shutil
 import struct
 import subprocess
@@ -1003,7 +1023,12 @@ def _write_wav(path, seconds: float) -> None:
     t = np.arange(int(seconds * 16000)) / 16000.0
     x = (0.3 * np.sin(2 * np.pi * (180 + 40 * np.sin(2 * np.pi * 0.3 * t)) * t)
          * (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) + 0.02 * rng.standard_normal(t.size))
-    pcm = (np.clip(x, -1, 1) * 32767).astype("<i2").tobytes()
+    _wav_file(path, x)
+
+
+def _wav_file(path, audio: np.ndarray) -> None:
+    """``audio`` (16 kHz mono) as a 16-bit PCM WAV."""
+    pcm = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
     hdr = (b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVEfmt "
            + struct.pack("<IHHIIHH", 16, 1, 1, 16000, 32000, 2, 16)
            + b"data" + struct.pack("<I", len(pcm)))
@@ -1207,14 +1232,16 @@ def phase_beam_main_path() -> dict:
         assert n > 0, f"kernel {key} was not launched on the beam main path"
     del states, mel
     torch.cuda.empty_cache()
-    _time_beam_batch(params, config, tok, audio)
+    # the per-step breakdown (its profiled windows took 78-140 s) runs only
+    # in phase 19: the whole run's time limit is phase 24's
+    _time_beam_batch(params, config, tok, audio, breakdown=False)
     return launches
 
 
-def _time_beam_batch(params, config, tok, audio, runs: int = 1) -> None:
+def _time_beam_batch(params, config, tok, audio, runs: int = 1, breakdown: bool = True) -> None:
     """8 windows x beam 5 through log_mel_spectrogram -> decode(), sample_len
-    224, ``runs`` timed runs after a warm-up, then a per-step breakdown of
-    beam_decode."""
+    224, ``runs`` timed runs after a warm-up, then (``breakdown``) a per-step
+    breakdown of beam_decode."""
     batch = audio.shape[0]
     opts = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
 
@@ -1259,7 +1286,8 @@ def _time_beam_batch(params, config, tok, audio, runs: int = 1) -> None:
     windows = sum(list(a.tokens) == list(b.tokens) for a, b in zip(results, ref))
     print(f"  against K8's plain version in the same batch at 64 steps: tokens agree "
           f"{same}/{total}, {windows}/{batch} windows equal (plain digest {ref_digest})")
-    _beam_breakdown(params, config, tok, audio)
+    if breakdown:
+        _beam_breakdown(params, config, tok, audio)
 
 
 def _beam_breakdown(params, config, tok, audio) -> None:
@@ -1495,6 +1523,70 @@ def _tiled_whisper_step(gen, m=24) -> None:
           f"beforehand: {sums['yardstick']:.4f} ms")
 
 
+# torch._weight_int4pack_mm's times on the Qwen3-32B linears (phase 7), for
+# the K5, K5 tiled and K6 rows' library_ms
+_INT4PACK: dict = {}
+
+
+def _int4pack(q):
+    """MLX's affine ``w = q s + b`` (4 bits) packed for
+    ``torch._weight_int4pack_mm``, whose tinygemm form is ``(q - 8) s + z``:
+    ``z = b + 8 s``; codes two a byte, the even k in the high nibble, packed
+    once by ``torch._convert_weight_to_int4pack``; scales and zeros as
+    (groups, N, 2) bf16. -> (packed weights, scales and zeros)."""
+    codes = tq.unpack(q.w_q, 4)
+    w = torch._convert_weight_to_int4pack(
+        ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8), 8)
+    del codes
+    sz = torch.stack([q.scales, q.biases + 8 * q.scales], dim=-1)
+    return w, sz.transpose(0, 1).contiguous().to(torch.bfloat16)
+
+
+def _int4pack_library(gen) -> dict:
+    """``torch._weight_int4pack_mm`` (one PyTorch call: the group-wise int4
+    product, weights packed once) over Qwen3-32B's five linears at M = 1 and
+    one layer's four at 384 rows, L2 cold, each held to K5's plain version
+    within QMM_TOL. Nothing in the port routes to it. -> {"m1": five
+    linears' ms, "m1_four": the first four's, "m384": four at 384 rows,
+    "err": the largest error over tol, "error": why it could not run}."""
+    out = {"m1": 0.0, "m1_four": 0.0, "m384": 0.0, "err": 0.0, "error": None}
+    try:
+        for name, n, k in QWEN_LINEARS:
+            q = _random_quant(gen, n, k)
+            w, sz = _int4pack(q)
+            copies = _layer_copies(lambda: (w.clone(), sz.clone()), _nbytes(w, sz))
+            for m in ((1, 384) if name != "lm_head" else (1,)):
+                x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+                got = torch._weight_int4pack_mm(x, w, q.group_size, sz)
+                ref = _k5_plain(x, q)
+                tol = QMM_TOL * max(1.0, ref.float().abs().max().item())
+                err = (got.float() - ref.float()).abs().max().item()
+                out["err"] = max(out["err"], err / tol)
+                ms = _cold_ms(lambda c: torch._weight_int4pack_mm(x, c[0], q.group_size, c[1]),
+                              copies, reps=8 if m > 1 else 24)
+                print(f"    torch._weight_int4pack_mm {name} N={n} K={k} M={m}: {ms:.4f} ms "
+                      f"L2 cold, max_abs_err {err:.3e} against K5's plain version (tol "
+                      f"{tol:.3e})")
+                out["m384" if m > 1 else "m1"] += ms
+                if m == 1 and name != "lm_head":
+                    out["m1_four"] += ms
+                del got, ref
+            del q, w, sz, copies
+            torch.cuda.empty_cache()
+    except (RuntimeError, AttributeError, TypeError) as exc:
+        # a partial sum is no library time
+        out.update(m1=None, m1_four=None, m384=None, error=f"{type(exc).__name__}: {exc}")
+        print(f"  torch._weight_int4pack_mm could not run: {out['error']}")
+        return out
+    within = out["err"] <= 1.0
+    print(f"  torch._weight_int4pack_mm: five linears at M=1 {out['m1']:.4f} ms, the four "
+          f"{out['m1_four']:.4f} ms, four at 384 rows {out['m384']:.4f} ms; largest error "
+          f"{out['err']:.3f} x QMM_TOL ({'within' if within else 'NOT within: no library time'})")
+    if not within:  # not the same function at this tolerance
+        out.update(m1=None, m1_four=None, m384=None)
+    return out
+
+
 def phase_llm_kernels() -> dict:
     """K5 at the Qwen3-32B shapes and K4 at its prefill shapes against their
     plain versions; K5's tiled core at every edge of its row blocks on the
@@ -1524,13 +1616,18 @@ def phase_llm_kernels() -> dict:
     tiled = _tiled_layer(gen, lambda q: q)
     print(f"  quant_matmul one layer's linears + head at M=1 (qkv, o, gate_up, down, "
           f"lm_head): kernel {m1_ms:.4f} ms, plain {m1_plain:.4f} ms")
+    _INT4PACK.update(_int4pack_library(gen))
+    lib = dict(library_err_over_tol=_INT4PACK["err"])
+    if _INT4PACK["error"]:
+        lib["library_error"] = _INT4PACK["error"]
     rows = {"quant": dict(
         name="quant_matmul", route="cuda", source="whisper_mlx_tpu_torch/csrc/quant_matmul.cu",
         replaces="whisper_mlx_tpu/ops/quant_pallas.py:113", max_abs_err=max(errs),
         ms=m1_ms, plain_ms=m1_plain,
         # codes, scales and biases of the five linears once, x in, y out
         **_bound(m1_bytes, 2 * sum(n * k for _, n, k in QWEN_LINEARS), "bf16"),
-        library_ms=None, **_tiled_keys(tiled))}
+        library_ms=_INT4PACK["m1"], library_tiled_ms=_INT4PACK["m384"], **lib,
+        **_tiled_keys(tiled))}
 
     errs = []
     s = 128 ** -0.25
@@ -1690,7 +1787,7 @@ def phase_llm_main_path() -> dict:
     tok = _CountingTokenizer()
     engine = LLMEngine(params, config, tok, max_context=4096)
     rng = np.random.default_rng(6)
-    new = 64
+    new = 32  # tokens a request, short for the whole run's time limit
 
     qm.LAUNCHES = qm.TILED_LAUNCHES = fa.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1994,7 +2091,8 @@ def phase_residency_kernels() -> dict:
         name="quant_matmul_mbt", route="cuda",
         source="whisper_mlx_tpu_torch/csrc/quant_matmul_mb.cu",
         replaces="whisper_mlx_tpu/ops/quant_pallas_mb.py:354", max_abs_err=max(errs["mbt"]),
-        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "bf16"), library_ms=None,
+        ms=ms, plain_ms=plain, **_bound(nbytes, ops, "bf16"),
+        library_ms=_INT4PACK.get("m1_four"), library_tiled_ms=_INT4PACK.get("m384"),
         **_tiled_keys(tiled))}
     ms, plain, nbytes, ops, _ = sums["a8"]
     rows["a8"] = dict(
@@ -3597,7 +3695,7 @@ def _spec_whisper_full() -> dict:
 def _spec_llm_full() -> dict:
     """Qwen3-32B packed int4 (phase 9's weights, built again the same way)
     with two drafts, itself and a Qwen2.5-0.5B-shaped packed int4 draft from
-    seed 1: LLMEngine(draft=...).generate for 64 new tokens at T = 0 beside
+    seed 1: LLMEngine(draft=...).generate for 32 new tokens at T = 0 beside
     the engine without a draft. -> launches of the speculative runs."""
     from whisper_mlx_tpu_torch.inference import generate as generate_mod
     from whisper_mlx_tpu_torch.inference import speculative as lspec_mod
@@ -3615,7 +3713,7 @@ def _spec_llm_full() -> dict:
     tok = ByteFallbackTokenizer()
     prompt = _prompt_text(np.random.default_rng(6), 270)
     ids = tok.encode(prompt)
-    new = 64
+    new = 32  # short for the whole run's time limit
     plain_eng = LLMEngine(params, config, tok, max_context=4096)
     plain_eng.generate("warm up", max_tokens=4, temperature=0.0)
     with _StepSpy(generate_mod, params) as gspy:
@@ -3737,6 +3835,7 @@ def phase_spec() -> dict:
     launches.update({k: v for k, v in llm_launches.items()
                      if k in ("flash", "quant", "quant_tiled")})
     times = _spec_kernel_times(params)
+    _QWEN32_PARAMS["params"] = params  # phase 24 serves these weights
     del params
     print(f"spec: {_smi()}; launches over the speculative runs {launches}")
     for key, n in launches.items():
@@ -3744,6 +3843,335 @@ def phase_spec() -> dict:
     return {"launches": launches, "times": times}
 
 
+
+# ---------------------------------------------------------------------------
+# the HTTP daemon (ROADMAP M13): /v1/transcribe on K1-K3, /v1/chat on K4-K5
+# ---------------------------------------------------------------------------
+
+# Qwen3-32B's packed weights of phase 23, kept for phase 24 (which builds
+# them again the same way when run alone)
+_QWEN32_PARAMS: dict = {}
+# the served batcher's flush (deadline, idle gap in ms) for phase 24's
+# checked burst: raised from the serving defaults (50/25) so that the four
+# HTTP arrivals ride one batch whatever the host's timing; the same burst
+# then runs again at the defaults, where its batches are a measurement
+CHECKED_FLUSH = (3000.0, 1000.0)
+
+
+def _http(base: str, method: str, path: str, body=None, multipart: str | None = None,
+          timeout: float = 600.0):
+    """One request over real HTTP -> (seconds, status, JSON or SSE events).
+    A status other than 2xx raises (urllib's HTTPError)."""
+    import urllib.request
+
+    headers, data = {}, None
+    if multipart is not None:  # the file as a multipart upload
+        boundary = "chipsmoke" + hashlib.sha1(multipart.encode()).hexdigest()[:16]
+        with open(multipart, "rb") as f:
+            data = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                    f"filename=\"{os.path.basename(multipart)}\"\r\nContent-Type: audio/wav"
+                    f"\r\n\r\n").encode() + f.read() + f"\r\n--{boundary}--\r\n".encode()
+        headers["Content-Type"] = f"multipart/form-data; boundary={boundary}"
+    elif body is not None:
+        data = json.dumps(body).encode()
+        headers["Content-Type"] = "application/json"
+    req = urllib.request.Request(base + path, data=data, headers=headers, method=method)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if resp.headers.get("Content-Type", "").startswith("text/event-stream"):
+            out = [json.loads(line[6:]) for line in (raw.decode().strip() for raw in resp)
+                   if line.startswith("data: ")]
+        else:
+            out = json.loads(resp.read())
+        return time.perf_counter() - t0, resp.status, out
+
+
+class _WordyLLMTokenizer(ByteFallbackTokenizer):
+    """The byte tokenizer, with every id past its own vocabulary decoded to
+    a four-letter word: random Qwen3-32B weights sample ids of all 151,936,
+    which the byte tokenizer decodes to nothing, so that a reply streams no
+    text."""
+
+    def decode(self, ids):
+        out, run = [], []
+        for t in list(ids) + [None]:
+            if t is not None and t < self.vocab_size:
+                run.append(t)
+                continue
+            out.append(super().decode(run))  # bytes and specials as they are
+            run = []
+            if t is not None:
+                i = t - self.vocab_size
+                out.append(" " + "".join(chr(97 + (i // 26 ** k) % 26) for k in range(4)))
+        return "".join(out)
+
+
+def _concurrently(*calls):
+    """Each call in a thread of its own, all started at once -> results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(c) for c in calls]
+        return [f.result() for f in futures]
+
+
+def _daemon_counts() -> dict:
+    return {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES,
+            "flash": fa.LAUNCHES, "quant": qm.LAUNCHES}
+
+
+def phase_daemon() -> dict:
+    """Phase 24: the port's HTTP daemon (ROADMAP M13) at full width.
+    ``serving.server.create_app(whisper_model="large-v3", device="cuda")``
+    (random weights of seed 0 built on the card, the serving config: bf16,
+    flash, int4 cross and int8 self caches) behind aiohttp's AppRunner and a
+    TCPSite on 127.0.0.1 at a free port, its event loop in a thread; every
+    request from this thread over real HTTP with urllib. The chat model is
+    Qwen3-32B packed int4 with random weights: phase 23's weights (built
+    again when the phase runs alone) in an LLMEngine handed to
+    ``QwenModel.get(LARGE, None, "cuda")`` before the first chat, since
+    writing an 18 GB checkpoint only to read it back would cost the
+    script's time. The served whisper model gets phase 22's four-letter-word
+    tokenizer (the real special-token layout; ``load_model`` gives a size
+    the synthetic byte one), so that random tokens make words. The general
+    profile's system and tool prompt (10,689 bytes) is longer than the
+    engine's context, which keeps its last 4,032 tokens.
+    Requests: /health; a burst of four /v1/transcribe (65, 30, 20, 65 s; two
+    uploads, two paths) with the served batcher's flush raised to
+    CHECKED_FLUSH, one 8-window batch whose tokens must equal a
+    TranscriptionBatcher's called directly on the same params and audios
+    in the arrival order the served batcher saw; the same burst at the
+    serving knobs' default flush, its batches counted and its tokens set
+    beside the checked burst's; /v1/transcribe/stream; /v1/transcribe with options
+    (the sequential transcribe with words); /v1/chat; a session and its SSE
+    chat; two chats at once on one slot (exactly one queued); a tool
+    invocation. K1-K5's launches over the HTTP requests must each be above
+    0. -> those launches."""
+    import asyncio
+    import socket
+    import threading
+
+    from aiohttp import web
+
+    from whisper_mlx_tpu_torch.inference.generate import apply_chat_template
+    from whisper_mlx_tpu_torch.serving import server as server_mod
+    from whisper_mlx_tpu_torch.serving.chat import ChatService, ModelSize, QwenModel
+    from whisper_mlx_tpu_torch.serving.profiles import get_profile
+    from whisper_mlx_tpu_torch.serving.sessions import SessionStore, set_session_store
+    from whisper_mlx_tpu_torch.serving.sync import auth, storage
+    from whisper_mlx_tpu_torch.serving.tools.mirror import data_store
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    # the daemon's stores under the phase's own directory, not $HOME
+    set_session_store(SessionStore(os.path.join(tmp, "sessions")))
+    saved = (storage.DATA_DIR, data_store.MIRROR_DATA_DIR, auth.ACCOUNTS_DIR)
+    storage.DATA_DIR = auth.ACCOUNTS_DIR = pathlib.Path(tmp) / "data"
+    data_store.MIRROR_DATA_DIR = os.path.join(tmp, "mirror")
+
+    torch.cuda.reset_peak_memory_stats()
+    config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
+    params = _QWEN32_PARAMS.pop("params", None)
+    if params is None:
+        params = qw.init_random_quant_params(config, seed=0, device=dev)
+    llm_tok = _WordyLLMTokenizer()
+    qwen = QwenModel.get(ModelSize.LARGE, None, "cuda")
+    qwen._engine = LLMEngine(params, config, llm_tok, max_context=4096)
+    del params
+    # the prompt of a general-profile chat, as the service builds it
+    messages = ChatService(qwen)._build_messages(get_profile("general"), [], "hello")
+    prompt_tokens = len(llm_tok.encode(apply_chat_template(messages)))
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="daemon-loop", daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    seconds = (65.0, 30.0, 20.0, 65.0)  # 3 + 1 + 1 + 3 windows
+    runner = None
+    try:
+        t0 = time.perf_counter()
+        app = server_mod.create_app(whisper_model="large-v3", device="cuda")
+        runner = web.AppRunner(app)
+        real_load = cli.load_model
+
+        def load_with_words(name, model_dir, device):
+            params, config, _ = real_load(name, model_dir, device)
+            return params, config, _wordy_tokenizer(config.n_vocab)
+
+        cli.load_model = load_with_words
+        try:
+            on_loop(runner.setup())  # on_startup: large-v3 on the card, the batcher
+        finally:
+            cli.load_model = real_load
+        asr_params, asr_config, wordy = app["asr"]
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        on_loop(web.TCPSite(runner, "127.0.0.1", port).start())
+        base = f"http://127.0.0.1:{port}"
+        print(f"daemon: create_app(whisper_model='large-v3', device='cuda') up on port {port} in "
+              f"{time.perf_counter() - t0:.2f} s (batcher buckets {app['batcher'].buckets}, "
+              f"flush {app['batcher'].max_wait_ms:g}/{app['batcher'].idle_gap_ms:g} ms); chat "
+              f"model Qwen3-32B packed int4; the general profile's prompt {prompt_tokens} "
+              f"tokens, cut to the engine's last {4096 - 64}")
+        wavs = []
+        for i, sec in enumerate(seconds):
+            wavs.append(os.path.join(tmp, f"req{i}.wav"))
+            _wav_file(wavs[-1], _request_audio(sec, i))
+
+        torch.cuda.synchronize()
+        mk.LAUNCHES = dn.LAUNCHES = da.LAUNCHES = fa.LAUNCHES = qm.LAUNCHES = 0
+        wall, status, health = _http(base, "GET", "/health")
+        assert health["tools_count"] == 24 and len(health["profiles"]) == 3, health
+        print(f"  GET /health: {status}, {health['tools_count']} tools, profiles "
+              f"{health['profiles']}, wall {wall * 1e3:.1f} ms")
+
+        audios = [load_audio_serving(w) for w in wavs]  # int16, as the server reads them
+        served = app["batcher"]
+        default_flush = (served.max_wait_ms, served.idle_gap_ms)
+        arrivals = []  # a burst's requests in the order the served batcher took them
+        real_enqueue = served._enqueue
+
+        async def enqueue(audio):
+            arrivals.append(next((i for i, a in enumerate(audios)
+                                  if a.shape == audio.shape and np.array_equal(a, audio)), -1))
+            return await real_enqueue(audio)
+
+        served._enqueue = enqueue
+
+        def http_burst(flush):
+            """The four requests at once over HTTP, two uploads and two
+            paths, the served batcher's flush set to ``flush`` -> (wall,
+            results, the batcher's stats over the burst, arrival order)."""
+            served.max_wait_ms, served.idle_gap_ms = flush
+            before = dict(served.stats)
+            del arrivals[:]
+            t0 = time.perf_counter()
+            burst = _concurrently(
+                lambda: _http(base, "POST", "/v1/transcribe", multipart=wavs[0]),
+                lambda: _http(base, "POST", "/v1/transcribe", {"path": wavs[1]}),
+                lambda: _http(base, "POST", "/v1/transcribe", multipart=wavs[2]),
+                lambda: _http(base, "POST", "/v1/transcribe", {"path": wavs[3]}))
+            wall = time.perf_counter() - t0
+            results = [r[2] for r in burst]
+            _check_segments(results, seconds)
+            stats = {k: v - before.get(k, 0) for k, v in served.stats.items()}
+            assert stats["windows"] == 8 and sorted(arrivals) == [0, 1, 2, 3], (stats, arrivals)
+            print(f"  burst: 4 x POST /v1/transcribe ({', '.join(f'{s:.0f}' for s in seconds)} "
+                  f"s; two uploads, two paths) at once, flush {flush[0]:g}/{flush[1]:g} ms: "
+                  f"{stats['batches']} batches, fill {stats['fill_sum'] / stats['batches']:.3f}, "
+                  f"wall {wall:.3f} s ({sum(seconds) / wall:.2f} audio-s/s), latency_ms "
+                  f"{[round(r['latency_ms'], 1) for r in results]}, arrival order {arrivals}")
+            return wall, results, stats, list(arrivals)
+
+        # the checked burst: one 8-window batch, its wall holding up to the
+        # raised idle gap (1 s) after the last arrival
+        _, results, stats, order = http_burst(CHECKED_FLUSH)
+        assert stats["batches"] == 1, stats
+        # the same burst at the serving defaults, as a daemon started with no
+        # flush knobs takes it: its batches are what HTTP arrivals give
+        _, results_default, stats_default, _ = http_burst(default_flush)
+        same_default = sum([s["tokens"] for s in a["segments"]] == [s["tokens"] for s in b["segments"]]
+                           for a, b in zip(results_default, results))
+        print(f"  at the default flush: {stats_default['batches']} batches; requests whose tokens "
+              f"equal the checked burst's: {same_default} of 4")
+
+        wall, _, events = _http(base, "POST", "/v1/transcribe/stream", {"path": wavs[0]})
+        kinds = [e["event"] for e in events]
+        assert kinds == ["window"] * 3 + ["complete"], kinds
+        assert [e["window"] for e in events[:3]] == [0, 1, 2], events
+        print(f"  POST /v1/transcribe/stream (65 s): events {kinds}, wall {wall:.3f} s")
+
+        wall, _, out = _http(base, "POST", "/v1/transcribe", {"path": wavs[1], "options": {
+            "word_timestamps": True, "temperature": 0.0}})
+        # the sequential seek advances to each window's last timestamp, so
+        # a window may start before the audio's end and run 30 s past it
+        words = _check_segments([out], (seconds[1] + 30.0,))
+        assert words > 0, "the sequential transcribe with words returned no word"
+        print(f"  POST /v1/transcribe with options (30 s, words, T = 0; int16 converted to "
+              f"f32, the sequential transcribe): language {out['language']!r} detected, "
+              f"{len(out['segments'])} segments, {words} words, wall {wall:.3f} s, latency_ms "
+              f"{out['latency_ms']:.1f}")
+
+        wall, _, chat = _http(base, "POST", "/v1/chat", {"message": "hello", "max_tokens": 32})
+        assert chat["rounds"] >= 1 and chat["response"], chat
+        print(f"  POST /v1/chat (general, max_tokens 32): rounds {chat['rounds']}, "
+              f"{len(chat['response'])} chars, wall {wall:.3f} s, latency_ms "
+              f"{chat['latency_ms']:.1f}, queue {chat['queue_stats']}")
+
+        _, status, session = _http(base, "POST", "/v1/sessions", {"profile": "general"})
+        assert status == 201, status
+        sid = session["id"]
+        wall, _, events = _http(base, "POST", f"/v1/sessions/{sid}/chat/stream",
+                                {"message": "hello"})
+        kinds = [e["event"] for e in events]
+        assert "token" in kinds and kinds[-1] == "complete", kinds
+        _, _, full = _http(base, "GET", f"/v1/sessions/{sid}")
+        assert [m["role"] for m in full["messages"]] == ["user", "assistant"], full
+        print(f"  POST /v1/sessions, then /chat/stream: {kinds.count('token')} token events, "
+              f"{kinds[0]} ... {kinds[-1]}, wall {wall:.3f} s; GET /v1/sessions/{{id}}: "
+              f"{len(full['messages'])} messages")
+
+        body = {"message": "hello", "max_tokens": 8}
+        t0 = time.perf_counter()
+        pair = _concurrently(lambda: _http(base, "POST", "/v1/chat", body),
+                             lambda: _http(base, "POST", "/v1/chat", body))
+        pair_wall = time.perf_counter() - t0
+        queued = sorted((r[2]["queue_stats"]["was_queued"], r[2]["queue_stats"]["queue_position"])
+                        for r in pair)
+        assert queued == [(False, 0), (True, 1)], queued
+        _, _, status_body = _http(base, "GET", "/v1/generation/status")
+        assert status_body == {"active": None, "queued": [], "queue_length": 0}, status_body
+        print(f"  2 x POST /v1/chat at once on one slot: queue_stats "
+              f"{[r[2]['queue_stats'] for r in pair]}, wall {pair_wall:.3f} s; then "
+              f"/v1/generation/status {status_body}")
+
+        wall, _, tool = _http(base, "POST", "/v1/tools/get_current_datetime/invoke",
+                              {"arguments": {}})
+        assert "utc" in tool["result"], tool
+        torch.cuda.synchronize()
+        launches = _daemon_counts()
+        print(f"  POST /v1/tools/get_current_datetime/invoke: wall {wall * 1e3:.1f} ms")
+        print(f"  launches over the HTTP requests {launches}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for key, n in launches.items():
+            assert n > 0, f"kernel {key} was not launched behind the daemon"
+
+        # the checked burst's tokens against the batcher called directly:
+        # the same params and audios submitted in the HTTP arrival order, so
+        # the same 8-window batch, row for row (after the request with
+        # options, whose language detection must leave the served tokenizer
+        # as it was: F7)
+        direct = TranscriptionBatcher(asr_params, asr_config, wordy, device=dev)
+        in_order, _ = _burst(direct, [audios[i] for i in order])
+        ref = [in_order[order.index(i)] for i in range(len(audios))]
+        assert direct.stats["batches"] == 1 and direct.stats["windows"] == 8, direct.stats
+        for i, (got, want) in enumerate(zip(results, ref)):
+            got_t = [s["tokens"] for s in got["segments"]]
+            assert got_t == [s["tokens"] for s in want["segments"]], \
+                f"request {i}: tokens over HTTP differ from the direct batcher's"
+        print(f"  burst tokens over HTTP equal the direct TranscriptionBatcher's in arrival "
+              f"order {order} ({sum(len(s['tokens']) for r in results for s in r['segments'])} "
+              f"tokens)")
+    finally:
+        if runner is not None:
+            batcher = runner.app.get("batcher")
+            if batcher is not None:
+                loop.call_soon_threadsafe(batcher.shutdown)
+            on_loop(runner.cleanup())
+        on_loop(loop.shutdown_default_executor())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        QwenModel._instances.clear()
+        set_session_store(None)
+        storage.DATA_DIR, data_store.MIRROR_DATA_DIR, auth.ACCOUNTS_DIR = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"daemon: {_smi()}")
+    return {f"{k}_daemon": v for k, v in launches.items()}
 
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
@@ -3777,13 +4205,13 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, serve, spec, and batches, residency_times, beam_times, "
+                        "quant_main, serve, spec, daemon, and batches, residency_times, beam_times, "
                         "beam_batches, tiled_times and a8_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    rows, launches, on_4bit, serve, spec = {}, {}, {}, {}, {}
+    rows, launches, on_4bit, serve, spec, daemon = {}, {}, {}, {}, {}, {}
 
     def residency():
         out = {}
@@ -3810,6 +4238,7 @@ def main(argv: list[str] | None = None) -> int:
         "quant_main": ("whisper 4-bit main path", phase_quant_main_path, on_4bit),
         "serve": ("serve", phase_serve, serve),
         "spec": ("speculative decoding", phase_spec, spec),
+        "daemon": ("daemon", phase_daemon, daemon),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
@@ -3850,6 +4279,8 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_serve"] = serve[f"{key}_serve"]
         if key in spec["launches"]:  # the speculative runs (phase 23)
             row["launches_spec"] = spec["launches"][key]
+        if f"{key}_daemon" in daemon:  # the HTTP daemon's requests (phase 24)
+            row["launches_daemon"] = daemon[f"{key}_daemon"]
         if key == "decode":  # the verify's shape: one window, Tq = 5, pos 226, self + cross
             ms, bound = spec["times"]["k3_tq5"]
             row.update(ms_verify=ms, bound_verify_ms=bound["bound_ms"],

@@ -182,6 +182,31 @@ def test_batch_stop_token_frees_slot(engines):
     assert not eng.alive
 
 
+def test_batch_worker_sets_params_device(engines, monkeypatch):
+    """The worker thread, which launches every step, sets the params' device
+    as its current device, whatever thread submitted the request."""
+    import threading
+
+    from whisper_mlx_tpu_torch.inference import batch_engine as be
+
+    _, teng = engines
+    seen, real = [], be.device_context
+
+    def spy(device):
+        seen.append((threading.current_thread().name, device))
+        return real(device)
+
+    monkeypatch.setattr(be, "device_context", spy)
+    eng = ContinuousBatchEngine(teng.params, teng.config, teng.tokenizer, slots=1,
+                                max_len=256)
+    try:
+        got = list(eng.submit("a", max_tokens=3, temperature=0.0).tokens())
+    finally:
+        eng.close()
+    assert got == teng.generate("a", max_tokens=3, temperature=0.0).tokens
+    assert seen == [("llm-batch-worker", eng.device)] and eng.device == torch.device("cpu")
+
+
 @pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
 def test_batch_worker_death_closes_waiters(engines, monkeypatch):
     """A worker that dies closes every waiter instead of hanging them, and
@@ -260,12 +285,22 @@ def test_engine_opt_ins_raise(engines, monkeypatch, name, value, item):
         ContinuousBatchEngine(teng.params, teng.config, teng.tokenizer, slots=1)
 
 
-def test_draft_and_model_env_opt_ins_raise(engines, monkeypatch):
-    """QWEN_SCRIPTED_MODEL (M13) raises. The draft model and QWEN_DRAFT_PATH
-    are ported (M11): tests/test_torch_speculative.py holds them."""
+def test_draft_and_model_env_opt_ins_raise(engines, monkeypatch, tmp_path):
+    """QWEN_SCRIPTED_MODEL is ported (M13): it serves the scripted engine
+    from its file, and a missing file raises as in the reference. The draft
+    model and QWEN_DRAFT_PATH are ported (M11):
+    tests/test_torch_speculative.py holds them."""
+    from whisper_mlx_tpu_torch.serving.scripted import ScriptedEngine
+
     monkeypatch.setenv("QWEN_SCRIPTED_MODEL", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(FileNotFoundError):
         t_chat.QwenModel(device="cpu").engine
+    script = tmp_path / "script.json"
+    script.write_text('{"rules": [], "default": "scripted"}')
+    monkeypatch.setenv("QWEN_SCRIPTED_MODEL", str(script))
+    model = t_chat.QwenModel(device="cpu")
+    assert isinstance(model.engine, ScriptedEngine)
+    assert model.generate([{"role": "user", "content": "hi"}]) == "scripted"
 
 
 def test_llm_modules_import_without_jax():

@@ -16,6 +16,9 @@ Hopper GPU. The JAX package stays the reference; this package imports
                  timestamps, output writers, the WER harness
 - ``runtime``    device setup, the serving configuration and the
                  cross-request ``TranscriptionBatcher``
+- ``serving``    the HTTP daemon (``serving.server``), the chat service,
+                 profiles, sessions, tools and sync
+- ``agents``     the legacy tool-calling agent and its REPL
 
 On CUDA tensors the kernels are the only path; on CPU tensors each kernel's
 plain version runs. Kernels build at first use into ``build/kernels/``.

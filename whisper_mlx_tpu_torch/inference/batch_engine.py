@@ -7,12 +7,13 @@ joins mid-flight by prefilling through a fresh one-row cache at position 0
 (kernel K4 on the card) whose rows are then copied into its slot; a
 finished request frees its slot at its stop token.
 
-A single worker thread owns the device state and runs admit -> step ->
-drain, pipelined by one step: step ``i + 1`` is dispatched before step
-``i``'s tokens are read back. Per-request temperature is honored per slot;
-top_p/top_k are engine-level. Slot positions are kept on the host (every
-slot advances one position a step, as the reference's do), so the decode
-step reads only cache positions below the largest of them. If the worker
+A single worker thread owns the device state (the params' device is its
+current device) and runs admit -> step -> drain, pipelined by one step:
+step ``i + 1`` is dispatched before step ``i``'s tokens are read back.
+Per-request temperature is honored per slot; top_p/top_k are
+engine-level. Slot positions are kept on the host (every slot advances
+one position a step, as the reference's do), so the decode step reads
+only cache positions below the largest of them. If the worker
 dies, every waiter is closed and the exception re-raised in the thread.
 The engine runs over the tree it is given: ``LLMEngine.continuous`` hands
 it the engine's tree, converted there under ``WTPU_QWEN_A8`` or
@@ -37,6 +38,7 @@ from whisper_mlx_tpu_torch.inference.generate import (
     sample_token,
 )
 from whisper_mlx_tpu_torch.models.qwen import Params, QwenConfig, decode_step, init_kv_cache
+from whisper_mlx_tpu_torch.runtime.device import device_context
 
 
 @dataclass
@@ -207,7 +209,10 @@ class ContinuousBatchEngine:
 
     def _worker_loop(self) -> None:
         try:
-            self._run()
+            # the worker launches every step: it sets the params' device as
+            # its own, whatever thread submitted the requests
+            with device_context(self.device):
+                self._run()
         except BaseException:  # release every waiter, then re-raise
             for i in range(self.slots):
                 self._finish(i)

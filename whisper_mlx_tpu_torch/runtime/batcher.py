@@ -29,7 +29,6 @@ SERVE_WAIT_MS, SERVE_IDLE_GAP_MS, WTPU_SERVE_DP). ``mesh=`` and a width of
 from __future__ import annotations
 
 import asyncio
-import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -43,7 +42,7 @@ from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode
 from whisper_mlx_tpu_torch.inference.transcribe import window_segments
 from whisper_mlx_tpu_torch.models.whisper import encode
 from whisper_mlx_tpu_torch.ops.quant import maybe_dense_decode_params
-from whisper_mlx_tpu_torch.runtime.device import setup_device
+from whisper_mlx_tpu_torch.runtime.device import device_context, setup_device
 from whisper_mlx_tpu_torch.runtime.serving_config import (
     serving_batch_buckets,
     serving_flush_knobs,
@@ -152,7 +151,7 @@ class TranscriptionBatcher:
 
     def _windows(self, audio: np.ndarray) -> torch.Tensor:
         """(n_windows, 3000, n_mels) device slices of the request's mel."""
-        with self._on_device(), torch.inference_mode():
+        with device_context(self.device), torch.inference_mode():
             audio = np.asarray(audio)
             if audio.dtype == np.int16:
                 # half the bytes up; /2^15 is exact in f32 (a power of two's
@@ -267,19 +266,12 @@ class TranscriptionBatcher:
     def _bucket(self, real: int) -> int:
         return next(b for b in self.buckets if b >= real)
 
-    def _on_device(self):
-        """Each thread that launches work sets the device explicitly (the
-        kernels launch on ``torch.cuda.current_stream(device)``)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
-
     def _run_batch(self, jobs: list[_WindowJob]) -> None:
         self._complete(jobs, self._launch(jobs))
 
     def _launch(self, jobs: list[_WindowJob]) -> list:
         """Encode and decode one padded window batch -> its results."""
-        with self._on_device(), torch.inference_mode():
+        with device_context(self.device), torch.inference_mode():
             real = len(jobs)
             bucket = self._bucket(real)
             mel = torch.stack([j.mel for j in jobs])

@@ -15,6 +15,8 @@ These are process-wide PyTorch settings.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -31,3 +33,12 @@ def setup_device(device: str | torch.device) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def device_context(device: torch.device):
+    """``device`` as the calling thread's current device: each thread that
+    launches work sets it explicitly (the kernels launch on
+    ``torch.cuda.current_stream(device)``)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
