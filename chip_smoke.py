@@ -55,7 +55,17 @@ is non-zero and the result line is not printed:
    packed once, MLX's affine carried over as z = b + 8 s) over the five
    linears at M = 1 and the four at 384 rows, L2 cold, each held to K5's
    plain version within QMM_TOL: the library time of the K5, K5 tiled and
-   K6 rows (none where it disagrees or cannot run);
+   K6 rows (none where it disagrees or cannot run); then K3's GQA mode
+   (the quantized Qwen cache, ROADMAP R2) against its plain version, int8
+   and int4, row by row within ATTN_TOL of each row's max|ref| and
+   bit-equal on a repeat, at one Qwen3-32B layer's decode step (64 query
+   heads over 8 KV heads of 128; GQA_TIMED: B = 1 at positions 4,095, 226
+   and 8,191, 4 slots at 37 / 700 / 2,500 / 4,000, Tq 5 at 4,095) and at
+   the other widths of GQA_CHECKED (hd 64 at rep 7, hd 128 at rep 5), one
+   device kernel a call and the launcher's host cost; each GQA_TIMED shape
+   timed L2 cold beside its plain version, its bound and two yardsticks at
+   the same lengths, the fp cache's grouped einsum (a kv_bits = 0 step)
+   and scaled_dot_product_attention(enable_gqa) on a bf16 cache;
 8. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
    QwenModel on CUDA and on the CPU (plain versions), logits and tokens;
 9. LLM main path: Qwen3-32B at full width with random packed int4 weights
@@ -153,10 +163,10 @@ is non-zero and the result line is not printed:
    through QwenModel. Then at full width, each run with its wall, tokens,
    proposed, accepted, target and draft calls, launches of K1-K5 and peak
    memory: large-v3 (bf16 from seed 0, int4 cross, int8 self, sample_len
-   224, no timestamps) on one 30 s window of noise, plain greedy, then
-   k = 4 with the target as its own draft (the upper bracket) and with a
-   random large-v3-turbo-shaped draft sharing the encoder (the lower
-   bracket); Qwen3-32B packed int4 through LLMEngine.generate, 32 new
+   128, cut from 224 for the time limit, no timestamps) on one 30 s window
+   of noise, plain greedy, then k = 4 with the target as its own draft (the
+   upper bracket) and with a random large-v3-turbo-shaped draft sharing the
+   encoder (the lower bracket); Qwen3-32B packed int4 through LLMEngine.generate, 32 new
    tokens at T = 0, without a draft, with itself and with a
    Qwen2.5-0.5B-shaped packed int4 draft of seed 1. The phase's own check:
    where a speculative run's tokens first part from the plain run's, the
@@ -177,7 +187,24 @@ is non-zero and the result line is not printed:
    flush, its batches counted; the stream; the sequential transcribe with
    words) and Qwen3-32B packed int4 behind
    /v1/chat (a chat, a session's SSE chat, two chats at once on one slot),
-   /health and a tool; K1-K5 must each launch over the requests.
+   /health and a tool; K1-K5 must each launch over the requests;
+25. llm_kv, run in every whole run after phase 24: the quantized LLM KV
+   cache (ROADMAP M12, WTPU_LLM_KV_BITS). A tiny Qwen3-shaped config (hd
+   128, 4 KV heads) card vs CPU at kv 8 and 4 (prefill, per-row step and
+   5-token block logits within TINY_LOGIT_TOL; LLMEngine's greedy tokens);
+   then Qwen3-32B packed int4 at full width, 64 layers (phase 23's weights):
+   LLMEngine.generate, 32 tokens at T = 0, under WTPU_LLM_KV_BITS = 0, 8 and
+   4; the kv-8 engine again with K3's GQA mode replaced by its plain version
+   on the card, whose tokens must equal the kernel run's up to a first
+   parting that is a near tie (the plain run's gap between the two tokens
+   within SPEC_TIE_FACTOR times D, the largest logit difference between the
+   two over the kernel run's tokens, teacher-forced, in the same run); the
+   continuous-batching engine, 4 slots and 6 requests, at kv 8; device ms a
+   decode step at B = 1 and on 4 slots at a live length of about 3,500 and
+   each cache's GiB, for kv 0, 8 and 4; then the daemon in process over real
+   HTTP with QWEN_BATCH_SLOTS=4 and WTPU_LLM_KV_BITS=8, four overlapping
+   /v1/chat requests, each answered. K3's GQA mode, K4 and K5 must launch
+   over the engines' and the daemon's runs.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -193,7 +220,14 @@ verify's shape as ``ms_verify`` with ``bound_verify_ms`` beside its 1-row
 reading ``ms_1row_1window``, K3's largest error over phase 3's speculative
 cases as ``max_abs_err_spec``, and K5's at M = 5 over five Qwen3-32B linears as
 ``ms_m5`` with ``bound_m5_ms`` beside ``ms_m1_layer0``; K1-K5's launches over
-phase 24's HTTP requests as ``launches_daemon``). The K5 and K6 rows
+phase 24's HTTP requests as ``launches_daemon``; K3's GQA mode's launches
+over phase 25's runs as ``launches_gqa``, and K4's and K5's as
+``launches_kv``). K3's row also carries its GQA mode's phase-7 readings at
+the first GQA_TIMED shape, int8: ``ms_gqa``, ``plain_gqa_ms``,
+``bound_gqa_ms`` and ``bound_gqa_by``, ``max_abs_err_gqa`` (over every
+checked shape), ``library_gqa_ms`` (null: no single PyTorch call),
+``yardstick_gqa_fp_einsum_ms``, ``yardstick_gqa_sdpa_ms``, ``host_gqa_us``,
+and ``ms_gqa_shapes`` (every timed shape and width). The K5 and K6 rows
 also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
 linears at 384 rows, L2 cold), ``bound_tiled`` and ``bound_tiled_by``,
 ``yardstick_tiled_ms``, ``library_tiled_ms`` (torch._weight_int4pack_mm over the
@@ -265,6 +299,7 @@ from whisper_mlx_tpu_torch.ops import beamflat_attention as bf
 from whisper_mlx_tpu_torch.ops import decode_attention as da
 from whisper_mlx_tpu_torch.ops import dense_attention as dn
 from whisper_mlx_tpu_torch.ops import flash_attention as fa
+from whisper_mlx_tpu_torch.ops import gqa_decode_attention as gq
 from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
 from whisper_mlx_tpu_torch.ops import probe_decode_attention as pda
@@ -285,6 +320,10 @@ from whisper_mlx_tpu_torch.serving.chat import QwenModel, serving_config
 MEL_TOL = 2e-4
 ATTN_TOL = 2e-2  # times max(1, |ref|max); K2, K3, K4: times each query row's max|ref|
 TINY_LOGIT_TOL = 5e-2  # times max(1, |ref|max)
+# the decode depth of the whisper batches timed whole (phases 3, 4, 15, 22
+# and 24's batcher): cut from 224, a window's whole budget, to keep the
+# whole run near 900 s of its 1,200 s limit
+BATCH_SAMPLE_LEN = 112
 QMM_TOL = 1e-2  # times max(1, |ref|max): one bf16 ulp of the output
 QWEN32 = qw.QWEN_CONFIGS["qwen3-32b"]
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): device
@@ -1068,7 +1107,7 @@ def phase_main_path() -> dict:
 
 
 def _time_batch(runs: int = 1) -> None:
-    """8 windows through log_mel_spectrogram -> decode(), sample_len 224,
+    """8 windows through log_mel_spectrogram -> decode(), BATCH_SAMPLE_LEN,
     ``runs`` timed runs after a warm-up (two where two trees are set side by
     side, one in the whole script)."""
     dev = torch.device("cuda")
@@ -1079,7 +1118,7 @@ def _time_batch(runs: int = 1) -> None:
     batch = 8
     audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (batch, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
-    opts = DecodingOptions(sample_len=224, without_timestamps=False)
+    opts = DecodingOptions(sample_len=BATCH_SAMPLE_LEN, without_timestamps=False)
 
     def pipeline(options=opts):
         mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
@@ -1103,7 +1142,7 @@ def _time_batch(runs: int = 1) -> None:
         times.append(time.perf_counter() - t0)
     n_tok = sum(len(r.tokens) for r in results)
     best = min(times)
-    print(f"batch: large-v3 bf16 kv4/self8, {batch} windows x 30 s, sample_len 224: "
+    print(f"batch: large-v3 bf16 kv4/self8, {batch} windows x 30 s, sample_len {opts.sample_len}: "
           f"{times} s (best {best:.3f} s), {n_tok} tokens, "
           f"{batch * 30.0 / best:.2f} audio-s/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1141,23 +1180,25 @@ def _breakdown(params, config, tok, audio) -> None:
             for p in range(first, first + n):
                 decode_step(params, tok1, p, cache, xkv, config)
 
-        _, steps_ms = timed(lambda: steps(3, 64))
+        # 32 timed steps and 8 profiled (cut from 64 and 16 for the whole
+        # run's time limit)
+        _, steps_ms = timed(lambda: steps(3, 32))
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
-            _, prof_ms = timed(lambda: steps(67, 16))
+            _, prof_ms = timed(lambda: steps(35, 8))
     device_us, top = _kernel_us(prof)
     print(f"breakdown (B={batch}): mel {mel_ms:.2f} ms, encoder {enc_ms:.2f} ms, "
-          f"cross_kv+prefill {pre_ms:.2f} ms, decode step {steps_ms / 64:.3f} ms "
-          f"(x224 = {steps_ms / 64 * 224:.1f} ms)")
+          f"cross_kv+prefill {pre_ms:.2f} ms, decode step {steps_ms / 32:.3f} ms "
+          f"(x224 = {steps_ms / 32 * 224:.1f} ms)")
     if device_us > 0:
-        print(f"decode steps under the profiler: wall {prof_ms / 16:.3f} ms/step, device "
-              f"kernels {device_us / 1e3 / 16:.3f} ms/step, device idle share "
+        print(f"decode steps under the profiler: wall {prof_ms / 8:.3f} ms/step, device "
+              f"kernels {device_us / 1e3 / 8:.3f} ms/step, device idle share "
               f"{1 - device_us / 1e3 / prof_ms:.3f}")
     else:
         print("decode steps under the profiler: no device time recorded (not measured)")
     for e in top[:8]:
-        print(f"  {e.key[:60]:60s} device {e.self_device_time_total / 16:9.1f} "
-              f"us/step, calls {e.count // 16}/step")
+        print(f"  {e.key[:60]:60s} device {e.self_device_time_total / 8:9.1f} "
+              f"us/step, calls {e.count // 8}/step")
 
 
 # ---------------------------------------------------------------------------
@@ -1239,11 +1280,11 @@ def phase_beam_main_path() -> dict:
 
 
 def _time_beam_batch(params, config, tok, audio, runs: int = 1, breakdown: bool = True) -> None:
-    """8 windows x beam 5 through log_mel_spectrogram -> decode(), sample_len
-    224, ``runs`` timed runs after a warm-up, then (``breakdown``) a per-step
+    """8 windows x beam 5 through log_mel_spectrogram -> decode(),
+    BATCH_SAMPLE_LEN, ``runs`` timed runs after a warm-up, then (``breakdown``) a per-step
     breakdown of beam_decode."""
     batch = audio.shape[0]
-    opts = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
+    opts = DecodingOptions(sample_len=BATCH_SAMPLE_LEN, beam_size=5, without_timestamps=False)
 
     def pipeline(options=opts):
         mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
@@ -1263,7 +1304,7 @@ def _time_beam_batch(params, config, tok, audio, runs: int = 1, breakdown: bool 
     # the tokens' digest, to hold two trees' beam results equal
     digest = hashlib.sha256(repr([list(r.tokens) for r in results]).encode()).hexdigest()[:16]
     print(f"beam batch: large-v3 bf16 kv4/self8 int_dot, {batch} windows x beam 5 x 30 s, "
-          f"sample_len 224: {times} s (best {best:.3f} s), "
+          f"sample_len {opts.sample_len}: {times} s (best {best:.3f} s), "
           f"{sum(len(r.tokens) for r in results)} tokens (digest {digest}), "
           f"{batch * 30.0 / best:.2f} audio-s/s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1661,7 +1702,124 @@ def phase_llm_kernels() -> dict:
         name="flash_attention", route="cuda", source="whisper_mlx_tpu_torch/csrc/flash_attention.cu",
         replaces="whisper_mlx_tpu/ops/flash_attention.py:72", max_abs_err=max(errs), **f)
     _rate(rows["flash"], flops, host, 1.4432)
+    rows["gqa"] = _gqa_kernels(gen)
     return rows
+
+
+# K3's GQA mode over the quantized Qwen cache (ROADMAP R2): one Qwen3-32B
+# layer's decode step, 64 query heads over 8 KV heads of 128, at (label, first
+# positions, Tq, cache length); the first is the JSON line's headline shape
+GQA_TIMED = (("B 1, pos 4,095", [4095], 1, 4096), ("B 1, pos 226", [226], 1, 4096),
+             ("B 1, pos 8,191", [8191], 1, 8192),
+             ("4 slots, pos 37 / 700 / 2,500 / 4,000", [37, 700, 2500, 4000], 1, 4096),
+             ("Tq 5, pos 4,095", [4095], 5, 8192))
+# the port's other widths, checked only: hd 64 at rep 7 (Qwen2.5-0.5B's 14
+# over 2), hd 128 at rep 5 (Qwen2.5-14B's 40 over 8): (KV heads, rep, hd,
+# first positions, Tq, cache length)
+GQA_CHECKED = ((2, 7, 64, [600, 1023], 1, 1024), (8, 5, 128, [1500], 5, 2048),
+               (2, 7, 64, [300], 5, 1024))
+
+
+def _gqa_inputs(gen, n_kv, rep, hd, pos, tq, t, bits):
+    """Random queries and a cache quantized as decode_step writes it."""
+    dev = gen.device
+    b = len(pos)
+    k8, ks = quantize_kv(torch.randn((b, n_kv, t, hd), generator=gen, device=dev), bits)
+    v8, vs = quantize_kv(torch.randn((b, n_kv, t, hd), generator=gen, device=dev), bits)
+    q = torch.randn((b, n_kv * rep, tq, hd), generator=gen, device=dev)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return q, (k8, ks, v8, vs), p, dict(scale=hd ** -0.5, live=min(t, max(pos) + tq))
+
+
+def _gqa_fp_attention(q, p, live):
+    """What models/qwen.py:decode_step runs over an fp cache (kv_bits 0), as
+    a function of one layer's bf16 cache: its grouped attention to the
+    longest row's live keys, the causal mask built once a step as there."""
+    mask = gq.causal_mask(p, q.shape[2], live)
+
+    def layer(kc, vc):
+        return gq.grouped_attention(q, kc[:, :, :live], vc[:, :, :live], mask,
+                                    q.shape[-1] ** -0.5).to(torch.bfloat16)
+
+    return layer
+
+
+def _gqa_kernels(gen) -> dict:
+    """K3's GQA mode against its plain version at GQA_TIMED and GQA_CHECKED,
+    both code widths: each query row within ATTN_TOL of its own max|ref|,
+    bit-equal on a repeat, one device kernel a call; then timed L2 cold over
+    copies of the layer's cache beside its plain version, the bound (the
+    live codes and scales, q in and the bf16 output once), and two
+    yardsticks at the same lengths: the fp cache's grouped einsum (what a
+    kv_bits = 0 step runs) and scaled_dot_product_attention(enable_gqa) on
+    a bf16 cache. No single PyTorch call attends over int codes with
+    per-position scales: library none. -> K3's GQA fields for the JSON."""
+    errs, times = [], {}
+    cases = [(8, 8, 128, pos, tq, t, label) for label, pos, tq, t in GQA_TIMED]
+    cases += [(n_kv, rep, hd, pos, tq, t, None) for n_kv, rep, hd, pos, tq, t in GQA_CHECKED]
+    for bits in (8, 4):
+        for n_kv, rep, hd, pos, tq, t, label in cases:
+            q, cache, p, kw = _gqa_inputs(gen, n_kv, rep, hd, pos, tq, t, bits)
+
+            def call(c=cache):
+                return gq.gqa_decode_attention(q, *c, p, out_dtype=torch.bfloat16, **kw)
+
+            name = (f"gqa int{bits} KV={n_kv} rep={rep} hd={hd} pos={pos} Tq={tq} T={t}")
+            got = call()
+            errs.append(_check_rows(name, got, gq.gqa_decode_attention_plain(q, *cache, p, **kw)))
+            if not torch.equal(got, call()):
+                raise AssertionError(f"{name}: a repeat is not bit-equal")
+            if label is None:
+                continue
+            if label == GQA_TIMED[0][0]:
+                names, events = _device_kernels(call)
+                host = _host_us(call)
+                print(f"    device kernels: {names} by name, {events:g} events a call; host "
+                      f"{host:.1f} us a call")
+                if names != 1 or events > 1:
+                    raise AssertionError(f"{name}: {names} device kernels by name, {events} "
+                                         "events a call; one kernel a call expected")
+            copies = _layer_copies(lambda: tuple(x.clone() for x in cache), _nbytes(*cache))
+            ms = _cold_ms(lambda c: call(c), copies)
+            del copies
+            plain = _device_ms(lambda: gq.gqa_decode_attention_plain(q, *cache, p, **kw),
+                               reps=3, warmup=1)
+            live_rows = [min(t, x + tq) for x in pos]
+            per_key = 2 * (hd * bits // 8 + 2)  # K and V codes and their bf16 scales
+            bound = _bound(sum(n_kv * x * per_key for x in live_rows) + _nbytes(q)
+                           + q.numel() * 2,
+                           sum(2 * 2 * n_kv * rep * tq * hd * x for x in live_rows), "fp32")
+            entry = dict(ms=ms, plain_ms=plain, **bound)
+            if bits == 8:  # the yardsticks, once a shape: bf16 caches of the same lengths
+                kc = torch.randn((len(pos), n_kv, t, hd), generator=gen, device=gen.device
+                                 ).to(torch.bfloat16)
+                vc = torch.randn_like(kc)
+                fp_layer = _gqa_fp_attention(q, p, kw["live"])
+                qb = q.to(torch.bfloat16)
+                positions = p[:, None].long() + torch.arange(tq, device=p.device)
+                sdpa_mask = (torch.arange(kw["live"], device=p.device)
+                             <= positions[..., None])[:, None]
+                copies = _layer_copies(lambda: (kc.clone(), vc.clone()), _nbytes(kc, vc))
+                entry["fp_einsum_ms"] = _cold_ms(lambda c: fp_layer(*c), copies, reps=8)
+                entry["sdpa_ms"] = _cold_ms(lambda c: F.scaled_dot_product_attention(
+                    qb, c[0][:, :, :kw["live"]], c[1][:, :, :kw["live"]], attn_mask=sdpa_mask,
+                    scale=hd ** -0.5, enable_gqa=True), copies)
+                del copies, kc, vc, fp_layer
+            times[(label, bits)] = entry
+            print(f"    {label} int{bits}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{bound['bound_ms'] / ms:.1%} of it"
+                  + (f"; fp cache grouped einsum {entry['fp_einsum_ms']:.4f} ms, "
+                     f"scaled_dot_product_attention(enable_gqa) on bf16 "
+                     f"{entry['sdpa_ms']:.4f} ms" if bits == 8 else ""))
+            del cache, q
+            torch.cuda.empty_cache()
+    head = times[(GQA_TIMED[0][0], 8)]
+    return dict(max_abs_err_gqa=max(errs), ms_gqa=head["ms"], plain_gqa_ms=head["plain_ms"],
+                bound_gqa_ms=head["bound_ms"], bound_gqa_by=head["bound_by"],
+                library_gqa_ms=None, yardstick_gqa_fp_einsum_ms=head["fp_einsum_ms"],
+                yardstick_gqa_sdpa_ms=head["sdpa_ms"], host_gqa_us=host,
+                ms_gqa_shapes={f"{label} int{bits}": e["ms"] for (label, bits), e in times.items()})
 
 
 def _tiled_keys(tiled: dict) -> dict:
@@ -1869,18 +2027,20 @@ def _llm_rates(params, config) -> None:
                 qw.decode_step(params, tok1, p, cache, config)
 
         steps(2)
-        _, ms = _sync_ms(lambda: steps(16))
+        # 8 timed steps and 4 profiled (cut from 16 and 8 for the whole run's
+        # time limit)
+        _, ms = _sync_ms(lambda: steps(8))
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
-            _, prof_ms = _sync_ms(lambda: steps(8))
+            _, prof_ms = _sync_ms(lambda: steps(4))
         device_us, top = _kernel_us(prof)
-        print(f"  decode B={rows}: {ms / 16:.3f} ms/step, {rows * 16 / ms * 1e3:.2f} tok/s; "
-              f"under the profiler wall {prof_ms / 8:.3f} ms/step, device kernels "
-              + (f"{device_us / 1e3 / 8:.3f} ms/step, device idle share "
+        print(f"  decode B={rows}: {ms / 8:.3f} ms/step, {rows * 8 / ms * 1e3:.2f} tok/s; "
+              f"under the profiler wall {prof_ms / 4:.3f} ms/step, device kernels "
+              + (f"{device_us / 1e3 / 4:.3f} ms/step, device idle share "
                  f"{1 - device_us / 1e3 / prof_ms:.3f}" if device_us else "not measured"))
         for e in top[:6]:
-            print(f"    {e.key[:60]:60s} device {e.self_device_time_total / 8:9.1f} "
-                  f"us/step, calls {e.count // 8}/step")
+            print(f"    {e.key[:60]:60s} device {e.self_device_time_total / 4:9.1f} "
+                  f"us/step, calls {e.count // 4}/step")
         del cache
 
 
@@ -2817,8 +2977,8 @@ def phase_quant_main_path() -> dict:
     tok = _bench_tokenizer(base.n_vocab)
     audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (8, N_SAMPLES)).astype(np.float32) * 0.1).to(dev)
-    greedy = DecodingOptions(sample_len=224, without_timestamps=False)
-    beam = DecodingOptions(sample_len=224, beam_size=5, without_timestamps=False)
+    greedy = DecodingOptions(sample_len=BATCH_SAMPLE_LEN, without_timestamps=False)
+    beam = DecodingOptions(sample_len=BATCH_SAMPLE_LEN, beam_size=5, without_timestamps=False)
 
     def load(**kw):
         return apply_asr_serving_config(*load_mlx_whisper(ckpt, device=dev, **kw), dev)
@@ -3275,7 +3435,7 @@ def phase_serve() -> dict:
         # buckets and flush from the serving knobs' defaults (8,16,32,56 on
         # CUDA; 50/25 ms)
         batcher = TranscriptionBatcher(params, config, tok, device=dev,
-                                       decoding=DecodingOptions(sample_len=224))
+                                       decoding=DecodingOptions(sample_len=BATCH_SAMPLE_LEN))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -3299,9 +3459,9 @@ def phase_serve() -> dict:
               f"{sum(len(s['tokens']) for r in results for s in r['segments'])} tokens")
 
         # the largest default bucket once: one request of 56 windows
-        # (1,675 s) rides one batch of 56, greedy to 224 tokens
+        # (1,675 s) rides one batch of 56, greedy to BATCH_SAMPLE_LEN tokens
         big = TranscriptionBatcher(params, config, tok, device=dev,
-                                   decoding=DecodingOptions(sample_len=224))
+                                   decoding=DecodingOptions(sample_len=BATCH_SAMPLE_LEN))
         long_audio = _request_audio(1675.0, 4)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3374,6 +3534,9 @@ def phase_serve() -> dict:
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
+# the tokens of phase 23's large-v3 runs (cut from 224, a window's whole
+# horizon, for the whole run's time limit)
+SPEC_WHISPER_TOKENS = 128
 # a flip of the argmax between a k + 1-row verify and a 1-row step needs the
 # two tokens' gap within |d_a| + |d_b| <= 2 D, where D is the largest
 # verify-vs-step logit difference; D is measured in the same run on the plain
@@ -3592,9 +3755,9 @@ def _spec_print(label, wall, counts, peak, extra="") -> None:
 
 
 def _spec_whisper_full() -> dict:
-    """large-v3 (bf16 from seed 0, int4 cross, int8 self, sample_len 224, no
-    timestamps) on one 30 s window of seeded noise: plain greedy, then
-    spec_decode_task at k = 4 with the target itself as the draft (the
+    """large-v3 (bf16 from seed 0, int4 cross, int8 self, sample_len
+    SPEC_WHISPER_TOKENS, no timestamps) on one 30 s window of seeded noise:
+    plain greedy, then spec_decode_task at k = 4 with the target itself as the draft (the
     upper bracket) and with a random large-v3-turbo-shaped draft sharing the
     encoder (the lower bracket). -> launches of the speculative runs."""
     from whisper_mlx_tpu_torch.decoding import greedy as greedy_mod
@@ -3613,7 +3776,7 @@ def _spec_whisper_full() -> dict:
     tok = _bench_tokenizer(config.n_vocab)
     audio = torch.from_numpy(np.random.default_rng(7).standard_normal(N_SAMPLES)
                              .astype(np.float32) * 0.1).to(dev)
-    opts = DecodingOptions(sample_len=224, without_timestamps=True)
+    opts = DecodingOptions(sample_len=SPEC_WHISPER_TOKENS, without_timestamps=True)
     setup = decode_setup(tok, opts, config, dev)
     n_init = len(setup.init_tokens)
 
@@ -3641,7 +3804,8 @@ def _spec_whisper_full() -> dict:
 
     with torch.inference_mode():  # D: teacher-forced verify blocks over the plain tokens
         xkv = cross_kv(params, encode(params, mel(), config), config)
-        cache = init_kv_cache(config, 1, dev, max_len=n_init + 224 + SPEC_K + 1)
+        cache = init_kv_cache(config, 1, dev,
+                              max_len=n_init + SPEC_WHISPER_TOKENS + SPEC_K + 1)
         decode_step(params, torch.tensor([setup.init_tokens], device=dev), 0, cache, xkv, config)
         full = torch.tensor([seq], device=dev)
         d = _verify_vs_step(step[:len(plain.tokens)], lambda s: decode_step(
@@ -3658,7 +3822,7 @@ def _spec_whisper_full() -> dict:
             (res,), wall, counts, peak = _spec_run(lambda: spec_mod.spec_decode_task(
                 params, dp, mel(), tok, config, dc, opts, k=SPEC_K, draft_shares_encoder=True))
         st = res.spec_stats
-        committed = len(res.tokens) + (len(res.tokens) < 224)
+        committed = len(res.tokens) + (len(res.tokens) < SPEC_WHISPER_TOKENS)
         _spec_print(f"spec large-v3 {label}, k {SPEC_K}", wall, counts, peak,
                     f"{committed} committed tokens, proposed {st['proposed']}, accepted "
                     f"{st['accepted']} ({st['accepted'] / max(st['proposed'], 1):.3f}), target "
@@ -3848,8 +4012,8 @@ def phase_spec() -> dict:
 # the HTTP daemon (ROADMAP M13): /v1/transcribe on K1-K3, /v1/chat on K4-K5
 # ---------------------------------------------------------------------------
 
-# Qwen3-32B's packed weights of phase 23, kept for phase 24 (which builds
-# them again the same way when run alone)
+# Qwen3-32B's packed weights of phase 23, kept for phases 24 and 25 (which
+# build them again the same way when run alone)
 _QWEN32_PARAMS: dict = {}
 # the served batcher's flush (deadline, idle gap in ms) for phase 24's
 # checked burst: raised from the serving defaults (50/25) so that the four
@@ -3971,7 +4135,7 @@ def phase_daemon() -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
-    params = _QWEN32_PARAMS.pop("params", None)
+    params = _QWEN32_PARAMS.get("params")  # kept for phase 25
     if params is None:
         params = qw.init_random_quant_params(config, seed=0, device=dev)
     llm_tok = _WordyLLMTokenizer()
@@ -4031,6 +4195,7 @@ def phase_daemon() -> dict:
 
         audios = [load_audio_serving(w) for w in wavs]  # int16, as the server reads them
         served = app["batcher"]
+        served.decoding = dataclasses.replace(served.decoding, sample_len=BATCH_SAMPLE_LEN)
         default_flush = (served.max_wait_ms, served.idle_gap_ms)
         arrivals = []  # a burst's requests in the order the served batcher took them
         real_enqueue = served._enqueue
@@ -4145,7 +4310,8 @@ def phase_daemon() -> dict:
         # the same 8-window batch, row for row (after the request with
         # options, whose language detection must leave the served tokenizer
         # as it was: F7)
-        direct = TranscriptionBatcher(asr_params, asr_config, wordy, device=dev)
+        direct = TranscriptionBatcher(asr_params, asr_config, wordy, device=dev,
+                                      decoding=served.decoding)
         in_order, _ = _burst(direct, [audios[i] for i in order])
         ref = [in_order[order.index(i)] for i in range(len(audios))]
         assert direct.stats["batches"] == 1 and direct.stats["windows"] == 8, direct.stats
@@ -4172,6 +4338,385 @@ def phase_daemon() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"daemon: {_smi()}")
     return {f"{k}_daemon": v for k, v in launches.items()}
+
+# ---------------------------------------------------------------------------
+# the quantized LLM KV cache (ROADMAP M12, route R2): K3's GQA mode
+# ---------------------------------------------------------------------------
+
+# a tiny Qwen3-shaped model whose attention the GQA mode takes on the card
+# (hd 128, 4 KV heads at rep 2)
+TINY_KV = dict(vocab_size=512, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+               num_attention_heads=8, num_key_value_heads=4, head_dim=128, qk_norm=True,
+               attention_bias=False, tie_word_embeddings=False)
+
+
+class _Env:
+    """Environment variables (``WTPU_LLM_KV_BITS``, ``QWEN_BATCH_SLOTS``)
+    set while in use, as a user sets them before building the engine."""
+
+    def __init__(self, **env):
+        self.env = {k: str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _kv_counts() -> dict:
+    return {"gqa": gq.LAUNCHES, "flash": fa.LAUNCHES, "quant": qm.LAUNCHES,
+            "quant_tiled": qm.TILED_LAUNCHES}
+
+
+def _zero_kv_counts() -> None:
+    gq.LAUNCHES = fa.LAUNCHES = qm.LAUNCHES = qm.TILED_LAUNCHES = 0
+
+
+def _llm_kv_tiny() -> None:
+    """The tiny config card vs CPU at kv 8 and 4, both engines in the bf16
+    flash configuration: prefill and step logits within TINY_LOGIT_TOL, and
+    the greedy tokens of LLMEngine under WTPU_LLM_KV_BITS."""
+    config = serving_config(qw.QwenConfig(**TINY_KV), torch.device("cuda"))
+    params_cpu = _to(qw.init_params(config, seed=0), torch.bfloat16)
+    params_dev = _to(params_cpu, "cuda")
+    prompt = np.random.default_rng(11).integers(0, 263, size=(2, 40))
+    text = "<|im_start|>user\nsay something<|im_end|>\n<|im_start|>assistant\n"
+    for bits in (8, 4):
+        cfg = dataclasses.replace(config, kv_bits=bits)
+        logits = {}
+        for label, params, dev in (("cpu", params_cpu, "cpu"), ("cuda", params_dev, "cuda")):
+            cache = qw.init_kv_cache(cfg, 2, 64, dev)
+            toks = torch.from_numpy(prompt).to(dev)
+            pre, cache = qw.decode_step(params, toks, 0, cache, cfg)
+            step, cache = qw.decode_step(params, toks[:, :1], [40, 40], cache, cfg)
+            block, cache = qw.decode_step(params, toks[:, 1:6], 41, cache, cfg)
+            logits[label] = [x.float().cpu() for x in (pre, step, block)]
+        for name, got, ref in zip(("prefill", "per-row step", "5-token block"), logits["cuda"],
+                                  logits["cpu"]):
+            assert torch.isfinite(got).all(), f"non-finite tiny qwen kv{bits} {name} logits"
+            _check(f"tiny qwen kv{bits} {name} logits cuda vs cpu", got, ref,
+                   TINY_LOGIT_TOL * max(1.0, ref.abs().max().item()))
+        with _Env(WTPU_LLM_KV_BITS=bits):
+            cpu = LLMEngine(params_cpu, config, ByteFallbackTokenizer(), max_context=256)
+            card = LLMEngine(params_dev, config, ByteFallbackTokenizer(), max_context=256)
+        assert cpu.config.kv_bits == card.config.kv_bits == bits
+        before = gq.LAUNCHES
+        a = cpu.generate(text, max_tokens=32, temperature=0.0).tokens
+        b = card.generate(text, max_tokens=32, temperature=0.0).tokens
+        assert gq.LAUNCHES > before, "K3's GQA mode was not launched by the tiny engine"
+        same = sum(x == y for x, y in zip(a, b))
+        print(f"  tiny qwen kv{bits} greedy tokens: cpu {len(a)}, cuda {len(b)}, agreement "
+              f"{same}/{max(len(a), len(b))}, first difference at {_first_difference(a, b)}")
+
+
+def _engine_logits(params, config, ids: list, tokens: list) -> torch.Tensor:
+    """The logits of LLMEngine's greedy loop fed ``tokens``: the prefill of
+    the bucketed prompt, then a step a token, at the engine's positions ->
+    (len(tokens), V) fp32 rows, row j the logits that chose token j."""
+    dev = torch.device("cuda")
+    bucket = -(-len(ids) // LLMEngine.PROMPT_BUCKET) * LLMEngine.PROMPT_BUCKET
+    cache = qw.init_kv_cache(config, 1, 4096, dev)
+    logits, _ = qw.decode_step(params, torch.tensor([ids + [0] * (bucket - len(ids))],
+                                                    device=dev), 0, cache, config)
+    rows = [logits[0, len(ids) - 1].float()]
+    for i, t in enumerate(tokens[:-1]):
+        logits, _ = qw.decode_step(params, torch.tensor([[t]], device=dev), len(ids) + i,
+                                   cache, config)
+        rows.append(logits[0, -1].float())
+    return torch.stack(rows)
+
+
+class _PlainGQA:
+    """models/qwen.py's attention over a quantized cache through the GQA
+    mode's plain version, on the card, while in use: a comparison run's."""
+
+    def __enter__(self):
+        self.real = qw.gqa_decode_attention
+        qw.gqa_decode_attention = gq.gqa_decode_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        qw.gqa_decode_attention = self.real
+
+
+def _fill_cache(cache, gen) -> int:
+    """Random codes, scales or values in every key of a cache, as a long
+    context leaves it -> its bytes."""
+    total = 0
+    for layer in cache:
+        for key, t in layer.items():
+            if t.dtype == torch.int8:
+                t.random_(-127, 128, generator=gen)
+            elif t.dtype == torch.uint8:
+                t.random_(0, 256, generator=gen)
+            elif key in ("ks", "vs"):
+                t.uniform_(0.005, 0.03, generator=gen)
+            else:
+                t.normal_(generator=gen)
+            total += _nbytes(t)
+    return total
+
+
+def _kv_step_times(params, config) -> None:
+    """Device ms a decode step at B = 1 and on 4 slots at a live length of
+    about 3,500 (caches filled with random entries) for kv 0, 8 and 4, from
+    the profiler's device events; each cache's GiB at max_context 4096."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for bits in (0, 8, 4):
+        cfg = dataclasses.replace(config, kv_bits=bits)
+        for rows in (1, 4):
+            cache = qw.init_kv_cache(cfg, rows, 4096, dev)
+            nbytes = _fill_cache(cache, gen)
+            tok1 = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+            pos = [3500] if rows == 1 else [3400, 3450, 3500, 3550]
+
+            def steps(n):
+                for i in range(n):
+                    qw.decode_step(params, tok1, pos[0] + i if rows == 1 else
+                                   [x + i for x in pos], cache, cfg)
+
+            steps(1)
+            _, ms = _sync_ms(lambda: steps(3))
+            # the device's events only: with the host's operators too, the
+            # profiler's summary of a 64-layer step takes seconds
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                _, prof_ms = _sync_ms(lambda: steps(2))
+            device_us, top = _kernel_us(prof)
+            attn = sum(e.self_device_time_total for e in top if "gqa" in e.key)
+            print(f"  kv {bits} at {rows} row(s), live ~3,500: cache {nbytes / 2**30:.3f} GiB "
+                  f"({nbytes / rows / 2**30:.3f} a slot of 4,096), wall {ms / 3:.3f} ms/step, "
+                  + (f"device {device_us / 1e3 / 2:.3f} ms/step (K3 GQA {attn / 1e3 / 2:.3f}), "
+                     f"idle share {1 - device_us / 1e3 / prof_ms:.3f}" if device_us
+                     else "device not measured"))
+            for e in top[:4]:
+                print(f"    {e.key[:60]:60s} device {e.self_device_time_total / 2:9.1f} us/step, "
+                      f"calls {e.count // 2}/step")
+            del cache
+            torch.cuda.empty_cache()
+
+
+def _llm_kv_daemon(params, config) -> dict:
+    """The daemon in process over real HTTP with QWEN_BATCH_SLOTS=4 and
+    WTPU_LLM_KV_BITS=8 (chat only; phase 23's Qwen3-32B weights in an
+    LLMEngine handed to QwenModel as phase 24 does): four overlapping
+    /v1/chat requests on the continuous-batching engine over the quantized
+    cache -> the launches of K3's GQA mode, K4 and K5 over them."""
+    import asyncio
+    import socket
+    import threading
+
+    from aiohttp import web
+
+    from whisper_mlx_tpu_torch.serving import server as server_mod
+    from whisper_mlx_tpu_torch.serving.chat import ModelSize, QwenModel
+    from whisper_mlx_tpu_torch.serving.sessions import SessionStore, set_session_store
+    from whisper_mlx_tpu_torch.serving.sync import auth, storage
+    from whisper_mlx_tpu_torch.serving.tools.mirror import data_store
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_llm_kv_")
+    # the daemon's stores under the phase's own directory, not $HOME
+    set_session_store(SessionStore(os.path.join(tmp, "sessions")))
+    saved = (storage.DATA_DIR, data_store.MIRROR_DATA_DIR, auth.ACCOUNTS_DIR)
+    storage.DATA_DIR = auth.ACCOUNTS_DIR = pathlib.Path(tmp) / "data"
+    data_store.MIRROR_DATA_DIR = os.path.join(tmp, "mirror")
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="llm-kv-loop", daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    runner = None
+    try:
+        with _Env(QWEN_BATCH_SLOTS=4, WTPU_LLM_KV_BITS=8):
+            app = server_mod.create_app(device="cuda")
+            qwen = QwenModel.get(ModelSize.LARGE, None, "cuda")
+            qwen._engine = LLMEngine(params, config, _WordyLLMTokenizer(), max_context=4096)
+            assert qwen._engine.config.kv_bits == 8, qwen._engine.config
+            runner = web.AppRunner(app)
+            on_loop(runner.setup())
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            on_loop(web.TCPSite(runner, "127.0.0.1", port).start())
+            base = f"http://127.0.0.1:{port}"
+            torch.cuda.synchronize()
+            _zero_kv_counts()
+            t0 = time.perf_counter()
+            replies = _concurrently(*(
+                lambda i=i: _http(base, "POST", "/v1/chat",
+                                  {"message": f"question {i}", "max_tokens": 16,
+                                   "temperature": 0.0}) for i in range(4)))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launched = _kv_counts()
+        batch = qwen._engine._batch_engine
+        assert batch is not None, "the chats did not reach the continuous-batching engine"
+        for i, (w, status, body) in enumerate(replies):
+            assert status == 200 and body["response"], (i, status, body)
+        print(f"  daemon, QWEN_BATCH_SLOTS=4 WTPU_LLM_KV_BITS=8: 4 x POST /v1/chat at once "
+              f"(general profile, max_tokens 16, T = 0) answered in "
+              f"{[round(r[0], 3) for r in replies]} s, wall {wall:.3f} s; the batch engine's "
+              f"steps {batch._steps}, max occupancy {max(batch._step_occupancy)}; launches "
+              f"over them {launched}")
+        assert launched["gqa"] > 0, "K3's GQA mode was not launched behind the daemon"
+        batch.close()
+        return launched
+    finally:
+        if runner is not None:
+            on_loop(runner.cleanup())
+        on_loop(loop.shutdown_default_executor())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        QwenModel._instances.clear()
+        set_session_store(None)
+        storage.DATA_DIR, data_store.MIRROR_DATA_DIR, auth.ACCOUNTS_DIR = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_llm_kv() -> dict:
+    """Phase 25: the quantized LLM KV cache (ROADMAP M12, R2). The tiny
+    config card vs CPU at kv 8 and 4; then Qwen3-32B packed int4 at full
+    width, all 64 layers (phase 23's weights, built again when the phase
+    runs alone): LLMEngine.generate, 32 tokens at T = 0, under
+    WTPU_LLM_KV_BITS = 0, 8 and 4; the kv-8 engine again with the GQA
+    mode's plain version on the card, whose tokens must equal the kernel's
+    up to a first parting that is a near tie (the plain run's gap between
+    the two tokens within SPEC_TIE_FACTOR times D, the largest logit
+    difference between kernel and plain over the kernel run's tokens,
+    teacher-forced, in this run); the continuous-batching engine, 4 slots
+    and 6 requests, at kv 8; device ms a decode step at B = 1 and on 4
+    slots at a live length of about 3,500 and the caches' GiB, for kv 0, 8
+    and 4; the daemon with QWEN_BATCH_SLOTS=4 and WTPU_LLM_KV_BITS=8 under
+    four overlapping chats. -> the launches of K3's GQA mode, K4 and K5
+    over the engines' and the daemon's runs (the comparison runs left out)."""
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    _llm_kv_tiny()
+    print(f"  (tiny: {time.perf_counter() - t_phase:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True)
+    params = _QWEN32_PARAMS.pop("params", None)
+    if params is None:
+        params = qw.init_random_quant_params(config, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t_section = time.perf_counter()
+
+    def section(name):
+        nonlocal t_section
+        print(f"  ({name}: {time.perf_counter() - t_section:.1f} s)")
+        t_section = time.perf_counter()
+
+    tok = ByteFallbackTokenizer()
+    prompt = _prompt_text(np.random.default_rng(6), 270)
+    ids = tok.encode(prompt)
+    new = 32
+    totals = dict.fromkeys(_kv_counts(), 0)
+
+    def counted(fn):
+        _zero_kv_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kv_counts()
+        for key, n in counts.items():
+            totals[key] += n
+        return out, wall, counts
+
+    engines, tokens = {}, {}
+    for bits in (0, 8, 4):
+        with _Env(WTPU_LLM_KV_BITS=bits):
+            eng = LLMEngine(params, config, tok, max_context=4096)
+        assert eng.config.kv_bits == bits, eng.config
+        if not engines:
+            eng.generate("warm up", max_tokens=4, temperature=0.0)
+        res, wall, counts = counted(lambda: eng.generate(prompt, max_tokens=new,
+                                                         temperature=0.0))
+        assert res.generation_tokens == new, res.generation_tokens
+        assert (counts["gqa"] > 0) == (bits > 0), counts
+        engines[bits], tokens[bits] = eng, res.tokens
+        print(f"  Qwen3-32B LLMEngine.generate, WTPU_LLM_KV_BITS={bits}: {len(ids)}-token "
+              f"prompt, {new} tokens in {wall:.3f} s ({new / wall:.2f} tok/s), launches {counts}")
+    for bits in (8, 4):
+        same = sum(x == y for x, y in zip(tokens[0], tokens[bits]))
+        print(f"  kv {bits} against the fp cache: {same}/{new} tokens agree, first difference "
+              f"at {_first_difference(tokens[0], tokens[bits])} (the quantization's own effect)")
+    section("engines")
+
+    # the check: the kv-8 engine with the GQA mode's plain version on the card
+    with _PlainGQA():
+        plain = engines[8].generate(prompt, max_tokens=new, temperature=0.0).tokens
+    first = _first_difference(tokens[8], plain)
+    upto = new if first is None else first + 1  # D over the steps up to the parting
+    with torch.inference_mode():
+        kernel_rows = _engine_logits(params, engines[8].config, ids, tokens[8][:upto])
+        with _PlainGQA():
+            plain_rows = _engine_logits(params, engines[8].config, ids, tokens[8][:upto])
+    d = (kernel_rows - plain_rows).abs().max().item()
+    tol = SPEC_TIE_FACTOR * d
+    same = sum(x == y for x, y in zip(tokens[8], plain))
+    msg = (f"  kv 8, kernel against plain version on the card: {same}/{new} tokens agree, "
+           f"first difference at {first}; largest logit difference D "
+           f"{d:.4e}, near-tie limit {tol:.4e}")
+    if first is not None:
+        row = plain_rows[first]
+        gap = (row[plain[first]] - row[tokens[8][first]]).item()
+        msg += f"; the plain run's gap there {gap:.4e}"
+        if not gap <= tol:
+            raise AssertionError(f"kv 8: kernel and plain tokens part at {first} with a gap of "
+                                 f"{gap} > {tol} (D {d})")
+    print(msg)
+    del kernel_rows, plain_rows
+    section("kernel against plain version")
+
+    batch = engines[8].continuous(4)
+    rng = np.random.default_rng(7)
+    prompts = [_prompt_text(rng, 100 + 40 * i) for i in range(6)]
+
+    def run_batch():
+        handles = [batch.submit(p, max_tokens=new, temperature=0.0) for p in prompts]
+        return [len(list(h.tokens())) for h in handles]
+
+    counts_b, wall, counts = counted(run_batch)
+    assert batch.alive, "the batch engine's worker thread died"
+    assert counts_b == [new] * 6, f"batch requests received {counts_b} tokens"
+    assert counts["gqa"] > 0, counts
+    print(f"  continuous batching at kv 8: 6 requests x {new} tokens on 4 slots in {wall:.3f} s "
+          f"({6 * new / wall:.2f} tok/s, max occupancy {max(batch._step_occupancy)}), launches "
+          f"{counts}")
+    batch.close()
+    del engines, batch
+    gc.collect()
+    section("continuous batching")
+
+    _kv_step_times(params, config)
+    section("decode steps")
+    for key, n in _llm_kv_daemon(params, config).items():
+        totals[key] += n
+    section("daemon")
+    del params
+    print(f"  launches over the phase's engine and daemon runs: K3 GQA {totals['gqa']}, K4 "
+          f"{totals['flash']}, K5 {totals['quant']} (the tiled core {totals['quant_tiled']}); "
+          f"peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for key, n in totals.items():
+        assert n > 0, f"kernel {key} was not launched on the quantized-cache path"
+    print(f"llm_kv: {_smi()}")
+    return {f"{k}_kv": v for k, v in totals.items()}
+
 
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
@@ -4205,13 +4750,14 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, serve, spec, daemon, and batches, residency_times, beam_times, "
+                        "quant_main, serve, spec, daemon, llm_kv, and batches, residency_times, "
+                        "beam_times, "
                         "beam_batches, tiled_times and a8_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    rows, launches, on_4bit, serve, spec, daemon = {}, {}, {}, {}, {}, {}
+    rows, launches, on_4bit, serve, spec, daemon, kv = {}, {}, {}, {}, {}, {}, {}
 
     def residency():
         out = {}
@@ -4239,6 +4785,7 @@ def main(argv: list[str] | None = None) -> int:
         "serve": ("serve", phase_serve, serve),
         "spec": ("speculative decoding", phase_spec, spec),
         "daemon": ("daemon", phase_daemon, daemon),
+        "llm_kv": ("llm kv cache", phase_llm_kv, kv),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
@@ -4281,6 +4828,10 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_spec"] = spec["launches"][key]
         if f"{key}_daemon" in daemon:  # the HTTP daemon's requests (phase 24)
             row["launches_daemon"] = daemon[f"{key}_daemon"]
+        if f"{key}_kv" in kv:  # the quantized-cache path (phase 25)
+            row["launches_kv"] = kv[f"{key}_kv"]
+        if key == "decode":  # K3's GQA mode: phase 7's times, phase 25's launches
+            row.update(rows["gqa"], launches_gqa=kv["gqa_kv"])
         if key == "decode":  # the verify's shape: one window, Tq = 5, pos 226, self + cross
             ms, bound = spec["times"]["k3_tq5"]
             row.update(ms_verify=ms, bound_verify_ms=bound["bound_ms"],

@@ -277,8 +277,22 @@ def test_llm_tokenizer_copy_matches():
     ("WTPU_LLM_KV_BITS", "8", "M12"), ("WTPU_NATIVE_RESIDENT", "1", "M15"),
 ])
 def test_engine_opt_ins_raise(engines, monkeypatch, name, value, item):
-    _, teng = engines
+    """An opt-in of the reference outside the port raises naming its ROADMAP
+    item. M12's ``WTPU_LLM_KV_BITS`` is ported: under it the engines build,
+    the engine's config carries ``kv_bits`` and its greedy tokens equal the
+    JAX engine's under the same variable (tests/test_torch_llm_kv.py holds
+    the rest)."""
+    jeng, teng = engines
     monkeypatch.setenv(name, value)
+    if name == "WTPU_LLM_KV_BITS":
+        eng = tg.LLMEngine(teng.params, teng.config, teng.tokenizer, max_context=256)
+        ref_eng = JEngine(jeng.params, jeng.config, jeng.tokenizer, max_context=256)
+        assert eng.config.kv_bits == ref_eng.config.kv_bits == int(value)
+        for prompt in PROMPTS[:2]:
+            assert eng.generate(prompt, max_tokens=12, temperature=0.0).tokens == \
+                ref_eng.generate(prompt, max_tokens=12, temperature=0.0).tokens
+        ContinuousBatchEngine(eng.params, eng.config, eng.tokenizer, slots=1).close()
+        return
     with pytest.raises(NotImplementedError, match=item):
         tg.LLMEngine(teng.params, teng.config, teng.tokenizer)
     with pytest.raises(NotImplementedError, match=item):

@@ -40,6 +40,7 @@ from whisper_mlx_tpu_torch.ops import beamflat_attention as bf
 from whisper_mlx_tpu_torch.ops import decode_attention as da
 from whisper_mlx_tpu_torch.ops import dense_attention as dn
 from whisper_mlx_tpu_torch.ops import flash_attention as fa
+from whisper_mlx_tpu_torch.ops import gqa_decode_attention as gq
 from whisper_mlx_tpu_torch.ops import kv_quant as kq
 from whisper_mlx_tpu_torch.ops import lane_permute as lp
 from whisper_mlx_tpu_torch.ops import mel_kernel as mk
@@ -92,7 +93,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert path.parent == tmp_path / "kernels" and path.suffix == ".so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "a8_matmul.cu", "beamflat_attention.cu", "decode_attention.cu", "dense_attention.cu",
-        "flash_attention.cu", "lane_permute.cu", "mel.cu", "probe_decode_attention.cu",
+        "flash_attention.cu", "gqa_decode_attention.cu", "lane_permute.cu", "mel.cu",
+        "probe_decode_attention.cu",
         "probe_quant_matmul.cu", "quant_matmul.cu", "quant_matmul_mb.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["attn_tile.cuh",
                                                                  "quant_tile.cuh",
@@ -293,6 +295,100 @@ def test_decode_kernel_v_scales_after_their_copy(cuda, int_dot):
         kw = dict(pos=226 - rep % 3, causal=True, int_dot=int_dot)
         got = da.decode_attention(q, k8, ks, v8, vs, **kw)
         _assert_rows_close(got, da.decode_attention_plain(q, k8, ks, v8, vs, **kw))
+
+
+# K3's GQA mode (the quantized Qwen cache, ROADMAP R2): (rows, KV heads, rep,
+# Tq, hd, cache length, first positions). Qwen3-32B's layer (8 KV heads of 128,
+# rep 8) at a decode step early, at 4,095 and 8,191, 4 slots at ragged
+# positions, the verify's Tq 5 at 4,095; hd 64 at rep 7 (Qwen2.5-0.5B) and hd
+# 128 at rep 5 (Qwen2.5-14B); the edges: one live key, the cluster's 256-key
+# blocks, Tq 16 at rep 8 (two passes of 64 rows), the longest cache
+GQA_SHAPES = [
+    (1, 8, 8, 1, 128, 4096, [226]), (1, 8, 8, 1, 128, 4096, [4095]),
+    (1, 8, 8, 1, 128, 8192, [8191]), (4, 8, 8, 1, 128, 4096, [37, 700, 2500, 4000]),
+    (1, 8, 8, 5, 128, 8192, [4095]), (1, 2, 7, 1, 64, 1024, [600]),
+    (2, 8, 5, 1, 128, 2048, [1500, 3]), (2, 2, 8, 1, 128, 512, [0, 255]),
+    (1, 2, 8, 3, 64, 600, [254]), (1, 2, 8, 16, 128, 4096, [3000]),
+    (3, 1, 4, 2, 64, 32768, [32766, 9, 16000]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b,n_kv,rep,tq,hd,t,pos", GQA_SHAPES)
+def test_gqa_kernel_matches_plain(cuda, bits, b, n_kv, rep, tq, hd, t, pos):
+    """K3's GQA mode against its plain version on the card, row by row
+    within 2e-2 of each row's max|ref|, one launch a call, bit-equal on a
+    repeat; bf16 and fp32 outputs."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 31 + tq + t + pos[0])
+    kx, vx = (torch.randn((b, n_kv, t, hd), generator=gen, device=cuda) for _ in range(2))
+    k8, ks = kq.quantize_kv(kx, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    q = torch.randn((b, n_kv * rep, tq, hd), generator=gen, device=cuda)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kw = dict(scale=hd ** -0.5, live=min(t, max(pos) + tq))
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = gq.LAUNCHES
+        got = gq.gqa_decode_attention(q, k8, ks, v8, vs, p, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        assert gq.LAUNCHES == before + 1 and got.dtype == out_dtype
+        _assert_rows_close(got, gq.gqa_decode_attention_plain(q, k8, ks, v8, vs, p, **kw))
+        assert torch.equal(got, gq.gqa_decode_attention(q, k8, ks, v8, vs, p,
+                                                        out_dtype=out_dtype, **kw))
+
+
+@pytest.mark.cuda
+def test_gqa_kernel_rejects_what_it_does_not_take(cuda):
+    k8, ks = kq.quantize_kv(torch.zeros((1, 2, 64, 32), device=cuda))
+    q = torch.zeros((1, 4, 1, 32), device=cuda)
+    p = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="hd"):  # hd 32: the CPU's tiny configs only
+        gq.gqa_decode_attention(q, k8, ks, k8, ks, p, scale=0.1, live=8)
+    k8, ks = kq.quantize_kv(torch.zeros((1, 2, 64, 64), device=cuda))
+    q = torch.zeros((1, 4, 17, 64), device=cuda)
+    with pytest.raises(ValueError, match="Tq"):
+        gq.gqa_decode_attention(q, k8, ks, k8, ks, p, scale=0.1, live=20)
+    q = torch.zeros((1, 4, 1, 64), device=cuda)
+    # contiguous codes and scales one element past a 16-byte boundary
+    k_off = torch.zeros(k8.numel() + 16, dtype=torch.int8, device=cuda)[1:k8.numel() + 1]
+    s_off = torch.zeros(ks.numel() + 8, dtype=torch.bfloat16, device=cuda)[1:ks.numel() + 1]
+    k_off, s_off = k_off.view(k8.shape), s_off.view(ks.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gq.gqa_decode_attention(q, k_off, s_off, k_off, s_off, p, scale=0.1, live=8)
+
+
+@pytest.mark.cuda
+def test_qwen_tiny_quantized_cache_card_vs_cpu(cuda):
+    """A tiny Qwen3-shaped model (hd 128, 4 KV heads, rep 2) under kv_bits 8
+    and 4, bf16 with the flash prefill on both devices: the card's decode
+    (K4 prefill, K3's GQA mode on every step, per row too) against the
+    CPU's plain versions, logits within 5e-2 * max(1, |ref|), the GQA mode
+    launched on every layer of every step."""
+    import dataclasses
+
+    from whisper_mlx_tpu_torch.models import qwen as tqw
+
+    cfg = tqw.QwenConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                         num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=4,
+                         head_dim=128, qk_norm=True, attention_bias=False,
+                         tie_word_embeddings=False)
+    params = _to_device(tqw.init_params(cfg, seed=0), torch.bfloat16)
+    dev_params = _to_device(params, cuda)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, 256, (2, 11)))
+    for bits in (8, 4):
+        cpu_cfg = dev_cfg = dataclasses.replace(cfg, kv_bits=bits, flash_attention=True,
+                                                dtype=torch.bfloat16)
+        caches = [tqw.init_kv_cache(cpu_cfg, 2, 64), tqw.init_kv_cache(dev_cfg, 2, 64, cuda)]
+        before = gq.LAUNCHES
+        for tokens, pos in ((prompt, 0), (prompt[:, :1], 11), (prompt[:, 1:2], [12, 12]),
+                            (prompt[:, :5], 13), (prompt[:, 2:3], [18, 18])):
+            ref, caches[0] = tqw.decode_step(params, tokens, pos, caches[0], cpu_cfg)
+            got, caches[1] = tqw.decode_step(dev_params, tokens.to(cuda), pos, caches[1],
+                                             dev_cfg)
+            tol = 5e-2 * max(1.0, ref.abs().max().item())
+            assert (got.cpu() - ref).abs().max().item() <= tol, (bits, pos)
+        assert gq.LAUNCHES == before + 4 * cfg.num_hidden_layers
 
 
 @pytest.mark.cuda

@@ -198,14 +198,34 @@ def test_flash_prefill_raises_off_position_zero():
 
 @pytest.mark.parametrize("pos", [3, [3, 4]], ids=["scalar", "per_row"])
 def test_kv_bits_raises(pos):
-    cfg = t_loader.config_from_hf(QWEN2_TINY)
-    params = tqw.init_params(cfg, seed=0)
-    cache = tqw.init_kv_cache(cfg, 2, 16)
-    with pytest.raises(NotImplementedError, match="M12"):
-        tqw.decode_step(params, torch.zeros((2, 1), dtype=torch.long), pos, cache,
-                        dataclasses.replace(cfg, kv_bits=8))
-    with pytest.raises(NotImplementedError, match="M12"):
-        tqw.init_kv_cache(dataclasses.replace(cfg, kv_bits=4), 1, 16)
+    """The quantized LLM KV cache is ported (ROADMAP M12): ``kv_bits=8`` no
+    longer raises in ``decode_step`` (scalar and per-row positions) and
+    gives the reference's logits and cache, and ``kv_bits=4`` builds the
+    reference's cache (converted by ``qwen_cache_from_jax``). The name is
+    the test's from when both raised; tests/test_torch_llm_kv.py holds the
+    rest of the slice."""
+    from whisper_mlx_tpu_torch.checkpoint.convert import qwen_cache_from_jax
+
+    jparams, jcfg, tparams, tcfg = _pair("qwen2", quant=False)
+    jcfg, tcfg = (dataclasses.replace(c, kv_bits=8) for c in (jcfg, tcfg))
+    prompt = np.arange(1, 7, dtype=np.int32).reshape(2, 3)
+    jcache, tcache = jqw.init_kv_cache(jcfg, 2, 16), tqw.init_kv_cache(tcfg, 2, 16)
+    _, jcache = jqw.decode_step(jparams, jnp.asarray(prompt), jnp.int32(0), jcache, jcfg)
+    tqw.decode_step(tparams, torch.from_numpy(prompt).long(), 0, tcache, tcfg)
+    step = np.array([[5], [9]], np.int32)
+    jpos = jnp.asarray(pos, jnp.int32) if isinstance(pos, list) else jnp.int32(pos)
+    ref, jcache = jqw.decode_step(jparams, jnp.asarray(step), jpos, jcache, jcfg)
+    got, tcache = tqw.decode_step(tparams, torch.from_numpy(step).long(), pos, tcache, tcfg)
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL * max(1.0, np.abs(ref).max()), rtol=0)
+    for a, b in zip(qwen_cache_from_jax(jax.tree.map(np.asarray, jcache)), tcache):
+        assert sorted(a) == sorted(b) == ["k8", "ks", "v8", "vs"]
+        assert all(torch.equal(a[key], b[key]) for key in a)
+    cache4 = tqw.init_kv_cache(dataclasses.replace(tcfg, kv_bits=4), 1, 16)
+    ref4 = qwen_cache_from_jax(jax.tree.map(np.asarray, jqw.init_kv_cache(
+        dataclasses.replace(jcfg, kv_bits=4), 1, 16)))
+    assert cache4[0]["k8"].shape == (1, 2, 16, 8) and cache4[0]["k8"].dtype == torch.uint8
+    assert all(torch.equal(a[key], b[key]) for a, b in zip(ref4, cache4) for key in a)
 
 
 @pytest.mark.parametrize("name", ["qwen2", "qwen3"])

@@ -19,7 +19,8 @@ type the port lacks (native-code residency) raises ``NotImplementedError``.
 ``qwen_params_from_jax`` converts a Qwen tree (``models/qwen.py``), whose
 ``QuantTensor``, ``QuantTensorT`` and ``A8Tensor`` leaves carry numpy
 arrays (``jax.tree.map(np.asarray, params)`` maps into their children),
-into the port's Qwen state dict.
+into the port's Qwen state dict, and ``qwen_cache_from_jax`` a Qwen KV
+cache (fp or quantized) into the port's layout.
 """
 
 from __future__ import annotations
@@ -230,3 +231,36 @@ def qwen_params_from_jax(tree: Params, config: QwenConfig, device="cpu",
         raise ValueError("qwen_params_from_jax: lm_head presence does not match "
                          "tie_word_embeddings")
     return walk(tree, "params")
+
+
+def qwen_cache_from_jax(cache: list[dict[str, Any]]) -> list[Params]:
+    """The JAX package's Qwen KV cache (``models/qwen.py:init_kv_cache``,
+    numpy leaves) -> the port's position-major cache, as the state a
+    conversation carries across: time-minor fp ``kt``/``vt`` ``(b, kv, hd,
+    T)`` become ``k``/``v`` ``(b, kv, T, hd)``; time-minor codes
+    ``k8t``/``v8t`` become ``k8``/``v8``, int8 as they are and int4
+    (``ml_dtypes.int4``) packed two nibbles a byte (low nibble = even d);
+    scales ``ks``/``vs`` ``(b, kv, T, 1)`` become ``(b, kv, T)`` bf16."""
+    from whisper_mlx_tpu_torch.ops.decode_attention import pack_int4
+
+    out = []
+    for i, layer in enumerate(cache):
+        if set(layer) == {"kt", "vt"}:
+            out.append({name: torch.from_numpy(np.ascontiguousarray(
+                np.swapaxes(np.asarray(layer[f"{name}t"]), 2, 3).astype(np.float32)))
+                for name in ("k", "v")})
+            continue
+        if set(layer) != {"k8t", "ks", "v8t", "vs"}:
+            raise ValueError(f"qwen_cache_from_jax: layer {i} has keys {sorted(layer)}")
+        entry = {}
+        for name in ("k", "v"):
+            codes = np.swapaxes(np.asarray(layer[f"{name}8t"]), 2, 3)
+            if codes.dtype.name not in ("int8", "int4"):
+                raise ValueError(f"qwen_cache_from_jax: layer {i} {name}8t is {codes.dtype}")
+            packed = codes.dtype.name == "int4"
+            codes = torch.from_numpy(np.ascontiguousarray(codes.astype(np.int8)))
+            entry[f"{name}8"] = pack_int4(codes) if packed else codes
+            scales = np.asarray(layer[f"{name}s"], np.float32)[..., 0]
+            entry[f"{name}s"] = torch.from_numpy(np.ascontiguousarray(scales)).to(torch.bfloat16)
+        out.append(entry)
+    return out

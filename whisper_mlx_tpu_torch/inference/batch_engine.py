@@ -13,7 +13,11 @@ step ``i + 1`` is dispatched before step ``i``'s tokens are read back.
 Per-request temperature is honored per slot; top_p/top_k are
 engine-level. Slot positions are kept on the host (every slot advances
 one position a step, as the reference's do), so the decode step reads
-only cache positions below the largest of them. If the worker
+only cache positions below the largest of them; over a quantized cache
+(``config.kv_bits`` 8 or 4, set by ``LLMEngine`` from ``WTPU_LLM_KV_BITS``;
+the engine reads no environment variable for it) the step hands them to
+the attention kernel as one ``(S,)`` int32 tensor on the device, and each
+row reads only its own live prefix. If the worker
 dies, every waiter is closed and the exception re-raised in the thread.
 The engine runs over the tree it is given: ``LLMEngine.continuous`` hands
 it the engine's tree, converted there under ``WTPU_QWEN_A8`` or
@@ -158,7 +162,8 @@ class ContinuousBatchEngine:
 
     def _prefill_slot(self, slot: int, ids: list[int]) -> None:
         """Prefill one prompt through a fresh one-row cache at position 0,
-        then copy that row into ``slot``; the other slots are untouched."""
+        then copy that row into ``slot`` (every key of the cache: fp k and v,
+        or codes and scales); the other slots are untouched."""
         padded, true_len = self._bucket(ids)
         row_cache = init_kv_cache(self.config, 1, self.max_len, self.device)
         lg, row_cache = decode_step(self.params, torch.tensor([padded], device=self.device), 0,

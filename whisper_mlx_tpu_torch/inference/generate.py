@@ -16,9 +16,11 @@ in :class:`LLMEngine`: ``WTPU_QWEN_A8=1`` re-quantizes the linears to
 per-channel int8 (``ops/quant_a8.py``, kernel K7), then
 ``WTPU_MBT_RESIDENT=1`` transposes the linears still packed
 (``ops/quant_matmul_mb.py``, kernel K6), so A8 wins where both are set; a
-draft model is converted as the target is.
-Opt-ins of the reference outside the port raise ``NotImplementedError``
-when set: ``WTPU_LLM_KV_BITS`` and ``WTPU_NATIVE_RESIDENT``.
+draft model is converted as the target is. ``WTPU_LLM_KV_BITS=8`` or ``4``
+sets the target's ``config.kv_bits`` (the quantized KV cache,
+``models/qwen.py``), as the reference's engine does; a draft keeps its own
+config. The one opt-in of the reference outside the port,
+``WTPU_NATIVE_RESIDENT``, raises ``NotImplementedError`` when set.
 
 With a draft model (``draft=(params, config)``), ``generate`` at
 temperature 0 runs greedy speculative decoding
@@ -29,6 +31,7 @@ as in the reference.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -46,7 +49,6 @@ if TYPE_CHECKING:
 
 # environment opt-ins of the reference's engine -> the ROADMAP item that ports them
 _OPT_INS = {
-    "WTPU_LLM_KV_BITS": "M12 (the quantized LLM KV cache)",
     "WTPU_NATIVE_RESIDENT": "M15 (native-code residency)",
 }
 
@@ -157,6 +159,11 @@ class LLMEngine:
                  max_context: int = 4096,
                  draft: "tuple[Params, QwenConfig] | None" = None):
         check_opt_ins()
+        # the quantized KV cache (WTPU_LLM_KV_BITS=8 or 4): the target's
+        # config only, as in the reference; the draft keeps its own
+        kv_bits = int(os.environ.get("WTPU_LLM_KV_BITS", "0"))
+        if kv_bits and config.kv_bits != kv_bits:
+            config = dataclasses.replace(config, kv_bits=kv_bits)
         if os.environ.get("WTPU_QWEN_A8", "0") == "1":
             from whisper_mlx_tpu_torch.ops.quant_a8 import prepare_a8_params
 

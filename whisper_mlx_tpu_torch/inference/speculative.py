@@ -15,10 +15,13 @@ Invariants (absolute sequence S = prompt + committed tokens):
 - the draft cache holds K/V for ``S[:d_pos]`` plus garbage beyond, which the
   next sync block overwrites before the causal mask can expose it.
 
-Positions are host ints, as everywhere in the port. On CUDA the prompt's
-prefill runs the flash kernel (K4) for both models, and every later block of
-several tokens (the verify, a draft sync) attends over the cache on
-``models/qwen.py``'s grouped path.
+Positions are host ints, as everywhere in the port. Each model's cache is
+built from its own config: the target's is quantized under
+``WTPU_LLM_KV_BITS`` (``LLMEngine`` sets ``kv_bits`` in the target's config
+only), the draft's as its config says. On CUDA the prompt's prefill runs the
+flash kernel (K4) for both models, and every later block of several tokens
+(the verify, a draft sync) attends over the cache on ``models/qwen.py``'s
+grouped path: over a quantized cache K3's GQA mode.
 """
 
 from __future__ import annotations

@@ -11,15 +11,25 @@ converted residency forms), ``embed`` is
 
 The KV cache is position-major, ``{"k", "v"}`` of ``(b, kv, max_len, hd)``
 per layer, written in place by :func:`decode_step` (the reference keeps it
-time-minor for TPU lanes; the values each step returns are the same).
+time-minor for TPU lanes; the values each step returns are the same). With
+``config.kv_bits`` 8 or 4 (``WTPU_LLM_KV_BITS``) each layer holds codes
+``{"k8", "v8"}`` ``(b, kv, max_len, hd)`` int8 or ``(b, kv, max_len,
+hd / 2)`` uint8 (two int4 nibbles a byte) and bf16 scales ``{"ks", "vs"}``
+``(b, kv, max_len)``: ``quantize_kv`` of the rotated, normed, unscaled k
+and v, as the reference's ``k8t``/``v8t`` and ``(b, kv, T, 1)`` scales hold
+them (``checkpoint/convert.py:qwen_cache_from_jax`` converts).
 
 Kernels on the card: every quantized linear goes through ``quant_matmul``
 (at <= 512 rows K5 for a packed ``QuantTensor``, K6 for a ``QuantTensorT``,
 K7 for an ``A8Tensor``: ``ops/quant.py``), every prefill through
-``flash_attention`` (K4). A
+``flash_attention`` (K4), over the block's unquantized k and v under any
+``kv_bits``. A
 prefill starts at position 0, and on CUDA it needs ``flash_attention=True``.
-Decode attention over the cache is plain torch, as the reference computes
-it in XLA outside any kernel; it reads only positions below ``pos + t``,
+Decode attention over an fp cache is plain torch, as the reference computes
+it in XLA outside any kernel; over a quantized cache it is
+``ops/gqa_decode_attention.py`` (K3's GQA mode on the card, its plain
+version on the CPU), with the positions a ``(b,)`` int32 tensor on the
+device. Both read only positions below ``pos + t``,
 which is exact because later positions carry weight exactly 0. A block of
 several tokens past position 0 (speculative decoding's verify and draft
 sync) takes that path too, causal over the cache. The reference's flash
@@ -46,6 +56,12 @@ import torch.nn.functional as F
 
 from whisper_mlx_tpu_torch.models.whisper import embed_logits
 from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
+from whisper_mlx_tpu_torch.ops.gqa_decode_attention import (
+    causal_mask,
+    gqa_decode_attention,
+    grouped_attention,
+)
+from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.ops.quant import (
     QuantTensor,
     quant_matmul,
@@ -73,7 +89,8 @@ class QwenConfig:
     attention_bias: bool = True  # Qwen2: bias on q/k/v; Qwen3: False
     # prefill through kernel K4 (ops/flash_attention.py); prefill at pos 0
     flash_attention: bool = False
-    # quantized LLM KV cache: not ported (ROADMAP.md M12); only 0 runs
+    # quantized LLM KV cache: 8 (int8) or 4 (packed int4) codes with bf16
+    # per-position scales; any other value keeps the fp cache
     kv_bits: int = 0
     dtype: torch.dtype = torch.float32
 
@@ -101,9 +118,6 @@ QWEN_CONFIGS: dict[str, QwenConfig] = {
                             num_key_value_heads=8, head_dim=128, qk_norm=True,
                             attention_bias=False, tie_word_embeddings=False),
 }
-
-KV_BITS_ITEM = "the quantized LLM KV cache (kv_bits) is not ported: ROADMAP.md M12"
-
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float() if x.dtype != torch.float64 else x
@@ -140,13 +154,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def quantized_cache(config: QwenConfig) -> bool:
+    """Whether ``config`` keeps the quantized cache (``kv_bits`` 8 or 4)."""
+    return config.kv_bits in (4, 8)
+
+
 def init_kv_cache(config: QwenConfig, batch: int, max_len: int,
                   device: torch.device | str = "cpu",
                   dtype: torch.dtype | None = None) -> list[Params]:
-    """Position-major fp cache: ``{"k", "v"}`` ``(batch, kv, max_len, hd)``."""
-    if config.kv_bits:
-        raise NotImplementedError(KV_BITS_ITEM)
-    shape = (batch, config.num_key_value_heads, max_len, config.hd)
+    """Position-major cache: fp ``{"k", "v"}`` ``(batch, kv, max_len, hd)``,
+    or under ``kv_bits`` 8 / 4 codes ``{"k8", "v8"}`` (int8 ``hd`` wide, or
+    uint8 ``hd / 2`` wide holding int4 pairs) and bf16 scales ``{"ks",
+    "vs"}`` ``(batch, kv, max_len)``."""
+    KV, hd = config.num_key_value_heads, config.hd
+    if quantized_cache(config):
+        width, cdt = (hd, torch.int8) if config.kv_bits == 8 else (hd // 2, torch.uint8)
+        return [{"k8": torch.zeros((batch, KV, max_len, width), dtype=cdt, device=device),
+                 "ks": torch.zeros((batch, KV, max_len), dtype=torch.bfloat16, device=device),
+                 "v8": torch.zeros((batch, KV, max_len, width), dtype=cdt, device=device),
+                 "vs": torch.zeros((batch, KV, max_len), dtype=torch.bfloat16, device=device)}
+                for _ in range(config.num_hidden_layers)]
+    shape = (batch, KV, max_len, hd)
     dtype = dtype or config.dtype
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -168,17 +196,17 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
 
     ``pos`` is a host int (first position of ``tokens``) or, for continuous
     batching, one host int per row. A write past the cache end is clamped
-    to its last ``t`` positions, as the reference's update slice is.
+    to its last ``t`` positions, as the reference's update slice is. Under
+    ``kv_bits`` 8 / 4 the new k and v are quantized into the cache and every
+    block but a flash prefill attends over the quantized cache, its own new
+    entries included.
     """
-    if config.kv_bits:
-        raise NotImplementedError(KV_BITS_ITEM + (" (also with per-row positions)"
-                                                  if not isinstance(pos, int) else ""))
     b, t = tokens.shape
     dev = tokens.device
-    max_len = kv_cache[0]["k"].shape[2]
+    quant_kv = quantized_cache(config)
+    max_len = kv_cache[0]["k8" if quant_kv else "k"].shape[2]
     per_row = not isinstance(pos, int)
     H, KV, hd = config.num_attention_heads, config.num_key_value_heads, config.hd
-    rep = H // KV
     # a prefill (a block at position 0) runs K4; a block past position 0
     # (speculative decoding's verify and draft sync) attends over the cache
     # on the grouped path, as a one-token step does
@@ -196,17 +224,21 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
         limit = min(max_len, int(starts.max()) + t)
         write = (starts.clamp(max=max_len - t)[:, None] + torch.arange(t)[None, :]).to(dev)
         rows = torch.arange(b, device=dev)[:, None]
-        k_idx = torch.arange(limit, device=dev)
-        mask = torch.where(k_idx[None, None, :] <= positions[:, :, None], 0.0, float("-inf"))
-        mask = mask[:, None, None]  # (b, 1, 1, t, limit) over (b, kv, rep, t, k)
     else:
+        starts = torch.full((b,), pos, dtype=torch.int64)
         positions = torch.arange(pos, pos + t, device=dev)
         limit = min(max_len, pos + t)
         start = min(pos, max_len - t)
-        k_idx = torch.arange(limit, device=dev)
-        mask = torch.where(k_idx[None, :] <= positions[:, None], 0.0, float("-inf"))
     cos, sin = rope_cos_sin(positions, hd, config.rope_theta, torch.float32)
     scale = 1.0 / math.sqrt(hd)
+    if quant_kv:
+        # the rows' first positions, on the device once a step for the
+        # kernel; a row at or past the cache end reads every key, as its
+        # unclamped causal mask would (an idle slot of the continuous engine
+        # keeps advancing)
+        pos_dev = starts.clamp(max=max_len - 1).to(dev, torch.int32)
+    else:  # the fp cache's causal mask over the keys read, once a step
+        mask = causal_mask(starts.to(dev), t, limit)
 
     for i, blk in enumerate(params["layers"]):
         h = rms_norm(x, blk["input_ln"], config.rms_norm_eps)
@@ -225,26 +257,28 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
         k = apply_rope(k, cos, sin)
 
         c = kv_cache[i]
-        if per_row:
-            c["k"][rows, :, write] = k.transpose(1, 2).to(c["k"].dtype)
-            c["v"][rows, :, write] = v.transpose(1, 2).to(c["v"].dtype)
+        if quant_kv:  # codes and scales of the rotated, normed, unscaled k and v
+            new = dict(zip(("k8", "ks"), quantize_kv(k, config.kv_bits)))
+            new.update(zip(("v8", "vs"), quantize_kv(v, config.kv_bits)))
         else:
-            c["k"][:, :, start:start + t] = k.to(c["k"].dtype)
-            c["v"][:, :, start:start + t] = v.to(c["v"].dtype)
+            new = {"k": k, "v": v}
+        for key, val in new.items():
+            if per_row:
+                c[key][rows, :, write] = val.transpose(1, 2).to(c[key].dtype)
+            else:
+                c[key][:, :, start:start + t] = val.to(c[key].dtype)
 
         if prefill and config.flash_attention:
             s4 = hd ** -0.25
             attn = flash_attention((q * s4).to(config.dtype).contiguous(),
                                    (k * s4).to(config.dtype).contiguous(),
                                    v.to(config.dtype).contiguous(), causal=True)
+        elif quant_kv:
+            attn = gqa_decode_attention(q.float().contiguous(), c["k8"], c["ks"], c["v8"],
+                                        c["vs"], pos_dev, scale=scale, live=limit,
+                                        out_dtype=config.dtype)
         else:
-            kc, vc = c["k"][:, :, :limit], c["v"][:, :, :limit]
-            q5 = q.reshape(b, KV, rep, t, hd)
-            cdt = torch.promote_types(q5.dtype, kc.dtype)
-            scores = torch.einsum("bgrqd,bgkd->bgrqk", q5.to(cdt), kc.to(cdt)) * scale
-            scores = scores.to(torch.promote_types(scores.dtype, torch.float32)) + mask
-            w = torch.softmax(scores, dim=-1).to(vc.dtype)
-            attn = torch.einsum("bgrqk,bgkd->bgrqd", w, vc)
+            attn = grouped_attention(q, c["k"][:, :, :limit], c["v"][:, :, :limit], mask, scale)
         attn = attn.to(config.dtype).reshape(b, H, t, hd).transpose(1, 2).reshape(b, t, H * hd)
         x = x + _linear(attn, blk["attn"]["o"])
 

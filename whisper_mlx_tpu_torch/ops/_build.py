@@ -42,6 +42,9 @@ SIGNATURES: dict[str, list] = {
     # valid_len, bits, int_dot, stream
     "wmt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _P],
+    # q, k, ks, v, vs, pos, out, b, n_kv, rep, tq, hd, t_alloc, live, bits,
+    # scale, out_bf16, stream
+    "wmt_gqa_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P],
     # q, k, ks, v, vs, ancestry, out, nb, h, rows, t_anc, group, limit,
     # bits, int_dot, cluster, cap, stream
     "wmt_beamflat_attention": [_P] * 7 + [_I] * 10 + [_P],
