@@ -204,7 +204,35 @@ is non-zero and the result line is not printed:
    each cache's GiB, for kv 0, 8 and 4; then the daemon in process over real
    HTTP with QWEN_BATCH_SLOTS=4 and WTPU_LLM_KV_BITS=8, four overlapping
    /v1/chat requests, each answered. K3's GQA mode, K4 and K5 must launch
-   over the engines' and the daemon's runs.
+   over the engines' and the daemon's runs;
+26. m15, run in every whole run after phase 25: the reference's last
+   opt-ins (ROADMAP M15) and fault F9. K8's split mode (the shared-prefix
+   beam scheme, int8) at the beam timing shape with s_fill 0, 100, 200 and
+   226, both modes, and in clusters of 2 and 8 blocks, and its per-lane
+   layout (decode_step(beam_ancestry=) over a per-lane cache, 40 lanes, T
+   256, int8 and int4, beam-built and all-distinct ancestries), each row by
+   row within ATTN_TOL of its plain version, bit-equal on a repeat, one
+   device kernel a call, the split with its overflow flag set bit-equal to
+   the flat mode; each timed L2 cold beside its plain version, its bound
+   and K8 flat at the same ancestry. Then large-v3 (bf16, int4 cross, int8
+   self, random weights of seed 0) on 2 windows, M15_LEN steps: greedy
+   under each time-major field, whose tokens must equal the time-minor
+   run's bit for bit; beam 5 under WTPU_BEAM_KV=shared at read windows 64
+   and 8 (where the overflow must take over), each beside the same batch
+   with K8's plain version: where a window first chooses other candidates,
+   the plain run's gap between them must be within SPEC_TIE_FACTOR times
+   the larger of 2 D (D the largest log-softmax difference of a step's
+   logits from the same step with the plain version, teacher-forced on the
+   kernel run) and the score difference of the candidates both hold; beam
+   5 with a time-major cross cache (K3's fp mode); decode_step with
+   beam_ancestry over a per-lane cache, its logits against K8's plain
+   version's within TINY_LOGIT_TOL. Last, Qwen3-32B (random packed int4,
+   RESIDENCY_LAYERS layers) under WTPU_NATIVE_RESIDENT=1: every linear and
+   the embedding native, 32 tokens at B = 1 (K5) beside the packed
+   engine's, equal up to a near tie bounded as phase 25 bounds it, and one
+   128-token prefill past the row rule (no K5) against the packed
+   prefill's logits within TINY_LOGIT_TOL. K1-K5 and K8 (its split and
+   per-lane modes) must launch over the phase's runs.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -222,7 +250,16 @@ cases as ``max_abs_err_spec``, and K5's at M = 5 over five Qwen3-32B linears as
 ``ms_m5`` with ``bound_m5_ms`` beside ``ms_m1_layer0``; K1-K5's launches over
 phase 24's HTTP requests as ``launches_daemon``; K3's GQA mode's launches
 over phase 25's runs as ``launches_gqa``, and K4's and K5's as
-``launches_kv``). K3's row also carries its GQA mode's phase-7 readings at
+``launches_kv``; K1-K5's and K8's over phase 26's runs as ``launches_m15``, K8's
+split and per-lane modes apart as ``launches_split_m15`` and
+``launches_lane_m15``). K8's row also carries phase 26's readings of its
+two new modes: ``ms_split``, ``plain_split_ms``, ``bound_split_ms``,
+``bound_split_by``, ``library_split_ms`` (null), ``max_abs_err_split``,
+``flat_ms_split_shape`` (K8 flat at the same ancestry) and ``cases_split``
+(every s_fill, both modes), at s_fill 100 int-dot; ``ms_lane``,
+``plain_lane_ms``, ``bound_lane_ms``, ``bound_lane_by``, ``library_lane_ms``
+(null), ``max_abs_err_lane`` and ``cases_lane``, at int8 beam-built.
+K3's row also carries its GQA mode's phase-7 readings at
 the first GQA_TIMED shape, int8: ``ms_gqa``, ``plain_gqa_ms``,
 ``bound_gqa_ms`` and ``bound_gqa_by``, ``max_abs_err_gqa`` (over every
 checked shape), ``library_gqa_ms`` (null: no single PyTorch call),
@@ -247,6 +284,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -4718,6 +4756,469 @@ def phase_llm_kv() -> dict:
     return {f"{k}_kv": v for k, v in totals.items()}
 
 
+# --- phase 26: the reference's last opt-ins (ROADMAP M15) and F9 ---------
+
+# K8's split mode timed at the large-v3 beam shape, one s_fill a window for
+# every window of a case; the per-lane layout at one layer's per-lane cache
+M15_FILLS = (0, 100, 200, 226)
+M15_LANE_T = 256
+M15_LEN = 64  # decode depth of the phase's large-v3 runs (2 windows): cut for the time limit
+M15_WINDOWS = (64, 8)  # the shared scheme's read windows: roomy, and one the overflow takes
+TRACE_EXTRA = 64  # candidates recorded past the beam's 2B, to find a parting's other one
+
+
+def _split_ancestry(gen, s_fill: int):
+    """A beam-built ancestry at the timed shape whose lanes agree below
+    ``s_fill``, as the shared scheme's commits keep them."""
+    anc = _beam_ancestry(gen, BEAM_N, BEAM_G, BEAM_T).reshape(BEAM_N, BEAM_G, BEAM_T)
+    anc[:, :, :s_fill] = anc[:, :1, :s_fill]
+    return anc.reshape(BEAM_N * BEAM_G, BEAM_T).contiguous()
+
+
+def _m15_kernels() -> dict:
+    """K8's split and per-lane modes alone: each held row by row against its
+    plain version on the card (both modes of the split at every s_fill of
+    M15_FILLS and in clusters past 256 positions; the per-lane layout int8
+    and int4 on beam-built and all-distinct ancestries), bit-equal on a
+    repeat, one device kernel a call; the split with its overflow flag set
+    bit-equal to the flat mode; then each timed L2 cold beside its plain
+    version, its bound (the distinct rows' bytes, as K8's row) and K8 flat
+    at the same ancestry. -> the readings for K8's JSON row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rng = np.random.default_rng(26)
+    n, g, h, pos = BEAM_N, BEAM_G, BEAM_H, BEAM_POS
+    q = torch.from_numpy(rng.standard_normal((n * g, h, 1, 64)).astype(np.float32) * 0.35).to(
+        dev, torch.bfloat16)
+    cache = _quant_cache(rng, n, h, BEAM_T * g, 8)
+    errs, out = [], {}
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    for fill in M15_FILLS:
+        anc = _split_ancestry(gen, fill)
+        s_fill = torch.full((n,), fill, dtype=torch.int32, device=dev)
+        for int_dot in (False, True):
+            got = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot, s_fill=s_fill,
+                                        overflow=off)
+            ref = bf.beamflat_attention_plain(q, *cache, anc, pos, g, int_dot, s_fill)
+            errs.append(_check_rows(f"beamflat split s_fill={fill} int8 "
+                                    f"{'int_dot' if int_dot else 'fp'}", got, ref))
+            again = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot,
+                                          s_fill=s_fill, overflow=off)
+            flat = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot)
+            over = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot, s_fill=s_fill,
+                                         overflow=on)
+            if not (torch.equal(got, again) and torch.equal(over, flat)):
+                raise AssertionError(f"beamflat split s_fill={fill} int_dot={int_dot}: a repeat "
+                                     "differs, or the overflow flag does not give the flat mode")
+    # the split in clusters of 2 and 8 blocks (a block holding both sides)
+    for t_pos, p, fill in ((448, 300, 150), (2048, 2047, 1000)):
+        anc = _beam_ancestry(gen, 1, g, t_pos).reshape(1, g, t_pos)
+        anc[:, :, :fill] = anc[:, :1, :fill]
+        anc = anc.reshape(g, t_pos).contiguous()
+        c = _quant_cache(rng, 1, h, t_pos * g, 8)
+        qq = q[:g]
+        s_fill = torch.tensor([fill], dtype=torch.int32, device=dev)
+        for int_dot in (False, True):
+            errs.append(_check_rows(
+                f"beamflat split pos={p} s_fill={fill} (cluster {bf.beamflat_plan(p + 1, g)[0]}) "
+                f"{'int_dot' if int_dot else 'fp'}",
+                bf.beamflat_attention(qq, *c, anc, p, g, int_dot=int_dot, s_fill=s_fill),
+                bf.beamflat_attention_plain(qq, *c, anc, p, g, int_dot, s_fill)))
+    out["max_abs_err_split"] = max(errs)
+    s100 = torch.full((n,), 100, dtype=torch.int32, device=dev)
+    anc100 = _split_ancestry(gen, 100)
+    for int_dot in (False, True):
+        _one_kernel(f"beamflat split int_dot={int_dot}", lambda: bf.beamflat_attention(
+            q, *cache, anc100, pos, g, int_dot=int_dot, s_fill=s100, overflow=off))
+
+    # the per-lane layout: one layer's per-lane cache of 40 lanes
+    lane_errs, lane_caches = [], {}
+    for bits in (8, 4):
+        lane_caches[bits] = _quant_cache(rng, n * g, h, M15_LANE_T, bits)
+        for kind in ("beam", "distinct"):
+            anc = _k8_ancestry(kind, gen, n, g, M15_LANE_T)
+            for p in (pos, 255):
+                got = bf.ancestry_attention(q, *lane_caches[bits], anc, p, g)
+                ref = bf.attention_int8_ancestry_plain(q, *lane_caches[bits], anc, p, g)
+                lane_errs.append(_check_rows(f"beamflat per-lane int{bits} {kind} pos={p}",
+                                             got, ref))
+                if not torch.equal(got, bf.ancestry_attention(q, *lane_caches[bits], anc, p, g)):
+                    raise AssertionError(f"beamflat per-lane int{bits} {kind}: a repeat differs")
+    out["max_abs_err_lane"] = max(lane_errs)
+    anc_beam = _k8_ancestry("beam", gen, n, g, M15_LANE_T)
+    _one_kernel("beamflat per-lane int8", lambda: bf.ancestry_attention(
+        q, *lane_caches[8], anc_beam, pos, g))
+
+    # times, L2 cold over copies of one layer's cache
+    layers = _copies(cache)
+    split_cases = {}
+    for fill in M15_FILLS:
+        anc = _split_ancestry(gen, fill)
+        s_fill = torch.full((n,), fill, dtype=torch.int32, device=dev)
+        needed = int(bf.beamflat_rows_needed(anc, g, pos).sum())
+        for int_dot in (True, False):
+            label = f"int8 {'int_dot' if int_dot else 'fp'} s_fill {fill}"
+            ms = _cold_ms(lambda c: bf.beamflat_attention(
+                q, *c, anc, pos, g, int_dot=int_dot, s_fill=s_fill, overflow=off), layers)
+            flat = _cold_ms(lambda c: bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot),
+                            layers)
+            bound = _bound(needed * h * (2 * 64 + 4) + n * g * (pos + 1) * 4 + 2 * _nbytes(q),
+                           n * g * h * (pos + 1) * 2 * 2 * 64, "int8" if int_dot else "bf16")
+            split_cases[label] = dict(ms=ms, flat_ms=flat, distinct_rows=needed, **bound)
+            print(f"  beamflat split {label}: kernel {ms:.4f} ms, K8 flat at the same ancestry "
+                  f"{flat:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, {needed} "
+                  f"distinct rows), {bound['bound_ms'] / ms:.1%} of it")
+    main = split_cases[f"int8 int_dot s_fill {M15_FILLS[1]}"]
+    out.update(ms_split=main["ms"], bound_split_ms=main["bound_ms"],
+               bound_split_by=main["bound_by"], flat_ms_split_shape=main["flat_ms"],
+               cases_split=split_cases, plain_split_ms=_cold_ms(
+                   lambda c: bf.beamflat_attention_plain(q, *c, anc100, pos, g, True, s100),
+                   _copies(cache, 2), reps=8), library_split_ms=None)
+    del layers
+    lane_cases = {}
+    for bits in (8, 4):
+        copies = _copies(lane_caches[bits])
+        for kind in ("beam", "distinct"):
+            anc = _k8_ancestry(kind, gen, n, g, M15_LANE_T)
+            needed = int(bf.beamflat_rows_needed(anc, g, pos).sum())
+            ms = _cold_ms(lambda c: bf.ancestry_attention(q, *c, anc, pos, g), copies)
+            bound = _bound(needed * h * (2 * bits * 64 // 8 + 4) + n * g * (pos + 1) * 4
+                           + 2 * _nbytes(q), n * g * h * (pos + 1) * 2 * 2 * 64, "bf16")
+            lane_cases[f"int{bits} {kind}"] = dict(ms=ms, distinct_rows=needed, **bound)
+            print(f"  beamflat per-lane int{bits} {kind} pos {pos}: kernel {ms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {needed} distinct rows), "
+                  f"{bound['bound_ms'] / ms:.1%} of it")
+        del copies
+    main = lane_cases["int8 beam"]
+    out.update(ms_lane=main["ms"], bound_lane_ms=main["bound_ms"],
+               bound_lane_by=main["bound_by"], cases_lane=lane_cases, plain_lane_ms=_cold_ms(
+                   lambda c: bf.attention_int8_ancestry_plain(q, *c, anc_beam, pos, g),
+                   _copies(lane_caches[8], 2), reps=8), library_lane_ms=None)
+    return out
+
+
+def _m15_counts() -> dict:
+    return {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES,
+            "decode_int": da.INT_DOT_LAUNCHES, "beamflat": bf.LAUNCHES,
+            "beamflat_split": bf.SPLIT_LAUNCHES, "beamflat_lane": bf.LANE_LAUNCHES,
+            "flash": fa.LAUNCHES, "quant": qm.LAUNCHES}
+
+
+def _zero_m15_counts() -> None:
+    _zero_counts()
+    bf.SPLIT_LAUNCHES = bf.LANE_LAUNCHES = fa.LAUNCHES = qm.LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches made inside (a comparison's) left out of the counts."""
+    saved = dict(mel=mk.LAUNCHES, dense=dn.LAUNCHES, decode=da.LAUNCHES,
+                 decode_int=da.INT_DOT_LAUNCHES, beamflat=bf.LAUNCHES, split=bf.SPLIT_LAUNCHES,
+                 lane=bf.LANE_LAUNCHES, flash=fa.LAUNCHES, quant=qm.LAUNCHES,
+                 permute=lp.PERMUTE_LAUNCHES, move=lp.MOVE_LAUNCHES)
+    try:
+        yield
+    finally:
+        mk.LAUNCHES, dn.LAUNCHES, da.LAUNCHES = saved["mel"], saved["dense"], saved["decode"]
+        da.INT_DOT_LAUNCHES, bf.LAUNCHES = saved["decode_int"], saved["beamflat"]
+        bf.SPLIT_LAUNCHES, bf.LANE_LAUNCHES = saved["split"], saved["lane"]
+        fa.LAUNCHES, qm.LAUNCHES = saved["flash"], saved["quant"]
+        lp.PERMUTE_LAUNCHES, lp.MOVE_LAUNCHES = saved["permute"], saved["move"]
+
+
+class _BeamTrace:
+    """While in use: the beam loop's top-2B candidates a step and the
+    TRACE_EXTRA after them (scores and flat indices, on the host; the loop
+    gets its 2B) and, with ``teacher``, the largest
+    difference of the log-softmax of each step's logits from the same step
+    with K8's plain version on a copy of the cache (D, on the run's own
+    trajectory); with ``plain``, K8's plain version in the kernel's place."""
+
+    def __init__(self, plain: bool = False, teacher: bool = False):
+        self.plain, self.teacher, self.tops, self.d = plain, teacher, [], 0.0
+
+    def __enter__(self):
+        self.topk, self.step = tb._topk_flat, tb.decode_step
+
+        def topk(cand, k):
+            self.k = k
+            scores, idx = self.topk(cand, k + TRACE_EXTRA)  # its first k are the top k
+            self.tops.append((scores.float().cpu(), idx.cpu()))
+            return scores[:, :k], idx[:, :k]
+
+        def step(params, tokens, pos, cache, *a, **kw):
+            if not (self.teacher and "beam_ancestry" in kw):
+                return self.step(params, tokens, pos, cache, *a, **kw)
+            copy = [{k: v.clone() for k, v in e.items()} for e in cache]
+            out = self.step(params, tokens, pos, cache, *a, **kw)
+            tw.beamflat_attention = bf.beamflat_attention_plain
+            try:
+                with _uncounted():
+                    ref = self.step(params, tokens, pos, copy, *a, **kw)
+            finally:
+                tw.beamflat_attention = bf.beamflat_attention
+            diff = (torch.log_softmax(out[0][:, -1].float(), -1)
+                    - torch.log_softmax(ref[0][:, -1].float(), -1)).abs().max().item()
+            self.d = max(self.d, diff)
+            return out
+
+        tb._topk_flat, tb.decode_step = topk, step
+        if self.plain:
+            tw.beamflat_attention = bf.beamflat_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        tb._topk_flat, tb.decode_step = self.topk, self.step
+        tw.beamflat_attention = bf.beamflat_attention
+
+
+def _beam_tie_check(label, kernel: _BeamTrace, plain: _BeamTrace, d: float) -> None:
+    """Hold a beam run's candidates against the same run's with K8's plain
+    version: in each window, where they first choose differently, the plain
+    run's gap between its candidate and the kernel's must be within
+    SPEC_TIE_FACTOR times the larger of 2 D (two candidates each moved by
+    up to D) and the largest score difference of the candidates both runs
+    hold at that step."""
+    k = kernel.k
+    for w in range(kernel.tops[0][0].shape[0]):
+        for step, ((sk, ik), (sp, ip)) in enumerate(zip(kernel.tops, plain.tops)):
+            if torch.equal(ik[w, :k], ip[w, :k]):
+                continue
+            rank = int((ik[w, :k] != ip[w, :k]).nonzero()[0])
+            ik_w, ip_w = ik[w].tolist(), ip[w].tolist()
+            moved = max((abs(float(sk[w][ik_w.index(c)]) - float(sp[w][ip_w.index(c)]))
+                         for c in set(ik_w) & set(ip_w)), default=0.0)
+            tol = SPEC_TIE_FACTOR * max(2 * d, moved)
+            where = (ip[w] == ik[w][rank]).nonzero().flatten()
+            if where.numel() == 0:
+                raise AssertionError(f"{label}: window {w} step {step}: the kernel's candidate "
+                                     f"is not among the plain run's first {k + TRACE_EXTRA}")
+            gap = float(sp[w][rank] - sp[w][int(where[0])])
+            print(f"  {label}: window {w} parts from the plain version at step {step}, rank "
+                  f"{rank}: the plain run's gap {gap:.4e}, near-tie limit {tol:.4e} (D {d:.4e}, "
+                  f"scores moved {moved:.4e})")
+            if not gap <= tol:
+                raise AssertionError(f"{label}: window {w} parts at step {step} with a gap of "
+                                     f"{gap} > {tol}")
+            break
+        else:
+            print(f"  {label}: window {w} equal to the plain version's at every step")
+
+
+def _m15_whisper(totals: dict) -> None:
+    """large-v3 (bf16, int4 cross, int8 self, random weights of seed 0) on
+    2 windows of noise: greedy under each time-major field, tokens equal to
+    the time-minor run's bit for bit; beam 5 under WTPU_BEAM_KV=shared at
+    each read window of M15_WINDOWS, beside the same batch with K8's plain
+    version (a near tie at any parting); beam 5 with a time-major cross
+    cache; decode_step with beam_ancestry over a per-lane cache (F9) against
+    the same step with K8's plain version."""
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    params, config = apply_asr_serving_config(
+        init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+    tok = _bench_tokenizer(config.n_vocab)
+    audio = torch.from_numpy(np.random.default_rng(26).standard_normal((2, N_SAMPLES)).astype(
+        np.float32) * 0.1).to(dev)
+    _zero_m15_counts()
+    with torch.inference_mode():
+        mel = torch.stack([log_mel_spectrogram(a, config.n_mels) for a in audio])
+        states = encode(params, mel, config)
+    torch.cuda.synchronize()
+    totals.update(mel=mk.LAUNCHES, dense=dn.LAUNCHES)
+
+    def run(label, cfg, opts, env=None, trace=None, count=True):
+        _zero_m15_counts()
+        t0 = time.perf_counter()
+        with _Env(**(env or {})), (trace or contextlib.nullcontext()), torch.inference_mode():
+            res = decode(params, states, tok, cfg, opts, states_precomputed=True)
+        torch.cuda.synchronize()
+        counts = _m15_counts()
+        for key, v in counts.items():
+            totals[key] = totals.get(key, 0) + (v if count else 0)
+        print(f"  {label}: {time.perf_counter() - t0:.2f} s, {sum(len(r.tokens) for r in res)} "
+              f"tokens, launches {counts}")
+        assert all(r.tokens and np.isfinite(r.avg_logprob) for r in res), label
+        return res, counts
+
+    greedy = DecodingOptions(sample_len=M15_LEN)
+    base_tokens, _ = run("greedy, time-minor caches", config, greedy)
+    for field in ("self_kv_layout", "kv_layout"):
+        res, counts = run(f"greedy, {field}=tmajor", dataclasses.replace(config, **{field:
+                                                                                  "tmajor"}),
+                          greedy)
+        assert _tokens(res) == _tokens(base_tokens), f"{field}=tmajor: tokens differ"
+        assert counts["decode"] > 0 and counts["decode_int"] == 0, counts
+    beam = DecodingOptions(sample_len=M15_LEN, beam_size=5)
+    for window in M15_WINDOWS:
+        env = dict(WTPU_BEAM_KV="shared", WTPU_BEAM_WIN=window)
+        last = {}
+        commits = tb._shared_commits
+
+        def spy(*a, **kw):
+            last["out"] = commits(*a, **kw)
+            return last["out"]
+
+        tb._shared_commits = spy
+        try:
+            kernel = _BeamTrace(teacher=True)
+            res, counts = run(f"beam 5, WTPU_BEAM_KV=shared, WTPU_BEAM_WIN={window}", config,
+                              beam, env, kernel)
+            s_fill, overflow = (t.tolist() for t in last["out"])
+        finally:
+            tb._shared_commits = commits
+        assert counts["beamflat_split"] > 0, counts
+        print(f"    last s_fill {s_fill}, overflow {overflow} (D {kernel.d:.4e})")
+        if window == min(M15_WINDOWS):
+            assert overflow, f"W={window}: the overflow never took over"
+        plain = _BeamTrace(plain=True)
+        ref, _ = run("the same with K8's plain version", config, beam, env, plain, count=False)
+        same, total = _agreement(res, ref)
+        print(f"    against K8's plain version: tokens agree {same}/{total}")
+        _beam_tie_check(f"shared W={window}", kernel, plain, kernel.d)
+    res, counts = run("beam 5, kv_layout=tmajor (the cross cache in K3's fp mode)",
+                      dataclasses.replace(config, kv_layout="tmajor"), beam)
+    assert counts["decode"] > 0, counts
+
+    # F9: decode_step(beam_ancestry=) over a per-lane cache, 2 windows x 5
+    _zero_m15_counts()
+    cache = init_kv_cache(config, 10, dev, max_len=M15_LEN)
+    xkv = cross_kv(params, states, config)
+    init = torch.tensor([tok.sot_sequence] * 10, device=dev)
+    with torch.inference_mode():
+        decode_step(params, init, 0, cache, xkv, config, share_xkv_groups=5)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        t_alloc = cache[0]["k8"].shape[2]
+        anc = _beam_ancestry(gen, 2, 5, t_alloc)
+        step = init[:, :1]
+        pos = len(tok.sot_sequence)
+        copy = [{k: v.clone() for k, v in e.items()} for e in cache]
+        got = decode_step(params, step, pos, cache, xkv, config, share_xkv_groups=5,
+                          beam_ancestry=anc)[0]
+        lanes = bf.LANE_LAUNCHES
+        tw.ancestry_attention = bf.attention_int8_ancestry_plain
+        try:
+            ref = decode_step(params, step, pos, copy, xkv, config, share_xkv_groups=5,
+                              beam_ancestry=anc)[0]
+        finally:
+            tw.ancestry_attention = bf.ancestry_attention
+    totals["beamflat_lane"] = totals.get("beamflat_lane", 0) + lanes
+    totals["beamflat"] = totals.get("beamflat", 0) + lanes
+    assert lanes == config.n_text_layer, lanes
+    _check("F9: decode_step(beam_ancestry=) over a per-lane cache, large-v3 logits against K8's "
+           "plain version", got, ref, TINY_LOGIT_TOL * max(1.0, ref.float().abs().max().item()))
+
+
+def _m15_qwen(totals: dict) -> None:
+    """Qwen3-32B at full width and RESIDENCY_LAYERS layers (random packed
+    int4 weights built on the card) under WTPU_NATIVE_RESIDENT=1: 32 tokens
+    at B = 1 through LLMEngine.generate beside the packed engine's (equal up
+    to a near tie: the packed run's gap at the parting within
+    SPEC_TIE_FACTOR times D, the largest logit difference of the two
+    teacher-forced on the native run's tokens), and one 128-token prefill
+    past the row rule (dequantize + matmul, no K5) beside the packed
+    prefill (K5's tiled core)."""
+    dev = torch.device("cuda")
+    config = dataclasses.replace(QWEN32, dtype=torch.bfloat16, flash_attention=True,
+                                 num_hidden_layers=RESIDENCY_LAYERS)
+    packed = qw.init_random_quant_params(config, seed=0, device=dev)
+    tok = ByteFallbackTokenizer()
+    with _Env(WTPU_NATIVE_RESIDENT=1):
+        native = LLMEngine(packed, config, tok, max_context=4096)
+    def weights(node):
+        if isinstance(node, dict):
+            return [w for k, v in node.items() for w in ([v] if k == "w" else weights(v))]
+        return [w for v in node for w in weights(v)] if isinstance(node, list) else []
+
+    kinds = {type(w).__name__ for w in weights(native.params)}
+    assert kinds == {"NativeQuantTensor"}, kinds
+    assert isinstance(native.params["embed"], tq.NativeQuantTensor)
+    plain = LLMEngine(packed, config, tok, max_context=4096)
+    prompt = _prompt_text(np.random.default_rng(26), 270)
+    ids = tok.encode(prompt)
+    native.generate("warm up", max_tokens=4, temperature=0.0)
+    _zero_m15_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = native.generate(prompt, max_tokens=32, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _m15_counts()
+    for key in ("flash", "quant"):
+        totals[key] = totals.get(key, 0) + counts[key]
+    assert res.generation_tokens == 32 and counts["quant"] > 0, (res.generation_tokens, counts)
+    print(f"  Qwen3-32B ({RESIDENCY_LAYERS} layers) WTPU_NATIVE_RESIDENT=1: {len(ids)}-token "
+          f"prompt, 32 tokens in {wall:.3f} s ({32 / wall:.2f} tok/s), launches {counts}")
+    ref = plain.generate(prompt, max_tokens=32, temperature=0.0).tokens
+    first = _first_difference(res.tokens, ref)
+    upto = 32 if first is None else first + 1
+    with torch.inference_mode():
+        rows_n = _engine_logits(native.params, config, ids, res.tokens[:upto])
+        rows_p = _engine_logits(packed, config, ids, res.tokens[:upto])
+    d = (rows_n - rows_p).abs().max().item()
+    same = sum(x == y for x, y in zip(res.tokens, ref))
+    msg = (f"  native against packed: {same}/32 tokens agree, first difference at {first}; "
+           f"largest logit difference D {d:.4e}, near-tie limit {SPEC_TIE_FACTOR * d:.4e}")
+    if first is not None:
+        gap = (rows_p[first][ref[first]] - rows_p[first][res.tokens[first]]).item()
+        msg += f"; the packed run's gap there {gap:.4e}"
+        if not gap <= SPEC_TIE_FACTOR * d:
+            raise AssertionError(f"native residency: tokens part from the packed engine's at "
+                                 f"{first} with a gap of {gap} > {SPEC_TIE_FACTOR * d}")
+    print(msg)
+    del rows_n, rows_p
+    # one 128-token prefill: past the row rule every linear dequantizes
+    prefill = torch.tensor([ids[:128]], device=dev)
+    outs = {}
+    for label, p in (("native", native.params), ("packed", packed)):
+        cache = qw.init_kv_cache(config, 1, 256, dev)
+        _zero_m15_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            outs[label] = qw.decode_step(p, prefill, 0, cache, config)[0][0, -1].float()
+        torch.cuda.synchronize()
+        counts = _m15_counts()
+        print(f"  128-token prefill, {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms wall, "
+              f"launches K4 {counts['flash']}, K5 {counts['quant']}")
+        if label == "native":
+            assert counts["quant"] == 0 and counts["flash"] > 0, counts
+            totals["flash"] = totals.get("flash", 0) + counts["flash"]
+    _check("native 128-token prefill logits against the packed prefill's (K5 tiled)",
+           outs["native"], outs["packed"],
+           TINY_LOGIT_TOL * max(1.0, outs["packed"].abs().max().item()))
+
+
+def phase_m15() -> dict:
+    """Phase 26: the reference's last opt-ins (ROADMAP M15) and fault F9.
+    K8's split and per-lane modes alone (_m15_kernels); large-v3 on 2
+    windows (_m15_whisper); Qwen3-32B under WTPU_NATIVE_RESIDENT=1
+    (_m15_qwen). -> K8's readings and the launches of K1-K5 and K8 (its
+    split and per-lane modes apart) over the phase's main-path runs (the
+    comparison runs left out)."""
+    t_phase = time.perf_counter()
+    rows = _m15_kernels()
+    print(f"  (K8's modes alone: {time.perf_counter() - t_phase:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    totals: dict = {}
+    t0 = time.perf_counter()
+    _m15_whisper(totals)
+    print(f"  (large-v3: {time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _m15_qwen(totals)
+    print(f"  (Qwen3-32B: {time.perf_counter() - t0:.1f} s)")
+    print(f"  launches over the phase's main-path runs: {totals}")
+    for key in ("mel", "dense", "decode", "decode_int", "beamflat", "beamflat_split",
+                "beamflat_lane", "flash", "quant"):
+        assert totals.get(key, 0) > 0, f"kernel {key} was not launched on phase 26's path"
+    print(f"m15: {_smi()}")
+    return {"rows": rows, "launches": totals}
+
+
 def _encoder_dequant_cost(params, dense, config, mel) -> None:
     """The encoder on packed weights dequantizes each of its linears at every
     call (1500 rows a window is past the kernels' 512): its time beside the
@@ -4750,14 +5251,15 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, serve, spec, daemon, llm_kv, and batches, residency_times, "
+                        "quant_main, serve, spec, daemon, llm_kv, m15, and batches, "
+                        "residency_times, "
                         "beam_times, "
                         "beam_batches, tiled_times and a8_times, which run only when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    rows, launches, on_4bit, serve, spec, daemon, kv = {}, {}, {}, {}, {}, {}, {}
+    rows, launches, on_4bit, serve, spec, daemon, kv, m15 = {}, {}, {}, {}, {}, {}, {}, {}
 
     def residency():
         out = {}
@@ -4786,6 +5288,7 @@ def main(argv: list[str] | None = None) -> int:
         "spec": ("speculative decoding", phase_spec, spec),
         "daemon": ("daemon", phase_daemon, daemon),
         "llm_kv": ("llm kv cache", phase_llm_kv, kv),
+        "m15": ("m15", phase_m15, m15),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
@@ -4830,6 +5333,11 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_daemon"] = daemon[f"{key}_daemon"]
         if f"{key}_kv" in kv:  # the quantized-cache path (phase 25)
             row["launches_kv"] = kv[f"{key}_kv"]
+        if key in m15["launches"]:  # the last opt-ins' path (phase 26)
+            row["launches_m15"] = m15["launches"][key]
+        if key == "beamflat":  # its split and per-lane modes (phase 26)
+            row.update(m15["rows"], launches_split_m15=m15["launches"]["beamflat_split"],
+                       launches_lane_m15=m15["launches"]["beamflat_lane"])
         if key == "decode":  # K3's GQA mode: phase 7's times, phase 25's launches
             row.update(rows["gqa"], launches_gqa=kv["gqa_kv"])
         if key == "decode":  # the verify's shape: one window, Tq = 5, pos 226, self + cross

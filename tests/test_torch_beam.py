@@ -302,23 +302,35 @@ def test_decode_beam_integer_dot_default(tiny, monkeypatch, kv, self_kv, env, ex
 
 
 def test_beam_shared_scheme_raises_naming_m15(tiny, monkeypatch):
-    """kv_scheme='shared' is not ported and does not fall back silently;
-    with an int4 self cache the reference itself remaps it to flat."""
-    _, tparams = tiny["models"][6.0]
-    mel = torch.from_numpy(tiny["mel"][:1])
-    opts = tt.DecodingOptions(sample_len=6, beam_size=2)
+    """kv_scheme='shared' (ROADMAP M15, ported since; the test keeps its
+    name): ``WTPU_BEAM_KV=shared`` through ``decode`` on an int8 self cache,
+    with its read window ``WTPU_BEAM_WIN`` at 4 (the overflow takes over) and
+    its segment bounds ``WTPU_BEAM_PHASES``, gives the JAX package's tokens
+    under the same variables; with an int4 self cache both remap it to flat,
+    and an unknown scheme raises."""
+    jparams, tparams = tiny["models"][6.0]
+    mel = tiny["mel"][:1]
+    opts = dict(sample_len=40, beam_size=2)
     monkeypatch.setenv("WTPU_BEAM_KV", "shared")
-    with pytest.raises(NotImplementedError, match="M15"):
-        tt.decode(tparams, mel, t_tokenizer(), dataclasses.replace(tiny["tcfg"], self_kv_bits=8),
-                  opts)
+    monkeypatch.setenv("WTPU_BEAM_WIN", "4")
+    monkeypatch.setenv("WTPU_BEAM_PHASES", "8")
+    cfg8 = dataclasses.replace(tiny["tcfg"], kv_bits=4, self_kv_bits=8)
+    shared = tt.decode(tparams, torch.from_numpy(mel), t_tokenizer(), cfg8,
+                       tt.DecodingOptions(**opts))
+    ref = jt.decode(jparams, jnp.asarray(mel), j_tokenizer(),
+                    dataclasses.replace(tiny["jcfg"], kv_bits=4, self_kv_bits=8),
+                    jt.DecodingOptions(**opts))
+    assert [r.tokens for r in shared] == [r.tokens for r in ref]
+    assert all(len(r.tokens) > 0 for r in shared)
     cfg4 = dataclasses.replace(tiny["tcfg"], self_kv_bits=4)
-    shared = tt.decode(tparams, mel, t_tokenizer(), cfg4, opts)
+    opts4 = tt.DecodingOptions(sample_len=6, beam_size=2)
+    shared = tt.decode(tparams, torch.from_numpy(mel), t_tokenizer(), cfg4, opts4)
     monkeypatch.setenv("WTPU_BEAM_KV", "flat")
     assert [r.tokens for r in shared] == [r.tokens for r in tt.decode(
-        tparams, mel, t_tokenizer(), cfg4, opts)]
+        tparams, torch.from_numpy(mel), t_tokenizer(), cfg4, opts4)]
     monkeypatch.setenv("WTPU_BEAM_KV", "tmajor")
     with pytest.raises(ValueError, match="unknown beam kv_scheme"):
-        tt.decode(tparams, mel, t_tokenizer(), cfg4, opts)
+        tt.decode(tparams, torch.from_numpy(mel), t_tokenizer(), cfg4, opts4)
 
 
 def _write_wav(path, audio):

@@ -23,6 +23,7 @@ from whisper_mlx_tpu.inference.generate import LLMEngine as JEngine
 from whisper_mlx_tpu.models.qwen import QwenConfig as JConfig
 from whisper_mlx_tpu.models.qwen import init_params as j_init
 from whisper_mlx_tpu.serving import chat as j_chat
+from whisper_mlx_tpu_torch.checkpoint.convert import qwen_params_from_jax
 from whisper_mlx_tpu_torch.decoding import llm_tokenizer as t_tok
 from whisper_mlx_tpu_torch.inference import generate as tg
 from whisper_mlx_tpu_torch.inference.batch_engine import ContinuousBatchEngine
@@ -277,11 +278,12 @@ def test_llm_tokenizer_copy_matches():
     ("WTPU_LLM_KV_BITS", "8", "M12"), ("WTPU_NATIVE_RESIDENT", "1", "M15"),
 ])
 def test_engine_opt_ins_raise(engines, monkeypatch, name, value, item):
-    """An opt-in of the reference outside the port raises naming its ROADMAP
-    item. M12's ``WTPU_LLM_KV_BITS`` is ported: under it the engines build,
-    the engine's config carries ``kv_bits`` and its greedy tokens equal the
-    JAX engine's under the same variable (tests/test_torch_llm_kv.py holds
-    the rest)."""
+    """The reference's engine opt-ins, each ported since its ROADMAP item
+    (the test keeps its name): M12's ``WTPU_LLM_KV_BITS``: under it the
+    engines build, the engine's config carries ``kv_bits`` and its greedy
+    tokens equal the JAX engine's under the same variable
+    (tests/test_torch_llm_kv.py holds the rest); M15's
+    ``WTPU_NATIVE_RESIDENT`` below."""
     jeng, teng = engines
     monkeypatch.setenv(name, value)
     if name == "WTPU_LLM_KV_BITS":
@@ -293,10 +295,49 @@ def test_engine_opt_ins_raise(engines, monkeypatch, name, value, item):
                 ref_eng.generate(prompt, max_tokens=12, temperature=0.0).tokens
         ContinuousBatchEngine(eng.params, eng.config, eng.tokenizer, slots=1).close()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tg.LLMEngine(teng.params, teng.config, teng.tokenizer)
-    with pytest.raises(NotImplementedError, match=item):
-        ContinuousBatchEngine(teng.params, teng.config, teng.tokenizer, slots=1)
+    # M15's WTPU_NATIVE_RESIDENT is ported: on a 4-bit tree both engines
+    # promote every packed leaf to a native one, whose greedy tokens equal
+    # the JAX engine's, also through the continuous engine over the
+    # engine's own weights (tests/test_torch_m15.py holds the rest)
+    jtree = _quantized_qwen(jax.tree.map(np.asarray, jeng.params))
+    tparams = qwen_params_from_jax(jax.tree.map(np.asarray, jtree), teng.config)
+    eng = tg.LLMEngine(tparams, teng.config, teng.tokenizer, max_context=256)
+    ref_eng = JEngine(jtree, jeng.config, jeng.tokenizer, max_context=256)
+    kinds = {type(leaf).__name__ for leaf in _leaves(eng.params)}
+    assert type(eng.params["embed"]).__name__ == "NativeQuantTensor"
+    assert "QuantTensor" not in kinds and "NativeQuantTensor" in kinds
+    for prompt in PROMPTS[:2]:
+        want = ref_eng.generate(prompt, max_tokens=12, temperature=0.0).tokens
+        assert eng.generate(prompt, max_tokens=12, temperature=0.0).tokens == want
+    batch = eng.continuous(1)
+    try:
+        handle = batch.submit(PROMPTS[1], max_tokens=12, temperature=0.0)
+        assert list(handle.tokens()) == ref_eng.generate(PROMPTS[1], max_tokens=12,
+                                                         temperature=0.0).tokens
+    finally:
+        batch.close()
+
+
+def _quantized_qwen(tree):
+    """The reference's 4-bit walker over a tiny Qwen tree's layers, and the
+    embedding (tied head) quantized the same way."""
+    import jax.numpy as jnp
+
+    from whisper_mlx_tpu.ops import quant as jq
+
+    layers = jq.quantize_params({"encoder": {"layers": tree["layers"]}, "decoder": {}},
+                                bits=4, group_size=64)["encoder"]["layers"]
+    emb = jq.quantize(np.asarray(tree["embed"], np.float32), bits=4, group_size=64)
+    return dict(jax.tree.map(jnp.asarray, tree), layers=layers,
+                embed=jq.QuantTensor(*(jnp.asarray(a) for a in emb), 4, 64))
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        return [leaf for v in node.values() for leaf in _leaves(v)]
+    if isinstance(node, list):
+        return [leaf for v in node for leaf in _leaves(v)]
+    return [node]
 
 
 def test_draft_and_model_env_opt_ins_raise(engines, monkeypatch, tmp_path):

@@ -1026,11 +1026,14 @@ def test_residency_row_bound_below_512_raises_on_cuda(cuda, monkeypatch, leaf, b
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("env,leaf,module", [("WTPU_MBT_RESIDENT", "QuantTensorT", mb),
-                                             ("WTPU_QWEN_A8", "A8Tensor", a8)])
+                                             ("WTPU_QWEN_A8", "A8Tensor", a8),
+                                             ("WTPU_NATIVE_RESIDENT", "NativeQuantTensor", qm)])
 def test_qwen_tiny_residency_card_matches_cpu(cuda, monkeypatch, env, leaf, module):
     """A tiny Qwen3 with random 4-bit weights through LLMEngine under each
-    residency opt-in: prefill and decode steps on the card (K6 or K7)
-    against the plain versions on the CPU, same weights, bf16."""
+    residency opt-in: prefill and decode steps on the card (K6, K7, or for
+    native residency K5 at the decode steps' rows and dequantize + matmul
+    at the prefill's 80) against the plain versions on the CPU, same
+    weights, bf16."""
     import dataclasses
 
     from whisper_mlx_tpu_torch.decoding.llm_tokenizer import ByteFallbackTokenizer
@@ -1144,6 +1147,180 @@ def test_beamflat_kernel_matches_plain(cuda, bits, int_dot, n, g, t_pos, pos, ki
     assert bf.LAUNCHES == before + 1
     ref = bf.beamflat_attention_plain(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
     _assert_rows_close(got, ref)
+
+
+def _split_case(cuda, n, g, t_pos, pos, fills, seed):
+    """The split mode's inputs: an int8 flat cache, queries, an ancestry
+    as a beam builds it whose lanes agree below each window's s_fill (as
+    the shared scheme's commits keep it), and s_fill (n,) int32."""
+    q, k8, ks, v8, vs, anc = _beamflat_case(cuda, 8, n, g, t_pos, "beam", seed)
+    anc = anc.reshape(n, g, t_pos)
+    s_fill = torch.tensor([min(f, pos) if f >= 0 else pos // 2 + w for w, f in enumerate(fills)],
+                          dtype=torch.int32, device=cuda)
+    for w in range(n):
+        f = int(s_fill[w])
+        anc[w, :, :f] = anc[w, :1, :f]
+    return q, k8, ks, v8, vs, anc.reshape(n * g, t_pos).contiguous(), s_fill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dot", [False, True])
+@pytest.mark.parametrize("n,g,t_pos,pos,fills", [
+    # s_fill 0, mid (-1: pos // 2 + window), pos; one block, then clusters
+    (8, 5, 256, 226, (0, -1, 226, 100, 200, 0, -1, 226)), (2, 3, 128, 0, (0, 0)),
+    (2, 5, 448, 255, (0, -1)), (2, 5, 448, 256, (256, -1)), (1, 5, 448, 447, (300,)),
+    (1, 11, 448, 300, (-1,)), (1, 5, 2048, 2047, (1000,)), (2, 8, 128, 127, (127, 3))])
+def test_beamflat_split_matches_plain(cuda, int_dot, n, g, t_pos, pos, fills):
+    """K8's split mode (the shared-prefix scheme, int8) against its plain
+    version query row by query row, at s_fill 0, mid and pos, in one block
+    and in clusters of 2 to 8 (a block holding positions on both sides of
+    the split); a repeat bit-equal; with the overflow flag set it equals
+    the flat mode bit for bit; one launch a call, counted as a split."""
+    q, k8, ks, v8, vs, anc, s_fill = _split_case(cuda, n, g, t_pos, pos, fills, pos + g)
+    before = (bf.LAUNCHES, bf.SPLIT_LAUNCHES)
+    off = torch.zeros((), dtype=torch.bool, device=cuda)
+    got = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot, s_fill=s_fill,
+                                overflow=off)
+    torch.cuda.synchronize()
+    assert (bf.LAUNCHES, bf.SPLIT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = bf.beamflat_attention_plain(q, k8, ks, v8, vs, anc, pos, g, int_dot, s_fill)
+    _assert_rows_close(got, ref)
+    assert torch.equal(got, bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g,
+                                                  int_dot=int_dot, s_fill=s_fill))
+    flat = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
+    over = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot,
+                                 s_fill=s_fill, overflow=torch.ones_like(off))
+    assert torch.equal(over, flat)
+
+
+@pytest.mark.cuda
+def test_beamflat_split_rejects_what_it_does_not_take(cuda):
+    """The split mode takes int8 codes and an (n,) int32 s_fill; the
+    per-lane mode a per-lane cache: each raises before any launch."""
+    q, k8, ks, v8, vs, anc = _beamflat_case(cuda, 4, 2, 3, 64, "beam", 1)
+    before = bf.LAUNCHES
+    fill = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        bf.beamflat_attention(q, k8, ks, v8, vs, anc, 10, 3, s_fill=fill)
+    q, k8, ks, v8, vs, anc = _beamflat_case(cuda, 8, 2, 3, 64, "beam", 1)
+    with pytest.raises(ValueError, match="s_fill"):
+        bf.beamflat_attention(q, k8, ks, v8, vs, anc, 10, 3, s_fill=fill.long())
+    with pytest.raises(ValueError, match="overflow without s_fill"):
+        bf.beamflat_attention(q, k8, ks, v8, vs, anc, 10, 3,
+                              overflow=torch.zeros((), dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="per-lane cache"):
+        bf.ancestry_attention(q, k8, ks, v8, vs, anc, 10, 3)
+    assert bf.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,g,t_pos,pos,kind", [
+    (8, 5, 256, 226, "beam"), (8, 5, 256, 226, "distinct"), (2, 3, 128, 0, "beam"),
+    (2, 8, 128, 127, "distinct"), (1, 11, 96, 95, "beam"), (2, 5, 448, 256, "beam"),
+    (1, 5, 448, 447, "distinct"), (1, 11, 448, 300, "beam")])
+def test_beamflat_lane_layout_matches_plain(cuda, bits, n, g, t_pos, pos, kind):
+    """K8's per-lane layout (``decode_step(beam_ancestry=)`` over a
+    per-lane cache, fp mode) against ``attention_int8_ancestry``'s plain
+    version query row by query row, on beam-built and all-distinct
+    ancestries, one block and clusters; a repeat bit-equal; one launch a
+    call, counted as a per-lane one."""
+    gen = torch.Generator(device=cuda).manual_seed(pos + g)
+    kx, vx = (torch.randn((n * g, 20, t_pos, 64), generator=gen, device=cuda)
+              for _ in range(2))
+    k8, ks = kq.quantize_kv(kx * 0.35, bits)
+    v8, vs = kq.quantize_kv(vx, bits)
+    anc = _ancestry(kind, gen, n, g, t_pos, cuda)
+    q = (torch.randn((n * g, 20, 1, 64), generator=gen, device=cuda) * 0.35).to(torch.bfloat16)
+    before = (bf.LAUNCHES, bf.LANE_LAUNCHES)
+    got = bf.ancestry_attention(q, k8, ks, v8, vs, anc, pos, g)
+    torch.cuda.synchronize()
+    assert (bf.LAUNCHES, bf.LANE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _assert_rows_close(got, bf.attention_int8_ancestry_plain(q, k8, ks, v8, vs, anc, pos, g))
+    assert torch.equal(got, bf.ancestry_attention(q, k8, ks, v8, vs, anc, pos, g))
+
+
+@pytest.mark.cuda
+def test_decode_step_lane_ancestry_runs_k8_not_k3(cuda):
+    """F9 on the card: decode_step with beam_ancestry over a per-lane int8
+    self cache runs K8's per-lane layout for self-attention (K3 only for
+    the cross cache, once a layer) and gives the CPU's logits."""
+    from whisper_mlx_tpu_torch.decoding.tokenizer import make_synthetic_tokenizer
+    from whisper_mlx_tpu_torch.models import whisper as tw
+
+    tok = make_synthetic_tokenizer()
+    cfg = tw.WhisperConfig(n_vocab=tok.n_vocab, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=2, n_text_state=128, n_text_head=2, n_text_layer=2,
+                           dtype=torch.bfloat16, flash_attention=True, kv_bits=8,
+                           self_kv_bits=8)
+    params = tw.init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    states = torch.randn((2, 1500, 128), generator=torch.Generator().manual_seed(0)) \
+        .to(torch.bfloat16)
+    init = torch.tensor([tok.sot_sequence] * 6)
+    anc = torch.tensor([[0, 0, 0, 1], [1, 1, 0, 1], [2, 0, 0, 2]] * 2, dtype=torch.int32)
+    anc = torch.cat([anc, anc[:, :1].expand(-1, 124)], dim=1).contiguous()
+    logits = {}
+    for label, dev, p in (("cuda", cuda, params), ("cpu", torch.device("cpu"), _to_cpu(params))):
+        cache = tw.init_kv_cache(cfg, 6, dev, max_len=16)
+        xkv = tw.cross_kv(p, states.to(dev), cfg)
+        tw.decode_step(p, init.to(dev), 0, cache, xkv, cfg, share_xkv_groups=3)
+        before = (bf.LANE_LAUNCHES, da.LAUNCHES)
+        logits[label] = tw.decode_step(p, init[:, :1].to(dev), 3, cache, xkv, cfg,
+                                       share_xkv_groups=3, beam_ancestry=anc.to(dev))[0]
+        if label == "cuda":
+            torch.cuda.synchronize()
+            assert bf.LANE_LAUNCHES - before[0] == cfg.n_text_layer
+            assert da.LAUNCHES - before[1] == cfg.n_text_layer  # the cross attention only
+    ref = logits["cpu"].float()
+    assert _max_err(logits["cuda"].float().cpu(), ref) <= 5e-2 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_beam_shared_tiny_card_matches_cpu(cuda, monkeypatch):
+    """The shared-prefix scheme on a tiny model (bf16, int4 cross, int8
+    self, integer dots): one decode step over the flat cache with s_fill on
+    the card (K8's split mode) against the CPU's plain versions, then
+    WTPU_BEAM_KV=shared through decode at a roomy read window and at one the
+    overflow takes over, the split launched in both."""
+    from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode
+    from whisper_mlx_tpu_torch.decoding.tokenizer import make_synthetic_tokenizer
+    from whisper_mlx_tpu_torch.models import whisper as tw
+
+    tok = make_synthetic_tokenizer()
+    cfg = tw.WhisperConfig(n_vocab=tok.n_vocab, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=2, n_text_state=128, n_text_head=2, n_text_layer=2,
+                           dtype=torch.bfloat16, flash_attention=True, kv_bits=4,
+                           self_kv_bits=8, attn_mxu=True)
+    params = tw.init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    states = torch.randn((2, 1500, 128), generator=torch.Generator().manual_seed(0)) \
+        .to(torch.bfloat16)
+    init = torch.tensor([tok.sot_sequence] * 6)
+    anc = torch.tensor([[0, 0, 0, 1], [0, 0, 1, 1], [0, 0, 2, 2]] * 2, dtype=torch.int32)
+    anc = torch.cat([anc, anc[:, :1].expand(-1, 124)], dim=1).contiguous()
+    logits = {}
+    for label, dev, p in (("cuda", cuda, params), ("cpu", torch.device("cpu"), _to_cpu(params))):
+        cache = tw.init_kv_cache(cfg, 6, dev, max_len=16)
+        xkv = tw.cross_kv(p, states.to(dev), cfg)
+        tw.decode_step(p, init.to(dev), 0, cache, xkv, cfg, share_xkv_groups=3)
+        before = bf.SPLIT_LAUNCHES
+        logits[label] = tw.decode_step(
+            p, init[:, :1].to(dev), 3, tw.beam_flat_cache(cache, 3), xkv, cfg,
+            share_xkv_groups=3, beam_ancestry=anc.to(dev),
+            beam_s_fill=torch.tensor([2, 1], dtype=torch.int32, device=dev),
+            beam_overflow=torch.zeros((), dtype=torch.bool, device=dev))[0]
+        if label == "cuda":
+            torch.cuda.synchronize()
+            assert bf.SPLIT_LAUNCHES - before == cfg.n_text_layer
+    ref = logits["cpu"].float()
+    assert _max_err(logits["cuda"].float().cpu(), ref) <= 5e-2 * max(1.0, ref.abs().max().item())
+    monkeypatch.setenv("WTPU_BEAM_KV", "shared")
+    for window in ("64", "4"):
+        monkeypatch.setenv("WTPU_BEAM_WIN", window)
+        before = bf.SPLIT_LAUNCHES
+        res = decode(params, states.to(cuda), tok, cfg,
+                     DecodingOptions(sample_len=24, beam_size=3), states_precomputed=True)
+        assert bf.SPLIT_LAUNCHES > before
+        assert all(len(r.tokens) > 0 for r in res), window
 
 
 def _lane_tensors(gen, nb, cuda):

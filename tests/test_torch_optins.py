@@ -1,12 +1,10 @@
-"""The reference's whisper opt-ins that the port does not take.
-
-- The time-major KV layouts (``WTPU_SELF_KV_LAYOUT`` / ``WTPU_KV_LAYOUT``
-  = ``tmajor``) raise naming ROADMAP M15.
-- The schedule and lowering knobs the port drops on purpose leave the
-  tokens unchanged: each case decodes the tiny config with the JAX package
-  with the knob off and on, shows that the knob reached the code it steers,
-  and holds both token lists against the port's on the same weights with
-  the knob set.
+"""The reference's whisper opt-ins: the time-major KV layouts
+(``WTPU_SELF_KV_LAYOUT`` / ``WTPU_KV_LAYOUT`` = ``tmajor``, ROADMAP M15,
+which the port takes as a config field each) and the schedule and lowering
+knobs the port drops on purpose leave the tokens unchanged: each case
+decodes the tiny config with the JAX package with the knob off and on,
+shows that the knob reached the code it steers, and holds both token lists
+against the port's on the same weights with the knob set.
 
 Tiny config, random weights from a seed, CPU; the reference's Pallas
 decode-attention kernel runs in interpret mode.
@@ -90,6 +88,15 @@ def _decode_attn_kernel(monkeypatch):
     return calls
 
 
+def _tmajor_calls(monkeypatch, field):
+    """Count the reference's time-major attentions of ``field``'s cache."""
+    calls = []
+    name = "attention_int8_tmajor" + ("" if field == "self_kv_layout" else "_cross")
+    real = getattr(jkv, name)
+    monkeypatch.setattr(jkv, name, lambda q, *a, **kw: calls.append(q.shape) or real(q, *a, **kw))
+    return calls
+
+
 def _native_matmuls(monkeypatch):
     """Count the reference's native-code matmuls (where WTPU_QMM is read)."""
     calls = []
@@ -116,13 +123,6 @@ def _prepared_native(jtree):
 ])
 def test_reference_opt_ins(monkeypatch, tiny, name, value):
     tree, jcfg, tcfg, mel = tiny
-    if value == "tmajor":
-        monkeypatch.setenv(name, value)
-        with pytest.raises(NotImplementedError, match="M15"):
-            tw.WhisperConfig()
-        with pytest.raises(NotImplementedError, match=name):
-            dataclasses.replace(tcfg)  # the tiny config, built anew
-        return
     jparams = jax.tree.map(jnp.asarray, tree)
     if name == "WTPU_QMM":
         # the knob steers native_group_matmul alone, which only a tree made
@@ -146,6 +146,13 @@ def test_reference_opt_ins(monkeypatch, tiny, name, value):
         # default of this field: set the field the knob sets
         jcfg = dataclasses.replace(jcfg, decode_attn_kernel=True)
         seen = _decode_attn_kernel(monkeypatch)
+    elif value == "tmajor":
+        # read at each package's import as its field's default: set the
+        # field in both; the port's caches stay position-major (K3's fp mode)
+        field = name.lower().removeprefix("wtpu_")
+        jcfg = dataclasses.replace(jcfg, **{field: value})
+        tcfg = dataclasses.replace(tcfg, **{field: value})
+        seen = _tmajor_calls(monkeypatch, field)
     else:
         seen = _native_matmuls(monkeypatch)
     on = _jax_tokens(jparams, jcfg, mel)

@@ -171,9 +171,31 @@ def test_quant_matmul_lower_row_bound_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize("leaf,item", [("NativeQuantTensor", "M15"), ("DenseWeight", "M15")])
 def test_unported_leaf_types_raise(leaf, item):
-    fake = type(leaf, (), {})()
-    with pytest.raises(NotImplementedError, match=item):
-        tq.quant_matmul(torch.zeros(1, 64), fake)
+    """The reference's native-code leaves (ROADMAP ``item``, ported since;
+    the test keeps its name): the JAX leaf converted by ``params_from_jax``'s
+    leaf rule and multiplied by ``quant_matmul`` against the reference's
+    ``quant_matmul`` on the same leaf, fp32, within 1e-5 of max(1, |ref|)
+    (sums in another order); the native leaf's codes and dequantization are
+    the reference's exactly, and an unknown leaf type still raises."""
+    from whisper_mlx_tpu_torch.checkpoint.convert import _quant_leaf
+
+    rng = np.random.default_rng(12)
+    w = _weights(rng, 48, 256)
+    qt = jq.QuantTensor(*(jnp.asarray(a) for a in jq.quantize(w, bits=4, group_size=64)), 4, 64)
+    jleaf = jq.to_native(qt) if leaf == "NativeQuantTensor" else jq.DenseWeight(qt.dequantize())
+    tleaf = _quant_leaf(jleaf, "cpu")
+    assert type(tleaf).__name__ == leaf
+    if leaf == "NativeQuantTensor":
+        np.testing.assert_array_equal(tleaf.codes.numpy(), np.asarray(jleaf.codes))
+    jw = jleaf.w if leaf == "DenseWeight" else jleaf.dequantize()
+    np.testing.assert_array_equal(tleaf.dequantize().numpy(), np.asarray(jw))
+    for m in (1, 5):
+        x = rng.standard_normal((m, 256)).astype(np.float32)
+        ref = np.asarray(jq.quant_matmul(jnp.asarray(x), jleaf))
+        got = tq.quant_matmul(torch.from_numpy(x), tleaf).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * max(1.0, np.abs(ref).max()))
+    with pytest.raises(TypeError, match="QuantTensor"):
+        tq.quant_matmul(torch.zeros(1, 64), type(leaf + "Like", (), {})())
 
 
 def test_cpu_wrapper_uses_plain_version():

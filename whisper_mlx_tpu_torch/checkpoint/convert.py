@@ -11,16 +11,21 @@ structure of torch tensors in PyTorch's layouts:
 
 A quantized whisper tree converts too: ``QuantTensor`` leaves (already
 ``(out, in)``; numpy children) at a linear's ``w`` or at ``token_emb``,
-``QuantTensorT`` leaves (the few-row transposed layout) and fused ``qkv``
-nodes (``ops/quant.py:fuse_whisper_qkv``) keep their codes, scales and
-biases bit for bit. An unknown or missing key raises ``ValueError``; a leaf
-type the port lacks (native-code residency) raises ``NotImplementedError``.
+``QuantTensorT`` leaves (the few-row transposed layout), the native-code
+leaves of ``prepare_native_params`` (``NativeQuantTensor``, its codes
+packed into words exactly; ``DenseWeight``) and fused ``qkv`` nodes
+(``ops/quant.py:fuse_whisper_qkv``) keep their codes, scales and biases bit
+for bit. An unknown or missing key raises ``ValueError``; a leaf of another
+type (an integer array) raises ``NotImplementedError``.
 
 ``qwen_params_from_jax`` converts a Qwen tree (``models/qwen.py``), whose
-``QuantTensor``, ``QuantTensorT`` and ``A8Tensor`` leaves carry numpy
-arrays (``jax.tree.map(np.asarray, params)`` maps into their children),
+``QuantTensor``, ``QuantTensorT``, ``A8Tensor``, ``NativeQuantTensor`` and
+``DenseWeight`` leaves carry numpy arrays (``jax.tree.map(np.asarray,
+params)`` maps into their children),
 into the port's Qwen state dict, and ``qwen_cache_from_jax`` a Qwen KV
-cache (fp or quantized) into the port's layout.
+cache (fp or quantized) into the port's layout. ``tmajor_cache_from_jax``
+converts a whisper cache of the reference's time-major layout into the
+port's position-major one.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 
 from whisper_mlx_tpu_torch.models.qwen import QwenConfig
 from whisper_mlx_tpu_torch.models.whisper import Params, WhisperConfig
-from whisper_mlx_tpu_torch.ops.quant import QuantTensor
+from whisper_mlx_tpu_torch.ops.quant import DenseWeight, QuantTensor, native_from_codes
 from whisper_mlx_tpu_torch.ops.quant_a8 import A8Tensor
 from whisper_mlx_tpu_torch.ops.quant_matmul_mb import QuantTensorT
 
@@ -44,9 +49,9 @@ _DENSE = ("w", "b")
 
 def _tensor(a: Any, path: str, device, dtype, layout: str) -> torch.Tensor:
     if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
-        raise NotImplementedError(f"params_from_jax: {path} is {type(a).__name__}: only float "
-                                  "numpy arrays and QuantTensor / QuantTensorT leaves are "
-                                  "ported (native-code residency: ROADMAP.md M15)")
+        raise NotImplementedError(f"params_from_jax: {path} is {type(a).__name__} "
+                                  f"{getattr(a, 'dtype', '')}: only float numpy arrays and "
+                                  "the quantized leaf types convert")
     if layout == "linear":
         a = a.T
     elif layout == "conv":
@@ -192,6 +197,14 @@ def _quant_leaf(a: Any, device):
         return _mbt_leaf(a, device)
     if kind == "A8Tensor":
         return _a8_leaf(a, device)
+    if kind == "NativeQuantTensor":  # u4 or uint8 codes in [0, 2**bits)
+        codes = torch.from_numpy(np.asarray(a.codes).astype(np.uint8)).to(device)
+        return native_from_codes(codes, _f32(a.scales, device), _f32(a.biases, device),
+                                 int(a.bits), int(a.group_size))
+    if kind == "DenseWeight":  # (out, in) in its own float type
+        w = np.asarray(a.w)
+        dt = torch.float32 if w.dtype == np.float32 else torch.bfloat16
+        return DenseWeight(torch.from_numpy(w.astype(np.float32)).to(device, dt))
     return None
 
 
@@ -200,10 +213,9 @@ def _qwen_leaf(a: Any, path: str, device, dtype, transpose: bool):
     if q is not None:
         return q
     if not isinstance(a, np.ndarray) or a.dtype.kind != "f":
-        raise NotImplementedError(f"qwen_params_from_jax: {path} is {type(a).__name__}: only "
-                                  "float numpy arrays and QuantTensor, QuantTensorT and "
-                                  "A8Tensor leaves are ported (native-code residency: "
-                                  "ROADMAP.md M15)")
+        raise NotImplementedError(f"qwen_params_from_jax: {path} is {type(a).__name__} "
+                                  f"{getattr(a, 'dtype', '')}: only float numpy arrays and "
+                                  "the quantized leaf types convert")
     return _tensor(a, path, device, dtype, "linear" if transpose else "as_is")
 
 
@@ -262,5 +274,34 @@ def qwen_cache_from_jax(cache: list[dict[str, Any]]) -> list[Params]:
             entry[f"{name}8"] = pack_int4(codes) if packed else codes
             scales = np.asarray(layer[f"{name}s"], np.float32)[..., 0]
             entry[f"{name}s"] = torch.from_numpy(np.ascontiguousarray(scales)).to(torch.bfloat16)
+        out.append(entry)
+    return out
+
+
+def tmajor_cache_from_jax(cache: list[dict[str, Any]]) -> list[Params]:
+    """A whisper KV cache of the JAX package's time-major layout
+    (``WTPU_SELF_KV_LAYOUT`` / ``WTPU_KV_LAYOUT`` = ``tmajor``; numpy
+    leaves) -> the port's position-major cache: codes ``kT``/``vT`` ``(T,
+    b, h * d)`` become ``k8``/``v8`` ``(b, h, T, d)``, int8 as they are and
+    int4 (``ml_dtypes.int4``) packed two nibbles a byte (low nibble = even
+    d); scales ``ksT``/``vsT`` ``(T, b, h)`` become ``(b, h, T)`` bf16."""
+    from whisper_mlx_tpu_torch.ops.decode_attention import pack_int4
+
+    out = []
+    for i, layer in enumerate(cache):
+        if set(layer) != {"kT", "ksT", "vT", "vsT"}:
+            raise ValueError(f"tmajor_cache_from_jax: layer {i} has keys {sorted(layer)}")
+        entry = {}
+        for name in ("k", "v"):
+            codes = np.asarray(layer[f"{name}T"])
+            if codes.dtype.name not in ("int8", "int4"):
+                raise ValueError(f"tmajor_cache_from_jax: layer {i} {name}T is {codes.dtype}")
+            scales = np.asarray(layer[f"{name}sT"], np.float32)
+            t, b, h = scales.shape
+            c = codes.astype(np.int8).reshape(t, b, h, -1).transpose(1, 2, 0, 3)
+            c = torch.from_numpy(np.ascontiguousarray(c))
+            entry[f"{name}8"] = pack_int4(c) if codes.dtype.name == "int4" else c
+            entry[f"{name}s"] = torch.from_numpy(
+                np.ascontiguousarray(scales.transpose(1, 2, 0))).to(torch.bfloat16)
         out.append(entry)
     return out

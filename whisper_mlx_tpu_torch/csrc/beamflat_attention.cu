@@ -1,28 +1,44 @@
-// Beam self-attention over the lane-interleaved flat cache for Hopper (sm_90a).
+// Beam self-attention over a lane-addressed self cache for Hopper (sm_90a).
 //
 // Replaces: whisper_mlx_tpu/ops/beamflat_attention.py:beamflat_attention_kernel
 // (_kernel), the fused form of ops/kv_quant.py:attention_int8_beamflat; with
 // int_dot it computes that function's integer-dot branch (mxu=True, the beam
-// default over quantized caches).
+// default over quantized caches). Two more modes compute functions the
+// reference leaves to XLA: the per-lane layout (ops/kv_quant.py:
+// attention_int8_ancestry, decode_step(beam_ancestry=) over a per-lane cache)
+// and the split mode (ops/kv_quant.py:attention_int8_shared, the shared-prefix
+// beam scheme).
 //
-// Layout (position-major, like the port's other caches): a window's g beam
-// lanes share one cache whose row t * g + k holds lane k's position t:
-//   codes  (n, H, T * g, 64) int8, or (n, H, T * g, 32) packed int4
-//   scales (n, H, T * g) bf16
+// Layouts (position-major, like the port's other caches). A window's g beam
+// lanes each own a row per position; row (t, k) of a window's head is at
+//   base(n, h) + t * stride_t + k * stride_k  (in rows):
+//   flat     codes (n, H, T * g, 64) int8 or (n, H, T * g, 32) packed int4,
+//            row t * g + k: stride_t = g, stride_k = 1
+//   per-lane codes (n * g, H, T, ...), row (n g + k, h, t): stride_t = 1,
+//            stride_k = H * T
+//   scales (..., rows) bf16, addressed as the rows are
 //   ancestry (n * g, T_anc) int32 in [0, g): lane owning position t of lane
 //            b's hypothesis
-// Query row b (window b / g) attends positions t <= pos. The TPU kernel takes
-// a precomputed (n, g, T * g) ancestry-and-causal mask and scans every column;
-// exactly one column per (lane, position) is unmasked, t * g + ancestry[b, t].
-// Softmax over the masked columns equals softmax over those rows alone, and
-// in the integer mode the absmax of w * vs is unchanged (the masked entries
-// are 0).
+// Query row b (window b / g) attends positions t <= pos, position t at row
+// (t, ancestry[b, t]). The TPU kernel takes a precomputed (n, g, T * g)
+// ancestry-and-causal mask and scans every column; exactly one column per
+// (lane, position) is unmasked. Softmax over the masked columns equals
+// softmax over those rows alone, and in the integer mode the absmax of w * vs
+// is unchanged (the masked entries are 0).
 //   fp mode:   s = (q . k) * ks in fp32; w = softmax(s); out = sum (w vs) v,
 //              w vs kept to about 16 bits (a bf16 pair hi + lo on the mma)
 //   int mode:  q re-quantized per row over d (absmax / 127, round half to
 //              even, clip +-127); s = s32 * qs * ks with s32 an s8 x s8 -> s32
 //              dot; w = softmax(s); wv = w * vs re-quantized over the row's
 //              keys the same way; out = (sum w8 v, exact) * ws
+//   split:     a per-window s_fill (device int32) splits the positions into
+//              block S (t < s_fill) and block W (t >= s_fill). Each block
+//              has its own max m and sum l of e = exp(s - m) and, in the int
+//              mode, its own code scale of e * vs over its positions; out =
+//              (oS cS + oW cW) / (lS cS + lW cW) with cX = exp(mX - max(mS,
+//              mW)), an empty block at m = -1e30 (kv_quant.py:588-603). When
+//              the device overflow flag is set, the launch computes the flat
+//              function instead, through the flat mode's code.
 //
 // What bounds it on the H100: device-memory bytes, the distinct rows a
 // window's lanes need: K and V codes (64 + 64 B int8, 32 + 32 B int4) and
@@ -32,6 +48,9 @@
 // position. The dots are 2 operations per code. At a beam step's sizes the
 // time is a chain of dependent steps instead (launch, ancestry, rows, QK,
 // softmax, PV), each one or two device-memory round trips or block barriers.
+// The split mode reads the same rows: the reference's single copy S of the
+// agreed prefix holds the very rows every lane's ancestry names there, which
+// this kernel already reads once a (window, head).
 //
 // Design: one block per (window, head) up to 256 live positions, a cluster
 // of C blocks beyond (the plan, ops/beamflat_attention.py:beamflat_plan),
@@ -52,9 +71,11 @@
 // position) gets exactly one score. The weights enter PV as bf16 (int mode:
 // their codes, exact; fp mode: hi and lo halves, two products). Each block
 // pushes its lanes' max, sum of exp(s - max) and (int mode) max of
-// exp(s - max) * vs to every block of its cluster (a block alone: to itself)
-// through distributed shared memory; after one barrier each combines them in
-// block order and runs PV over its slots; in a cluster it pushes its partial
+// exp(s - max) * vs, one triple a block of the split (flat: block W alone),
+// to every block of its cluster (a block alone: to itself) through
+// distributed shared memory; after one barrier each combines them in block
+// order and runs PV over its slots (the int split mode: S's slots, which come
+// first, then W's, two integer sums); in a cluster it pushes its partial
 // outputs to their owner block, and after a second barrier each owner sums
 // them in block order and writes. No atomics: a repeat is bit-equal.
 #include <cuda_runtime.h>
@@ -97,30 +118,34 @@ struct Fixed {
   alignas(16) __nv_bfloat16 qb[LANES][HD];
   float qscale[LANES];
   // pushed here by every block of the cluster: its (max, sum of exp(s - max),
-  // int mode: max exp(s - max) vs) of each lane
-  float stat[MAX_CLUSTER][LANES][3];
-  float row[LANES][3];  // the lane's factor to w and (int mode) w * vs scale
+  // int mode: max exp(s - max) vs) of each lane, for block S then block W
+  float stat[MAX_CLUSTER][LANES][6];
+  // a lane's factors to w (S, W), its code scales of w * vs (S, W) and the
+  // int split mode's factors to the two integer sums (S, W)
+  float row[LANES][6];
   int scan[WARPS];
+  int js;  // the pass's first slot of block W
 };
 
-constexpr int WSUM_BYTES = WARPS * LANES * HD * 4;
-constexpr int POUT_BYTES = (LANES * HD + MAX_CLUSTER) * 4;
+constexpr int WSUM_FLOATS = WARPS * LANES * HD;  // a part's per-warp partial outputs
+constexpr int POUT_FLOATS = LANES * HD + MAX_CLUSTER;  // a part's pushed partials
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // The block's arrays in dynamic shared memory, sized by the launch: `cap`
 // rows a chunk (a multiple of 16), `span` positions (a multiple of 4),
-// `slots` most distinct rows a pass. The K chunk's room holds the warps'
+// `slots` most distinct rows a pass, `parts` partial outputs (2: the int
+// split mode's two integer sums). The K chunk's room holds the warps'
 // partial outputs and the pushed ones once QK is done.
 struct Layout {
   int k, v, ksp, vsp, slot, s, vsl, wsum, pout, total;
-  __host__ __device__ Layout(int bits, int cap, int span, int slots) {
+  __host__ __device__ Layout(int bits, int cap, int span, int slots, int parts) {
     const int rowb = bits * HD / 8;
+    const int outs = parts * (WSUM_FLOATS + POUT_FLOATS) * 4;
     k = round_up((int)sizeof(Fixed), 128);
     wsum = k;
-    pout = k + WSUM_BYTES;
-    v = k + round_up(cap * rowb > WSUM_BYTES + POUT_BYTES ? cap * rowb : WSUM_BYTES + POUT_BYTES,
-                     128);
+    pout = k + parts * WSUM_FLOATS * 4;
+    v = k + round_up(cap * rowb > outs ? cap * rowb : outs, 128);
     ksp = v + cap * rowb;   // each slot's K scale as the aligned bf16 pair holding it
     vsp = ksp + cap * 4;
     slot = vsp + cap * 4;
@@ -128,6 +153,13 @@ struct Layout {
     vsl = s + LANES * span * 4;          // [LANES][span]: V scale of each lane's row
     total = vsl + LANES * span * 4;
   }
+};
+
+// Where a window's rows lie (in rows): base win * n + h * h_, row (t, k) at
+// base + t * t_ + k * k_.
+struct RowMap {
+  long long n, h;
+  int t, k;
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -186,14 +218,15 @@ __global__ void __launch_bounds__(THREADS, 2)
 beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
                      const __nv_bfloat16* __restrict__ ks, const uint8_t* __restrict__ v,
                      const __nv_bfloat16* __restrict__ vs, const int* __restrict__ anc,
-                     __nv_bfloat16* __restrict__ out, int n_head, int rows, int t_anc,
-                     int group, int limit, int cap, int span, int slots_max,
+                     const int* __restrict__ s_fill, const uint8_t* __restrict__ overflow,
+                     __nv_bfloat16* __restrict__ out, int n_head, RowMap map, int t_anc,
+                     int group, int limit, int cap, int span, int slots_max, int parts,
                      long long scale_count) {
   constexpr int ROWB = BITS * HD / 8;
   constexpr int PIECES = ROWB / 16;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Fixed& fx = *reinterpret_cast<Fixed*>(smem_raw);
-  const Layout lay(BITS, cap, span, slots_max);
+  const Layout lay(BITS, cap, span, slots_max, parts);
   uint8_t* kbuf = smem_raw + lay.k;
   uint8_t* vbuf = smem_raw + lay.v;
   uint32_t* ksp = reinterpret_cast<uint32_t*>(smem_raw + lay.ksp);
@@ -201,8 +234,8 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
   uint32_t* slot = reinterpret_cast<uint32_t*>(smem_raw + lay.slot);
   float* sc_s = reinterpret_cast<float*>(smem_raw + lay.s);
   float* vsl = reinterpret_cast<float*>(smem_raw + lay.vsl);
-  float* wsum = reinterpret_cast<float*>(smem_raw + lay.wsum);  // [WARPS][LANES][HD]
-  float* pout = reinterpret_cast<float*>(smem_raw + lay.pout);
+  float* wsum = reinterpret_cast<float*>(smem_raw + lay.wsum);  // [parts][WARPS][LANES][HD]
+  float* pout = reinterpret_cast<float*>(smem_raw + lay.pout);  // [parts][POUT_FLOATS]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
@@ -217,9 +250,18 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
   // the block's positions [t0, t0 + cnt): at least one, since C <= limit
   const int t0 = (int)((long long)rank * limit / csize);
   const int cnt = (int)((long long)(rank + 1) * limit / csize) - t0;
-  const long long head = ((long long)win * n_head + h) * rows;  // row 0 of the head
+  const long long head = (long long)win * map.n + (long long)h * map.h;  // the head's base row
   const uint8_t* kh = k + head * ROWB;
   const uint8_t* vh = v + head * ROWB;
+  // the split: block S is the block's positions [0, ls); the flat mode (no
+  // s_fill, or the overflow flag set) is block W alone
+  const bool split = s_fill != nullptr && !(overflow != nullptr && overflow[0] != 0);
+  const bool int_split = INT_DOT && split;
+  const int ls = split ? min(max(s_fill[win] - t0, 0), cnt) : 0;
+  // a slot's row, relative to the head's base
+  auto slot_row = [&](uint32_t sl) {
+    return (long long)(t0 + slot_pos(sl)) * map.t + (long long)slot_owner(sl) * map.k;
+  };
   if (csize > 1) cluster_arrive_relaxed();  // waited before the first push to another block
 
   for (int r0 = 0; r0 < group; r0 += LANES) {
@@ -235,9 +277,9 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       qv[1] = q[q_off(warp) + lane + 32];
     }
 
-    // slots: for each position of the span (a thread a position, 128 at a
+    // slots: for each position of the span (a thread a position, 256 at a
     // time), the distinct rows of the pass's lanes, numbered in position
-    // order by a block scan
+    // order by a block scan; the first slot of position ls starts block W
     int n_slots = 0;
     for (int base = 0; base < cnt; base += THREADS) {
       const int tl = base + tid;
@@ -280,6 +322,7 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
         at += w < warp ? fx.scan[w] : 0;
         tile += fx.scan[w];
       }
+      if (tl == ls) fx.js = at;
 #pragma unroll
       for (int r = 0; r < LANES; ++r) {
         if (first & (1u << r)) slot[at++] = (uint32_t)tl | (users[r] << 8) | ((uint32_t)a[r] << 16);
@@ -288,6 +331,7 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       __syncthreads();
     }
     const int n_chunks = (n_slots + cap - 1) / cap;
+    const int js = ls < cnt ? fx.js : n_slots;
 
     // one chunk's K (or V) codes and both scale pairs (scales with K only)
     auto issue = [&](uint8_t* dst, const uint8_t* src_head, int j0, bool scales) {
@@ -295,14 +339,12 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       for (int i = tid; i < n * PIECES; i += THREADS) {
         const int j = i / PIECES;
         const int p = i % PIECES;
-        const uint32_t sl = slot[j0 + j];
-        const long long row = (long long)(t0 + slot_pos(sl)) * group + slot_owner(sl);
-        cp_async16(dst + j * ROWB + p * 16, src_head + row * ROWB + p * 16, true);
+        cp_async16(dst + j * ROWB + p * 16, src_head + slot_row(slot[j0 + j]) * ROWB + p * 16,
+                   true);
       }
       if (scales) {
         for (int j = tid; j < n; j += THREADS) {
-          const uint32_t sl = slot[j0 + j];
-          const long long e = head + (long long)(t0 + slot_pos(sl)) * group + slot_owner(sl);
+          const long long e = head + slot_row(slot[j0 + j]);
           const long long e2 = e & ~1LL;
           const int sb = e2 + 1 < scale_count ? 4 : 2;
           cp_async4_part(&ksp[j], ks + e2, sb);
@@ -399,7 +441,7 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
             const uint32_t sl = slot[j0 + j];
             if (slot_lanes(sl) & (1u << rr)) {
               const int tl = slot_pos(sl);
-              const long long e = head + (long long)(t0 + tl) * group + slot_owner(sl);
+              const long long e = head + slot_row(sl);
               const float kscale = scale_of(ksp[j], e);
               sc_s[rr * span + tl] = INT_DOT ? sc[i] * fx.qscale[rr] * kscale : sc[i] * kscale;
               vsl[rr * span + tl] = scale_of(vsp[j], e);
@@ -410,34 +452,56 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
     }
     __syncthreads();
 
-    // softmax: warp rr takes lane rr, over the block's span: its max, its
-    // sum of exp(s - max) (the exps kept) and, int mode, its max of
-    // exp(s - max) * vs, pushed to every block of the cluster (a block alone:
-    // to itself); one barrier; each block combines them in block order into
-    // one factor a lane, w = exp(s - its max) * f, and the int mode's scale,
-    // then forms its weights w vs (int mode: their codes).
+    // softmax: warp rr takes lane rr, over the block's span: for each block
+    // of the split (S: positions [0, ls), W: the rest) its max, its sum of
+    // exp(s - max) (the exps kept) and, int mode, its max of exp(s - max) *
+    // vs, pushed to every block of the cluster (a block alone: to itself);
+    // one barrier; each block combines them in block order into factors a
+    // lane, w = exp(s - its max) * f, and the int mode's code scales, then
+    // forms its weights w vs (int mode: their codes). The flat mode is
+    // block W alone: the same code with ls = 0.
     if (csize > 1 && r0 == 0) cluster_wait();  // every block of the cluster has started
     if (warp < nr) {
       float* srow = sc_s + warp * span;
       const float* vrow = vsl + warp * span;
-      float m = -INFINITY;
-      for (int t = lane; t < cnt; t += 32) m = fmaxf(m, srow[t]);
-      m = warp_max(m);
-      float l = 0.f;
-      float a = 0.f;
+      float m0 = -INFINITY;
+      float m1 = -INFINITY;
       for (int t = lane; t < cnt; t += 32) {
-        const float p = expf(srow[t] - m);
-        srow[t] = p;
-        l += p;
-        if constexpr (INT_DOT) a = fmaxf(a, p * vrow[t]);
+        if (t < ls) {
+          m0 = fmaxf(m0, srow[t]);
+        } else {
+          m1 = fmaxf(m1, srow[t]);
+        }
       }
-      l = warp_sum(l);
-      if constexpr (INT_DOT) a = warp_max(a);
+      m0 = warp_max(m0);
+      m1 = warp_max(m1);
+      float l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
+      for (int t = lane; t < cnt; t += 32) {
+        const bool in_s = t < ls;
+        const float p = expf(srow[t] - (in_s ? m0 : m1));
+        srow[t] = p;
+        if (in_s) {
+          l0 += p;
+          if constexpr (INT_DOT) a0 = fmaxf(a0, p * vrow[t]);
+        } else {
+          l1 += p;
+          if constexpr (INT_DOT) a1 = fmaxf(a1, p * vrow[t]);
+        }
+      }
+      l0 = warp_sum(l0);
+      l1 = warp_sum(l1);
+      if constexpr (INT_DOT) {
+        a0 = warp_max(a0);
+        a1 = warp_max(a1);
+      }
       if (lane < csize) {
         float* dst = cluster.map_shared_rank(&fx.stat[rank][warp][0], lane);
-        dst[0] = m;
-        dst[1] = l;
-        dst[2] = a;
+        dst[0] = m0;
+        dst[1] = l0;
+        dst[2] = a0;
+        dst[3] = m1;
+        dst[4] = l1;
+        dst[5] = a1;
       }
     }
     if (csize > 1) {
@@ -446,26 +510,55 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       __syncthreads();
     }
     if (tid < nr) {
-      float m = -INFINITY;
-      for (int src = 0; src < csize; ++src) m = fmaxf(m, fx.stat[src][tid][0]);
-      float l = 0.f;
-      float amax = 0.f;
-      for (int src = 0; src < csize; ++src) {  // block 0 first: a fixed order
-        const float f = expf(fx.stat[src][tid][0] - m);
-        l += fx.stat[src][tid][1] * f;
-        amax = fmaxf(amax, fx.stat[src][tid][2] * f);
+      float m[2], l[2], amax[2], own[2];
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        m[part] = -INFINITY;
+        for (int src = 0; src < csize; ++src) m[part] = fmaxf(m[part], fx.stat[src][tid][3 * part]);
+        l[part] = 0.f;
+        amax[part] = 0.f;
+        for (int src = 0; src < csize; ++src) {  // block 0 first: a fixed order
+          const float ms = fx.stat[src][tid][3 * part];
+          const float f = ms == -INFINITY ? 0.f : expf(ms - m[part]);
+          l[part] += fx.stat[src][tid][3 * part + 1] * f;
+          amax[part] = fmaxf(amax[part], fx.stat[src][tid][3 * part + 2] * f);
+        }
+        // this block's exp(s - its max) to exp(s - the block's max)
+        const float mine = fx.stat[rank][tid][3 * part];
+        own[part] = mine == -INFINITY ? 0.f : expf(mine - m[part]);
       }
-      // this block's exp(s - its max) to w = exp(s - m) / l: one factor a lane
-      fx.row[tid][0] = expf(fx.stat[rank][tid][0] - m) / l;
-      fx.row[tid][2] = fmaxf(amax / l, 1e-30f) / 127.f;  // int mode: the absmax of w * vs
+      if (!split) {  // w = exp(s - m) / l
+        fx.row[tid][1] = own[1] / l[1];
+        fx.row[tid][3] = fmaxf(amax[1] / l[1], 1e-30f) / 127.f;  // int mode: the absmax of w * vs
+      } else {
+        // the two blocks' merge (kv_quant.py:_merge_two_block)
+        const float ms0 = m[0] == -INFINITY ? -1e30f : m[0];
+        const float ms1 = m[1] == -INFINITY ? -1e30f : m[1];
+        const float mm = fmaxf(ms0, ms1);
+        const float c0 = expf(ms0 - mm);
+        const float c1 = expf(ms1 - mm);
+        const float denom = l[0] * c0 + l[1] * c1;
+        if constexpr (INT_DOT) {  // each block's e vs coded on its own scale
+          fx.row[tid][0] = own[0];
+          fx.row[tid][1] = own[1];
+          fx.row[tid][2] = fmaxf(amax[0], 1e-30f) / 127.f;
+          fx.row[tid][3] = fmaxf(amax[1], 1e-30f) / 127.f;
+          fx.row[tid][4] = fx.row[tid][2] * c0 / denom;
+          fx.row[tid][5] = fx.row[tid][3] * c1 / denom;
+        } else {  // one weighted sum: each block's weights carry its share
+          fx.row[tid][0] = own[0] * c0 / denom;
+          fx.row[tid][1] = own[1] * c1 / denom;
+        }
+      }
     }
     __syncthreads();
     for (int t = tid; t < cnt; t += THREADS) {
+      const int part = t < ls ? 0 : 1;
 #pragma unroll
       for (int rr = 0; rr < LANES; ++rr) {
         if (rr < nr) {
-          const float wv = sc_s[rr * span + t] * fx.row[rr][0] * vsl[rr * span + t];
-          sc_s[rr * span + t] = INT_DOT ? quantize_code(wv, fx.row[rr][2]) : wv;
+          const float wv = sc_s[rr * span + t] * fx.row[rr][part] * vsl[rr * span + t];
+          sc_s[rr * span + t] = INT_DOT ? quantize_code(wv, fx.row[rr][2 + part]) : wv;
         }
       }
     }
@@ -475,40 +568,39 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
     // (gq, cq) holds A of its dims 8 gq .. 8 gq + 7 at slots 2 cq, 2 cq + 1,
     // 2 cq + 8, 2 cq + 9 of the tile (decode_attention.cu's layout) and B of
     // lane gq's weights at those slots: its weight where it uses the slot,
-    // else 0. Exact products, fp32 sums (exact in the integer mode).
+    // else 0. Exact products, fp32 sums (exact in the integer mode). The int
+    // split mode sums block S's slots [0, js) and block W's apart: S's sum
+    // goes to the partials once the chunk holding slot js is reached.
     float acc[4][4];
     float acch[4][4];
+    auto zero_acc = [&]() {
 #pragma unroll
-    for (int tt = 0; tt < 4; ++tt) {
+      for (int tt = 0; tt < 4; ++tt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[tt][i] = acch[tt][i] = 0.f;
-    }
-    for (int c = 0; c < n_chunks; ++c) {
-      const int j0 = c * cap;
-      const int n = min(cap, n_slots - j0);
-      if (c > 0) {
-        __syncthreads();  // every warp is done with the last chunk's V
-        issue(vbuf, vh, j0, false);
+        for (int i = 0; i < 4; ++i) acc[tt][i] = acch[tt][i] = 0.f;
       }
-      cp_async_wait(0);
-      __syncthreads();
+    };
+    zero_acc();
+    // the chunk's slots of [lo, hi) into acc
+    auto pv = [&](int j0, int n, int lo, int hi) {
       auto weight = [&](int j) -> float {  // lane gq's weight at slot j of the chunk
-        if (gq >= nr || j >= n) return 0.f;
+        if (gq >= nr || j >= n || j0 + j < lo || j0 + j >= hi) return 0.f;
         const uint32_t sl = slot[j0 + j];
         return (slot_lanes(sl) & (1u << gq)) ? sc_s[gq * span + slot_pos(sl)] : 0.f;
       };
       for (int kt = warp; kt * 16 < n; kt += WARPS) {
+        if (j0 + 16 * kt + 16 <= lo || j0 + 16 * kt >= hi) continue;
         const int kb0 = 16 * kt + 2 * cq;  // slots kb0, kb0 + 1, kb0 + 8, kb0 + 9
         const float w4[4] = {weight(kb0), weight(kb0 + 1), weight(kb0 + 8), weight(kb0 + 9)};
         uint32_t b0[2], b1[2];  // [0]: the weights (int mode: codes); [1]: fp mode's low halves
         b0[0] = bf16_pair(w4[0], w4[1]);
         b1[0] = bf16_pair(w4[2], w4[3]);
         if constexpr (!INT_DOT) {
-          float lo[4];
+          float lo4[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) lo[i] = w4[i] - __bfloat162float(__float2bfloat16(w4[i]));
-          b0[1] = bf16_pair(lo[0], lo[1]);
-          b1[1] = bf16_pair(lo[2], lo[3]);
+          for (int i = 0; i < 4; ++i) lo4[i] = w4[i] - __bfloat162float(__float2bfloat16(w4[i]));
+          b0[1] = bf16_pair(lo4[0], lo4[1]);
+          b1[1] = bf16_pair(lo4[2], lo4[3]);
         }
         constexpr int PARTS = INT_DOT ? 1 : 2;
         const int keys[4] = {kb0, kb0 + 1, kb0 + 8, kb0 + 9};
@@ -555,67 +647,111 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
           }
         }
       }
-    }
+    };
     // acc[tt]: dims 8 gq + 2 tt (0, 1) and + 1 (2, 3) at lanes 2 cq, 2 cq + 1;
-    // the warps' partials go where the K chunk was (QK is done)
+    // the warps' partials of sum `part` go where the K chunk was (QK is done)
+    auto flush = [&](int part) {
+      float* dst = wsum + part * WSUM_FLOATS;
 #pragma unroll
-    for (int tt = 0; tt < 4; ++tt) {
+      for (int tt = 0; tt < 4; ++tt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rr = 2 * cq + (i & 1);
-        if (rr < nr) {
-          const float o = BITS == 8 ? fmaf(16.f, acch[tt][i], acc[tt][i]) : acc[tt][i];
-          wsum[(warp * LANES + rr) * HD + 8 * gq + 2 * tt + (i >> 1)] =
-              INT_DOT ? __int_as_float(__float2int_rn(o)) : o;
+        for (int i = 0; i < 4; ++i) {
+          const int rr = 2 * cq + (i & 1);
+          if (rr < nr) {
+            const float o = BITS == 8 ? fmaf(16.f, acch[tt][i], acc[tt][i]) : acc[tt][i];
+            dst[(warp * LANES + rr) * HD + 8 * gq + 2 * tt + (i >> 1)] =
+                INT_DOT ? __int_as_float(__float2int_rn(o)) : o;
+          }
         }
       }
+    };
+    bool s_done = !int_split;  // block S's sum is in the partials
+    for (int c = 0; c < n_chunks; ++c) {
+      const int j0 = c * cap;
+      const int n = min(cap, n_slots - j0);
+      if (c > 0) {
+        __syncthreads();  // every warp is done with the last chunk's V
+        issue(vbuf, vh, j0, false);
+      }
+      cp_async_wait(0);
+      __syncthreads();
+      if (!s_done) {
+        pv(j0, n, 0, js);
+        if (js <= j0 + n) {
+          flush(0);
+          zero_acc();
+          s_done = true;
+        }
+      }
+      if (s_done) pv(j0, n, int_split ? js : 0, n_slots);
     }
+    const int n_sums = int_split ? 2 : 1;
+    flush(n_sums - 1);
     __syncthreads();
-    // the block's output of lane rr, dim d: its warps' partials in warp order
-    auto block_out = [&](int rr, int d) {
+    // the block's integer (int mode) or fp sum `part` of lane rr, dim d: its
+    // warps' partials in warp order
+    auto block_out = [&](int part, int rr, int d) {
+      const float* src = wsum + part * WSUM_FLOATS;
       if constexpr (INT_DOT) {
         int io = 0;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) io += __float_as_int(wsum[(w * LANES + rr) * HD + d]);
+        for (int w = 0; w < WARPS; ++w) io += __float_as_int(src[(w * LANES + rr) * HD + d]);
         return __int_as_float(io);
       } else {
         float o = 0.f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) o += wsum[(w * LANES + rr) * HD + d];
+        for (int w = 0; w < WARPS; ++w) o += src[(w * LANES + rr) * HD + d];
         return o;
+      }
+    };
+    // lane rr's output from its sums (int mode: integers as floats' bits)
+    auto finish = [&](int rr, float o0, float o1) {
+      if constexpr (INT_DOT) {
+        return int_split ? (float)__float_as_int(o0) * fx.row[rr][4] +
+                               (float)__float_as_int(o1) * fx.row[rr][5]
+                         : (float)__float_as_int(o0) * fx.row[rr][3];
+      } else {
+        return o0;
       }
     };
     if (csize == 1) {  // the whole span in one block: write
       for (int e = tid; e < nr * HD; e += THREADS) {
-        const float o = block_out(e / HD, e % HD);
-        out[q_off(e / HD) + e % HD] =
-            __float2bfloat16(INT_DOT ? (float)__float_as_int(o) * fx.row[e / HD][2] : o);
+        const int rr = e / HD;
+        const float o1 = int_split ? block_out(1, rr, e % HD) : 0.f;
+        out[q_off(rr) + e % HD] = __float2bfloat16(finish(rr, block_out(0, rr, e % HD), o1));
       }
       continue;
     }
     // output e = lane * HD + d belongs to block e % C: every block pushes its
-    // partial into the owner's slots, one cluster barrier, and each owner
+    // partials into the owner's slots, one cluster barrier, and each owner
     // sums its slots in block order and writes. After the barrier no block
     // reads another's shared memory, so none waits for the others to leave.
     const int owned = (nr * HD + csize - 1) / csize;
     for (int e = tid; e < nr * HD; e += THREADS) {
-      cluster.map_shared_rank(pout, e % csize)[rank * owned + e / csize] =
-          block_out(e / HD, e % HD);
+      float* dst = cluster.map_shared_rank(pout, e % csize);
+      for (int part = 0; part < n_sums; ++part) {
+        dst[part * POUT_FLOATS + rank * owned + e / csize] = block_out(part, e / HD, e % HD);
+      }
     }
     cluster.sync();
     for (int i = tid; i < owned; i += THREADS) {
       const int e = i * csize + rank;
       if (e < nr * HD) {
-        float o;
-        if constexpr (INT_DOT) {
-          int io = 0;
-          for (int src = 0; src < csize; ++src) io += __float_as_int(pout[src * owned + i]);
-          o = (float)io * fx.row[e / HD][2];
-        } else {
-          o = 0.f;
-          for (int src = 0; src < csize; ++src) o += pout[src * owned + i];
+        float o[2] = {0.f, 0.f};
+        for (int part = 0; part < n_sums; ++part) {
+          if constexpr (INT_DOT) {
+            int io = 0;
+            for (int src = 0; src < csize; ++src) {
+              io += __float_as_int(pout[part * POUT_FLOATS + src * owned + i]);
+            }
+            o[part] = __int_as_float(io);
+          } else {
+            for (int src = 0; src < csize; ++src) {
+              o[part] += pout[part * POUT_FLOATS + src * owned + i];
+            }
+          }
         }
-        out[q_off(e / HD) + e % HD] = __float2bfloat16(o);
+        out[q_off(e / HD) + e % HD] = __float2bfloat16(finish(e / HD, o[0], o[1]));
       }
     }
   }
@@ -624,40 +760,50 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
 template <int BITS, bool INT_DOT>
 cudaError_t launch(dim3 grid, int cluster, int smem, cudaStream_t s, const void* q,
                    const void* k, const void* ks, const void* v, const void* vs,
-                   const void* anc, void* out, int n_head, int rows, int t_anc, int group,
-                   int limit, int cap, int span, int slots, long long scale_count) {
+                   const void* anc, const void* s_fill, const void* overflow, void* out,
+                   int n_head, RowMap map, int t_anc, int group, int limit, int cap, int span,
+                   int slots, int parts, long long scale_count) {
   return launch_cluster<beamflat_attn_kernel<BITS, INT_DOT>>(
       grid, THREADS, smem, cluster, s, (const __nv_bfloat16*)q, (const uint8_t*)k,
       (const __nv_bfloat16*)ks, (const uint8_t*)v, (const __nv_bfloat16*)vs, (const int*)anc,
-      (__nv_bfloat16*)out, n_head, rows, t_anc, group, limit, cap, span, slots, scale_count);
+      (const int*)s_fill, (const uint8_t*)overflow, (__nv_bfloat16*)out, n_head, map, t_anc,
+      group, limit, cap, span, slots, parts, scale_count);
 }
 
 }  // namespace
 
 // cluster: blocks a (window, head) and cap: rows a chunk, from
-// ops/beamflat_attention.py:beamflat_plan
+// ops/beamflat_attention.py:beamflat_plan. t_pos: positions a lane in the
+// cache (flat: rows / group). per_lane: the (n g, H, T, ...) layout instead
+// of the flat one. s_fill: null, or (n,) int32 for the split mode, with
+// overflow null or one byte (a bool) that turns the split off.
 extern "C" int wmt_beamflat_attention(const void* q, const void* k, const void* ks,
                                       const void* v, const void* vs, const void* anc,
-                                      void* out, int nb, int n_head, int rows,
-                                      int t_anc, int group, int limit, int bits,
-                                      int int_dot, int cluster, int cap, void* stream) {
+                                      const void* s_fill, const void* overflow, void* out,
+                                      int nb, int n_head, int t_pos, int t_anc, int group,
+                                      int limit, int bits, int int_dot, int per_lane,
+                                      int cluster, int cap, void* stream) {
   if (group < 1 || group > 65535 || nb < 1 || nb % group != 0 || nb / group > 65535 ||
-      n_head < 1 || n_head > 65535 || rows % group != 0 || limit < 1 ||
-      limit > rows / group || limit > t_anc || limit > MAX_T || cluster < 1 ||
-      cluster > MAX_CLUSTER || cluster > limit || (limit + cluster - 1) / cluster > MAX_SPAN ||
-      cap < 16 || cap > CAP || cap % 16 != 0 || (bits != 4 && bits != 8)) {
+      n_head < 1 || n_head > 65535 || t_pos < 1 || limit < 1 || limit > t_pos ||
+      limit > t_anc || limit > MAX_T || cluster < 1 || cluster > MAX_CLUSTER ||
+      cluster > limit || (limit + cluster - 1) / cluster > MAX_SPAN || cap < 16 || cap > CAP ||
+      cap % 16 != 0 || (bits != 4 && bits != 8) || (overflow != nullptr && s_fill == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int most = (limit + cluster - 1) / cluster;  // the longest span
   const int span = round_up(most, 4);
   const int slots = most * std::min(group, LANES);
-  const int smem = Layout(bits, cap, span, slots).total;
+  const int parts = s_fill != nullptr && int_dot ? 2 : 1;
+  const int smem = Layout(bits, cap, span, slots, parts).total;
   const dim3 grid(cluster, n_head, nb / group);
-  const long long scale_count = (long long)(nb / group) * n_head * rows;
+  const long long t_rows = (long long)t_pos * group;  // a head's rows of a window
+  const RowMap map = per_lane ? RowMap{t_rows * n_head, t_pos, 1, n_head * t_pos}
+                              : RowMap{t_rows * n_head, t_rows, group, 1};
+  const long long scale_count = (long long)nb * n_head * t_pos;
   const cudaStream_t s = (cudaStream_t)stream;
-#define WMT_BF(B, I)                                                                         \
-  launch<B, I>(grid, cluster, smem, s, q, k, ks, v, vs, anc, out, n_head, rows, t_anc, group, \
-               limit, cap, span, slots, scale_count)
+#define WMT_BF(B, I)                                                                          \
+  launch<B, I>(grid, cluster, smem, s, q, k, ks, v, vs, anc, s_fill, overflow, out, n_head, map, \
+               t_anc, group, limit, cap, span, slots, parts, scale_count)
   cudaError_t e;
   if (bits == 8) {
     e = int_dot ? WMT_BF(8, true) : WMT_BF(8, false);

@@ -28,15 +28,32 @@ Self-KV schemes (``WTPU_BEAM_KV``):
 - ``permi``: copy-on-divergence. A parent's first child keeps the parent's
   lane; extra children claim freed lanes and copy the parent's rows in
   place (K9's move). An ``(N, B)`` map holds each logical beam's lane.
-- ``shared`` (prefix sharing) is not ported: it raises (ROADMAP.md M15).
+- ``shared`` (prefix sharing): the flat cache and ancestry of ``flat``,
+  plus a per-window depth ``s_fill`` below which every live lane of the
+  window agrees on its ancestry. Attention splits at it (kernel K8's split
+  mode, ``kv_quant.py:attention_int8_shared``): positions below it form one
+  softmax block, the divergent tail another. The reference reads the agreed
+  block from a single copy S; K8 reads those same rows through the
+  ancestry, so no S buffer is kept. The loop follows the reference's
+  trajectory exactly (:func:`_shared_commits`, :func:`_shared_prefix`): at
+  most two commits a step, each below the segment's S width; an overflow
+  flag, set when an active window's tail outgrows the read window
+  ``WTPU_BEAM_WIN`` (64), turns the split off from the next step (K8
+  computes the flat function); at each segment bound ``s_fill`` is
+  recomputed and the flag cleared. ``s_fill`` and the flag stay on the
+  device. Int8 and fp self caches (the reference raises for int4, and its
+  ``beam_decode_task`` remaps int4 to ``flat``).
 
-Dropped on purpose: the reference's growing-cache phase ladder
-(``WTPU_BEAM_PHASES``). The kernels stop their key loop at the live length,
-so one right-sized cache gives the same results.
+``WTPU_BEAM_PHASES``, the reference's growing-cache phase ladder, was
+dropped for every other scheme: the kernels stop their key loop at the
+live length, so one right-sized cache gives the same results. Under
+``shared`` it sets the segment bounds, where ``s_fill`` is recomputed, so it
+changes the results and is read for that scheme only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple
 
@@ -55,7 +72,10 @@ from whisper_mlx_tpu_torch.models.whisper import (
 from whisper_mlx_tpu_torch.ops.lane_permute import lane_move_inplace, permute_lanes
 
 DONE_CHECK_EVERY = 16
+# the schemes that compute the flat scheme's function; "shared" rounds its
+# integer dots by blocks, and takes no int4 self cache
 SCHEMES = ("flat", "perm", "permg", "permp", "permi")
+SHARED_WINDOW = 64  # the shared scheme's read window W when none is given
 
 
 def _topk_flat(cand: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,6 +134,39 @@ def _permi_lanes(lane_of, new_parent, new_token, n_beam):
     return lane_new, src, token_lane
 
 
+def _shared_prefix(anc: torch.Tensor, n_win: int, cur_len: int, cap: int) -> torch.Tensor:
+    """``s_fill`` at a segment bound (``beam.py:600-606`` of the reference):
+    each window's count of leading positions below ``cur_len`` on which all
+    its lanes' ancestries agree, at most ``cap`` (the next segment's S
+    width). (n_win,) int32."""
+    anc3 = anc.reshape(n_win, -1, anc.shape[1])
+    agree = (anc3 == anc3[:, :1]).all(dim=1)
+    agree &= torch.arange(anc.shape[1], device=anc.device) < cur_len
+    pref = torch.cumprod(agree.int(), dim=1).sum(dim=1)
+    return pref.clamp(max=cap).to(torch.int32)
+
+
+def _shared_commits(anc, s_fill, overflow, active, n_win: int, cur_len: int, ts_seg: int,
+                    window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step's commits and overflow rule (``beam.py:447-507`` of the
+    reference) over the reordered ancestry ``anc``: at most two, each
+    position ``p = s_fill`` on which the window's lanes agree, below
+    ``cur_len`` and the segment's S width ``ts_seg``, and none once the
+    flag is set; then the flag turns on where an active window's tail
+    ``[s_fill, cur_len + 1]`` outgrows ``window``. -> (s_fill, the flag for
+    the next step); this step still runs the split under the flag it was
+    given."""
+    anc3 = anc.reshape(n_win, -1, anc.shape[1])
+    for _ in range(2):
+        p = s_fill
+        idx = p.long().clamp(0, anc.shape[1] - 1)[:, None, None].expand(-1, anc3.shape[1], 1)
+        cols = anc3.gather(2, idx)[:, :, 0]
+        ok = (cols == cols[:, :1]).all(dim=1) & (p < cur_len) & (p < ts_seg) & ~overflow
+        s_fill = torch.where(ok, p + 1, p)
+    overflow = overflow | (active & (s_fill < cur_len + 2 - window)).any()
+    return s_fill, overflow
+
+
 @torch.inference_mode()
 def beam_decode(
     params: Params,
@@ -129,11 +182,20 @@ def beam_decode(
     beam_size: int,
     pool_size: int,
     kv_scheme: str = "flat",
+    phases: tuple[int, ...] | None = None,
+    window: int | None = None,
 ) -> BeamResult:
-    if kv_scheme == "shared":
-        raise NotImplementedError("beam kv_scheme='shared' (prefix sharing): ROADMAP.md M15")
-    if kv_scheme not in SCHEMES:
+    """``phases`` (segment bounds) and ``window`` (the read window W) steer
+    the ``shared`` scheme only."""
+    if kv_scheme not in (*SCHEMES, "shared"):
         raise ValueError(f"unknown beam kv_scheme {kv_scheme!r}")
+    if kv_scheme == "shared" and config.self_kv_bits == 4:
+        raise ValueError("kv_scheme='shared' requires self_kv_bits in (0, 8), as the "
+                         "reference does")
+    if config.self_kv_layout != "tminor":
+        # the beam's own caches: the greedy time-major self layout does not
+        # apply (a time-major cross cache does: its attention stays fp)
+        config = dataclasses.replace(config, self_kv_layout="tminor")
     device = audio_states.device
     n_win, n_init = initial_tokens.shape
     B, P = beam_size, pool_size
@@ -150,9 +212,25 @@ def beam_decode(
     logits_all, cache = decode_step(params, init_flat, 0, cache, xkv, config,
                                     share_xkv_groups=B)
     own_lane = torch.arange(B, dtype=torch.int32, device=device).repeat(n_win)
-    if kv_scheme == "flat":
+    if kv_scheme in ("flat", "shared"):
         cache = beam_flat_cache(cache, B)
         anc = own_lane[:, None].repeat(1, t_alloc).contiguous()  # (NB, T)
+    if kv_scheme == "shared":
+        window = int(window) if window else SHARED_WINDOW
+        horizon = n_init + sample_len
+        bounds = [b for b in sorted(set((128,) if phases is None else phases))
+                  if n_init + 1 < b and horizon > b + 32]
+        seg_bounds = [min(b, max_len) for b in bounds] + [max_len]
+        # S widths: the bound rounded up to 128, at most the reference's own
+        # F allocation (its init_kv_cache at the horizon)
+        t_ref = min(-(-horizon // 128) * 128, n_ctx)
+
+        def ts_of(bound: int) -> int:
+            return min(-(-bound // 128) * 128, t_ref)
+
+        seg, ts_seg = 0, ts_of(bounds[0] if bounds else horizon)
+        s_fill = torch.full((n_win,), n_init, dtype=torch.int32, device=device)
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
     elif kv_scheme == "permi":
         anc = torch.arange(B, device=device).repeat(n_win, 1)  # (N, B) beam -> lane
     no_speech_probs = torch.softmax(logits_all[::B, sot_index].float(), dim=-1)[
@@ -170,6 +248,7 @@ def beam_decode(
 
     cur_len, step = n_init, 0
     while cur_len < max_len:
+        fin_before = fin_count  # the shared scheme's overflow rule reads the step's start
         if kv_scheme == "permi":  # logits come in lane order
             logits = logits[(anc + win_base).reshape(-1)]
         filtered = apply_filters(logits, tokens, cur_len, suppress_mask, blank_mask,
@@ -204,11 +283,22 @@ def beam_decode(
         tokens[:, cur_len] = new_token.reshape(-1)
 
         step_tokens = new_token.reshape(-1, 1)
-        ancestry = None
-        if kv_scheme == "flat":
+        ancestry = split = None
+        if kv_scheme in ("flat", "shared"):
+            if kv_scheme == "shared":
+                while seg + 1 < len(seg_bounds) and cur_len >= seg_bounds[seg]:
+                    seg += 1  # a segment bound: s_fill anew, the flag cleared
+                    ts_seg = ts_of(seg_bounds[seg])
+                    s_fill = _shared_prefix(anc, n_win, cur_len, ts_seg)
+                    overflow = torch.zeros_like(overflow)
             anc = anc[flat_parent]
             anc[:, cur_len] = own_lane
             ancestry = anc
+            if kv_scheme == "shared":
+                s_fill, next_overflow = _shared_commits(anc, s_fill, overflow, fin_before < P,
+                                                        n_win, cur_len, ts_seg, window)
+                split = dict(beam_s_fill=s_fill, beam_overflow=overflow, beam_window=window)
+                overflow = next_overflow
         elif kv_scheme == "permi":
             anc, src, token_lane = _permi_lanes(anc, new_parent, new_token, B)
             # K9 takes int32 maps: converted once a step, not in each layer's call
@@ -221,7 +311,8 @@ def beam_decode(
             cache = [dict(zip(entry, permute_lanes(list(entry.values()), parent32)))
                      for entry in cache]
         step_logits, cache = decode_step(params, step_tokens, cur_len, cache, xkv, config,
-                                         share_xkv_groups=B, beam_ancestry=ancestry)
+                                         share_xkv_groups=B, beam_ancestry=ancestry,
+                                         **(split or {}))
         logits = step_logits[:, -1]
         cur_len += 1
         step += 1
@@ -268,12 +359,19 @@ def beam_decode_task(params: Params, mel_or_states: torch.Tensor, tokenizer,
     kv_scheme = os.environ.get("WTPU_BEAM_KV", "flat")
     if kv_scheme == "shared" and config.self_kv_bits == 4:
         kv_scheme = "flat"  # the reference's own remap: no int4 shared buffers
+    phases = window = None
+    if kv_scheme == "shared":  # its segment bounds ("" none) and read window
+        raw = os.environ.get("WTPU_BEAM_PHASES")
+        if raw is not None:
+            phases = tuple(int(p) for p in raw.split(",") if p.strip())
+        window = int(os.environ.get("WTPU_BEAM_WIN", str(SHARED_WINDOW)))
     initial = torch.tensor(setup.init_tokens, dtype=torch.long, device=audio_states.device)
     result = beam_decode(
         params, audio_states, initial[None, :].expand(n_win, -1).contiguous(),
         setup.suppress_mask, setup.blank_mask, config=config, filter_cfg=setup.filter_cfg,
         sample_len=setup.sample_len, sot_index=setup.sot_index,
-        no_speech_token=tokenizer.no_speech, beam_size=B, pool_size=P, kv_scheme=kv_scheme)
+        no_speech_token=tokenizer.no_speech, beam_size=B, pool_size=P, kv_scheme=kv_scheme,
+        phases=phases, window=window)
     tokens_np = result.tokens.cpu().numpy()
     lengths_np = result.lengths.cpu().numpy()
     scores_np = result.scores.cpu().numpy()

@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from whisper_mlx_tpu_torch.inference.generate import (
-    check_opt_ins,
     default_stop_ids,
     params_device,
     sample_token,
@@ -98,7 +97,6 @@ class ContinuousBatchEngine:
     def __init__(self, params: Params, config: QwenConfig, tokenizer, *, slots: int = 4,
                  max_len: int = 4096, top_p: float = 1.0, top_k: int = 0,
                  stop_ids: "set[int] | None" = None):
-        check_opt_ins()
         self.params = params
         self.config = config
         self.tokenizer = tokenizer

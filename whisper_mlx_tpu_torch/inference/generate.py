@@ -11,16 +11,20 @@ step ``i + 1`` is dispatched before token ``i`` is read back (the
 reference's streaming structure, here also under ``generate``). Tokens are
 those of the reference's loop at temperature 0.
 
-The reference's two weight-residency opt-ins convert the packed tree once,
-in :class:`LLMEngine`: ``WTPU_QWEN_A8=1`` re-quantizes the linears to
+The reference's weight-residency opt-ins convert the packed tree once, in
+:class:`LLMEngine`, in its order: ``WTPU_NATIVE_RESIDENT=1`` (or ``auto``:
+only trees of at most ``9 << 30`` elements) promotes every packed leaf to
+a native one (``ops/quant.py:promote_resident_native``; K5 at up to 32 rows,
+dequantize + matmul above), and a draft with it when the target was
+promoted; then ``WTPU_QWEN_A8=1`` re-quantizes the linears still packed to
 per-channel int8 (``ops/quant_a8.py``, kernel K7), then
 ``WTPU_MBT_RESIDENT=1`` transposes the linears still packed
-(``ops/quant_matmul_mb.py``, kernel K6), so A8 wins where both are set; a
-draft model is converted as the target is. ``WTPU_LLM_KV_BITS=8`` or ``4``
-sets the target's ``config.kv_bits`` (the quantized KV cache,
-``models/qwen.py``), as the reference's engine does; a draft keeps its own
-config. The one opt-in of the reference outside the port,
-``WTPU_NATIVE_RESIDENT``, raises ``NotImplementedError`` when set.
+(``ops/quant_matmul_mb.py``, kernel K6), so the earlier conversion wins
+where several are set; a draft model is converted as the target is.
+``WTPU_LLM_KV_BITS=8`` or ``4`` sets the target's ``config.kv_bits`` (the
+quantized KV cache, ``models/qwen.py``), as the reference's engine does; a
+draft keeps its own config. The continuous-batching engine serves the
+weights it is given (``LLMEngine.continuous``: the engine's converted tree).
 
 With a draft model (``draft=(params, config)``), ``generate`` at
 temperature 0 runs greedy speculative decoding
@@ -46,20 +50,6 @@ from whisper_mlx_tpu_torch.models.qwen import Params, QwenConfig, decode_step, i
 
 if TYPE_CHECKING:
     from whisper_mlx_tpu_torch.inference.batch_engine import ContinuousBatchEngine
-
-# environment opt-ins of the reference's engine -> the ROADMAP item that ports them
-_OPT_INS = {
-    "WTPU_NATIVE_RESIDENT": "M15 (native-code residency)",
-}
-
-
-def check_opt_ins() -> None:
-    """Raise for any reference opt-in that is set to a non-default value."""
-    for name, item in _OPT_INS.items():
-        if os.environ.get(name, "") not in ("", "0"):
-            raise NotImplementedError(f"{name}={os.environ[name]} is not ported: "
-                                      f"ROADMAP.md {item}")
-
 
 # ---------------------------------------------------------------------------
 # sampling
@@ -158,12 +148,19 @@ class LLMEngine:
     def __init__(self, params: Params, config: QwenConfig, tokenizer,
                  max_context: int = 4096,
                  draft: "tuple[Params, QwenConfig] | None" = None):
-        check_opt_ins()
         # the quantized KV cache (WTPU_LLM_KV_BITS=8 or 4): the target's
         # config only, as in the reference; the draft keeps its own
         kv_bits = int(os.environ.get("WTPU_LLM_KV_BITS", "0"))
         if kv_bits and config.kv_bits != kv_bits:
             config = dataclasses.replace(config, kv_bits=kv_bits)
+        resident = os.environ.get("WTPU_NATIVE_RESIDENT", "0")
+        if resident != "0":
+            from whisper_mlx_tpu_torch.ops.quant import promote_resident_native
+
+            params, promoted = promote_resident_native(
+                params, budget_bytes=None if resident == "1" else 9 << 30)
+            if promoted and draft is not None:
+                draft = (promote_resident_native(draft[0], budget_bytes=None)[0], draft[1])
         if os.environ.get("WTPU_QWEN_A8", "0") == "1":
             from whisper_mlx_tpu_torch.ops.quant_a8 import prepare_a8_params
 

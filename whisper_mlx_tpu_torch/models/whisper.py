@@ -16,7 +16,9 @@ CUDA (``ops/dense_attention.py`` for the encoder when
 ``ops/decode_attention.py`` for quantized decoder
 caches, the JAX package's ``attention_int8_auto`` /
 ``attention_int8_grouped`` and, with ``attn_mxu``, their integer-dot forms;
-``ops/beamflat_attention.py`` for beam self-attention over the flat cache);
+``ops/beamflat_attention.py`` for beam self-attention over the flat cache,
+its split mode for the shared-prefix scheme and its per-lane layout for
+``beam_ancestry`` over a per-lane cache);
 GEMMs and the conv stem are plain torch. The plain attention of the parity
 configuration (flash off, fp caches) runs on CPU tensors only: on CUDA
 tensors it raises, except in the word-timestamp alignment pass
@@ -30,6 +32,13 @@ scales ``(B, H, T)`` bf16 (``ops/kv_quant.py``). Beam search's flat cache
 axis: ``{"k8f", "ksf", "v8f", "vsf"}`` codes ``(n, H, T*g, ...)`` and
 scales ``(n, H, T*g)``, or fp ``{"kf", "vf"}``; row ``t*g + k`` is lane k's
 position t.
+
+The reference's time-major layouts (``WTPU_SELF_KV_LAYOUT`` /
+``WTPU_KV_LAYOUT`` = ``tmajor``, the config's ``self_kv_layout`` /
+``kv_layout``) compute ``attention_int8_auto``'s function over another
+layout, and the reference takes their branch before its integer-dot one:
+here the caches stay position-major and a time-major field runs that
+attention (self, cross) on kernel K3's fp mode whatever ``attn_mxu`` says.
 """
 
 from __future__ import annotations
@@ -43,7 +52,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_mlx_tpu_torch.ops.beamflat_attention import attention_fp_beamflat, beamflat_attention
+from whisper_mlx_tpu_torch.ops.beamflat_attention import (
+    ancestry_attention,
+    attention_fp_ancestry,
+    attention_fp_beamflat,
+    attention_fp_shared,
+    beamflat_attention,
+)
 from whisper_mlx_tpu_torch.ops.decode_attention import decode_attention
 from whisper_mlx_tpu_torch.ops.dense_attention import dense_attention
 from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
@@ -55,9 +70,9 @@ Params = dict[str, Any]
 # integer-dot decode attention (attn_mxu) for greedy; read once at import,
 # as the reference does (beam turns it on for quantized caches itself)
 _ATTN_MXU_DEFAULT = os.environ.get("WTPU_ATTN_MXU") == "1"
-
-
-_TMAJOR_OPT_INS = ("WTPU_SELF_KV_LAYOUT", "WTPU_KV_LAYOUT")
+# the reference's cache layouts, "tminor" or "tmajor", read once at import
+_SELF_KV_LAYOUT_DEFAULT = os.environ.get("WTPU_SELF_KV_LAYOUT", "tminor")
+_KV_LAYOUT_DEFAULT = os.environ.get("WTPU_KV_LAYOUT", "tminor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,18 +97,13 @@ class WhisperConfig:
     # integer-dot attention over the quantized caches (kernel K3's and K8's
     # int_dot mode): q and w * vs re-quantized per row, s8 x s8 -> s32 dots
     attn_mxu: bool = _ATTN_MXU_DEFAULT
+    # the reference's self / cross cache layouts: "tmajor" keeps the caches
+    # position-major here and runs their attention in K3's fp mode
+    self_kv_layout: str = _SELF_KV_LAYOUT_DEFAULT
+    kv_layout: str = _KV_LAYOUT_DEFAULT
     # (layer, head) pairs for word-timestamp alignment, carried through an
     # mlx-format checkpoint's config.json
     alignment_heads: tuple[tuple[int, int], ...] | None = None
-
-    def __post_init__(self):
-        # the reference's time-major cache layouts (read at its import): the
-        # port keeps position-major caches only until ROADMAP M15 collapses
-        # them onto K3, so an opt-in raises instead of being ignored
-        for name in _TMAJOR_OPT_INS:
-            if os.environ.get(name, "tminor") == "tmajor":
-                raise NotImplementedError(
-                    f"{name}=tmajor: the time-major KV layout is not ported (ROADMAP.md M15)")
 
     @property
     def head_dim(self) -> int:
@@ -342,12 +352,16 @@ def _write_beam_rows(buf: torch.Tensor, new: torch.Tensor, pos: int, group: int)
 
 
 def _beam_self_attention(c: Params, q, k_new, v_new, pos: int, ancestry, group: int,
-                         config: WhisperConfig) -> torch.Tensor:
+                         config: WhisperConfig, s_fill=None, overflow=None) -> torch.Tensor:
     """Beam self-attention of one step over the flat cache ``c`` (updated
-    in place): kernel K8 for quantized caches, the fp form on the CPU."""
+    in place): kernel K8 for quantized caches (its split mode with
+    ``s_fill``), the fp forms on the CPU."""
     if "k8f" not in c:
         _write_beam_rows(c["kf"], k_new, pos, group)
         _write_beam_rows(c["vf"], v_new, pos, group)
+        if s_fill is not None:
+            return attention_fp_shared(q, c["kf"], c["vf"], ancestry, s_fill, pos, group,
+                                       overflow)
         return attention_fp_beamflat(q, c["kf"], c["vf"], ancestry, pos, group)
     scale = q.shape[-1] ** -0.25
     k8n, ksn = quantize_kv(k_new * scale, bits=config.self_kv_bits)
@@ -355,7 +369,8 @@ def _beam_self_attention(c: Params, q, k_new, v_new, pos: int, ancestry, group: 
     for name, new in (("k8f", k8n), ("ksf", ksn), ("v8f", v8n), ("vsf", vsn)):
         _write_beam_rows(c[name], new, pos, group)
     return beamflat_attention((q * scale).contiguous(), c["k8f"], c["ksf"], c["v8f"],
-                              c["vsf"], ancestry, pos, group, int_dot=config.attn_mxu)
+                              c["vsf"], ancestry, pos, group, int_dot=config.attn_mxu,
+                              s_fill=s_fill, overflow=overflow)
 
 
 def decode_step(
@@ -368,6 +383,9 @@ def decode_step(
     collect_cross_attn: bool = False,
     share_xkv_groups: int = 1,
     beam_ancestry: torch.Tensor | None = None,
+    beam_s_fill: torch.Tensor | None = None,
+    beam_window: int = 0,
+    beam_overflow: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list[Params]] | tuple[torch.Tensor, list[Params], torch.Tensor]:
     """Run the decoder on ``tokens`` at positions ``[pos, pos + t)``.
 
@@ -377,7 +395,18 @@ def decode_step(
     ``xkv`` holds batch/g windows whose cross K/V are shared by g
     consecutive rows (best_of candidates, beam lanes). A beam flat cache
     (:func:`beam_flat_cache`) needs ``beam_ancestry (batch, T)`` int32, the
-    lane owning each position of each row's hypothesis, and t = 1.
+    lane owning each position of each row's hypothesis, and t = 1. Over a
+    per-lane cache, ``beam_ancestry`` (t = 1) reads each position from the
+    lane it names (``kv_quant.py:attention_*_ancestry``: K8's per-lane
+    layout for quantized caches).
+
+    ``beam_s_fill`` ``(batch/g,)`` int32 on the device (flat cache): the
+    shared-prefix scheme's split (K8's split mode, or its fp form on the
+    CPU); with the one-bool device tensor ``beam_overflow`` set it computes
+    the flat function. ``beam_window``, the reference's read width of the
+    divergent tail, is taken for its signature: the beam loop's overflow
+    rule keeps ``[s_fill, pos]`` inside it, and the split reads exactly
+    those positions, so the function does not depend on it.
 
     ``collect_cross_attn=True`` (the word-timestamp alignment pass) returns
     ``(logits, kv_cache, cross)`` with the cross-attention weights ``cross``
@@ -398,6 +427,16 @@ def decode_step(
         raise ValueError("decode_step: the beam flat cache takes one position and "
                          "beam_ancestry")
     quant_self = "k8" in kv_cache[0]
+    if beam_ancestry is not None and t != 1:
+        raise ValueError("decode_step: beam_ancestry takes one position")
+    if (beam_s_fill is not None or beam_overflow is not None) and not beam_flat:
+        raise ValueError("decode_step: beam_s_fill takes the beam flat cache")
+    # the reference's time-major layouts take its fp32 branches
+    self_tmajor = quant_self and config.self_kv_layout == "tmajor"
+    if self_tmajor and beam_ancestry is not None:
+        raise ValueError("decode_step: the time-major self cache has no ancestry mode")
+    self_int_dot = config.attn_mxu and not self_tmajor
+    cross_int_dot = config.attn_mxu and config.kv_layout != "tmajor"
     if collect_cross_attn and (quant_self or beam_flat or g > 1
                                or any("k8" in xc for xc in xkv)):
         raise ValueError("decode_step(collect_cross_attn=True) takes fp self and cross "
@@ -415,7 +454,8 @@ def decode_step(
         c = kv_cache[i]
         scale = q.shape[-1] ** -0.25
         if beam_flat:
-            attn_out = _beam_self_attention(c, q, k_new, v_new, pos, beam_ancestry, g, config)
+            attn_out = _beam_self_attention(c, q, k_new, v_new, pos, beam_ancestry, g, config,
+                                            beam_s_fill, beam_overflow)
         elif quant_self:
             k8n, ksn = quantize_kv(k_new * scale, bits=config.self_kv_bits)
             v8n, vsn = quantize_kv(v_new, bits=config.self_kv_bits)
@@ -423,14 +463,20 @@ def decode_step(
             c["ks"][:, :, pos:end] = ksn
             c["v8"][:, :, pos:end] = v8n
             c["vs"][:, :, pos:end] = vsn
-            attn_out = decode_attention((q * scale).contiguous(), c["k8"], c["ks"],
-                                        c["v8"], c["vs"], pos=pos, causal=True,
-                                        int_dot=config.attn_mxu)
+            if beam_ancestry is not None:
+                attn_out = ancestry_attention((q * scale).contiguous(), c["k8"], c["ks"],
+                                              c["v8"], c["vs"], beam_ancestry, pos, g)
+            else:
+                attn_out = decode_attention((q * scale).contiguous(), c["k8"], c["ks"],
+                                            c["v8"], c["vs"], pos=pos, causal=True,
+                                            int_dot=self_int_dot)
         else:
             c["k"][:, :, pos:end] = k_new
             c["v"][:, :, pos:end] = v_new
             k_live, v_live = c["k"][:, :, :end], c["v"][:, :, :end]
-            if collect_cross_attn:
+            if beam_ancestry is not None:
+                attn_out = attention_fp_ancestry(q, c["k"], c["v"], beam_ancestry, pos, g)
+            elif collect_cross_attn:
                 attn_out, _ = attention_for_alignment(q, k_live, v_live, mask)
             else:
                 attn_out = attention(q, k_live, v_live, mask)
@@ -443,7 +489,7 @@ def decode_step(
             qs = (qx * scale).contiguous()
             cross_out = decode_attention(qs, xc["k8"], xc["ks"], xc["v8"], xc["vs"],
                                          valid_len=config.n_audio_ctx, group=g,
-                                         int_dot=config.attn_mxu)
+                                         int_dot=cross_int_dot)
         elif g > 1:
             _plain_on_cpu_only(qx, "plain grouped cross attention")
             n = b // g

@@ -47,7 +47,7 @@ SIGNATURES: dict[str, list] = {
     "wmt_gqa_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P],
     # q, k, ks, v, vs, ancestry, out, nb, h, rows, t_anc, group, limit,
     # bits, int_dot, cluster, cap, stream
-    "wmt_beamflat_attention": [_P] * 7 + [_I] * 10 + [_P],
+    "wmt_beamflat_attention": [_P] * 9 + [_I] * 11 + [_P],
     # srcs, dsts, row bytes (host arrays), n, from, nb, skip_fixed, stream
     "wmt_lane_copy": [_P, _P, _P, _I, _P, _I, _I, _P],
     # x, w_q, scales, biases, out, m, n, k, bits, group_size, x_bf16, stream

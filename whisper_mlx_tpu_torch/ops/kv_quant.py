@@ -14,6 +14,16 @@ default over quantized caches) re-quantizes q and ``w * vs`` per row with
 :func:`_quantize_rows` and runs both dots s8 x s8 -> s32; it is kernel K3's
 ``int_dot`` mode. Beam self-attention over the flat cache is
 ``ops/beamflat_attention.py`` (kernel K8).
+
+The reference's time-major caches (``WTPU_SELF_KV_LAYOUT`` /
+``WTPU_KV_LAYOUT`` = ``tmajor``: codes ``(T, b, h * d)``, scales ``(T, b,
+h)``) compute ``attention_int8_auto``'s fp32 function over another layout.
+The port keeps its caches position-major and runs that function on K3's fp
+mode (``models/whisper.py``); :func:`attention_int8_tmajor`,
+:func:`attention_int8_tmajor_cross` and :func:`attention_int8_tmajor_grouped`
+are plain CPU ports of the reference's three for the tests, which hold
+them against K3's plain version through
+``checkpoint/convert.py:tmajor_cache_from_jax``.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ from whisper_mlx_tpu_torch.ops.decode_attention import (
 
 __all__ = ["quantize_kv", "pack_int4", "unpack_int4", "attention_int8_auto",
            "attention_int8_grouped", "attention_int8_mxu", "attention_int8_grouped_mxu",
-           "_quantize_rows"]
+           "attention_int8_tmajor", "attention_int8_tmajor_cross",
+           "attention_int8_tmajor_grouped", "_quantize_rows"]
 
 
 def quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
@@ -68,3 +79,48 @@ def attention_int8_mxu(q, k, ks, v, vs, **kw) -> torch.Tensor:
 
 
 attention_int8_grouped_mxu = attention_int8_mxu
+
+
+def _tmajor_kv(q, kT, vT):
+    """CPU-only time-major codes ``(T, b, h * d)`` (int8 holding int8 or
+    int4 values) -> fp32 ``(T, b, h, d)`` keys and values."""
+    if q.is_cuda:
+        raise ValueError("the time-major plain versions run on CPU tensors only; on CUDA the "
+                         "caches are position-major and kernel K3 runs")
+    t, b = kT.shape[:2]
+    h, d = q.shape[1], q.shape[-1]
+    return kT.float().reshape(t, b, h, d), vT.float().reshape(t, b, h, d)
+
+
+def attention_int8_tmajor(q, kT, ksT, vT, vsT, pos: int) -> torch.Tensor:
+    """Causal self-attention over a time-major cache
+    (``kv_quant.py:attention_int8_tmajor``): pre-scaled q ``(b, h, tq, d)``,
+    query i at position ``pos + i``; fp32 products and sums."""
+    kv, vv = _tmajor_kv(q, kT, vT)
+    t_len = kv.shape[0]
+    s = torch.einsum("bhid,tbhd->tbhi", q.float(), kv) * ksT.float()[..., None]
+    t_idx = torch.arange(t_len)[:, None, None, None]
+    q_idx = pos + torch.arange(q.shape[2])[None, None, None, :]
+    w = torch.softmax(s.masked_fill(t_idx > q_idx, float("-inf")), dim=0)
+    out = torch.einsum("tbhi,tbhd->bhid", w * vsT.float()[..., None], vv)
+    return out.to(q.dtype)
+
+
+def attention_int8_tmajor_cross(q, kT, ksT, vT, vsT) -> torch.Tensor:
+    """Non-causal twin (``kv_quant.py:attention_int8_tmajor_cross``): every
+    position of the time-major cross cache is attended."""
+    kv, vv = _tmajor_kv(q, kT, vT)
+    s = torch.einsum("bhid,tbhd->tbhi", q.float(), kv) * ksT.float()[..., None]
+    w = torch.softmax(s, dim=0) * vsT.float()[..., None]
+    return torch.einsum("tbhi,tbhd->bhid", w, vv).to(q.dtype)
+
+
+def attention_int8_tmajor_grouped(q5, kT, ksT, vT, vsT) -> torch.Tensor:
+    """Grouped twin (``kv_quant.py:attention_int8_tmajor_grouped``): q5
+    ``(n, g, h, tq, d)``, the g rows of a window sharing its cross cache
+    ``(T, n, h * d)``."""
+    n, g, h, tq, d = q5.shape
+    kv, vv = _tmajor_kv(q5[:, 0], kT, vT)
+    s = torch.einsum("nghid,tnhd->tnghi", q5.float(), kv) * ksT.float()[:, :, None, :, None]
+    w = torch.softmax(s, dim=0) * vsT.float()[:, :, None, :, None]
+    return torch.einsum("tnghi,tnhd->nghid", w, vv).to(q5.dtype)

@@ -19,9 +19,22 @@ reference's policy: a ``QuantTensor`` to K5 (``ops/quant_matmul.py``), or
 with ``WTPU_QMM_MB="depth[,tile_n]"`` to K6 transposing per call; a
 ``QuantTensorT`` (``prepare_mbt_params``, ``WTPU_MBT_RESIDENT``) to K6
 (``ops/quant_matmul_mb.py``); an ``A8Tensor`` (``ops/quant_a8.py``,
-``WTPU_QWEN_A8``) to K7. The reference's other resident layouts
-(``NativeQuantTensor``, ``DenseWeight``, both made by its
-``prepare_native_params``) are not ported: ROADMAP.md M15.
+``WTPU_QWEN_A8``) to K7.
+
+Native-code residency (the reference's ``WTPU_NATIVE_RESIDENT``,
+``ops/quant.py:64-480`` there): :func:`promote_resident_native` turns packed
+leaves into :class:`NativeQuantTensor` (the LLM engine's opt-in), and
+:func:`prepare_native_params` into native leaves at few decode rows or
+:class:`DenseWeight` (dequantized once) at many. The reference holds a
+native leaf's codes one a byte; here they stay in a ``QuantTensor``'s packed
+words (half a byte an element at 4 bits), so that they run where the packed
+route runs those bits: :func:`native_group_matmul` keeps the reference's row
+rule, at most 32 rows and a grouped partial of at most 768 MiB on K5 (its
+plain version on the CPU), past it dequantize to x's dtype and
+``torch.matmul``, as the reference does outside any kernel. A
+``DenseWeight`` is ``x @ w.T`` in ``torch.matmul``. ``WTPU_QMM``, the
+reference's choice of epilogue for its grouped form (``einsum`` or
+``reduce``, the same function), is not read.
 
 The whisper walkers: :func:`quantize_params` (what an mlx-community 4-bit
 checkpoint quantizes), :func:`fuse_whisper_qkv` / :func:`unfuse_whisper_qkv`
@@ -41,13 +54,6 @@ from typing import Any
 import torch
 
 from whisper_mlx_tpu_torch.ops.quant_matmul import quant_matmul_kernel
-
-# leaf types of the reference that the port does not have yet -> ROADMAP item
-_NOT_PORTED = {
-    "NativeQuantTensor": "M15 (native-code residency)",
-    "DenseWeight": "M15 (dequantize-once native residency)",
-}
-
 
 @dataclasses.dataclass
 class QuantTensor:
@@ -75,9 +81,73 @@ class QuantTensor:
         return f"QuantTensor{self.shape}[{self.bits}b/g{self.group_size}]"
 
 
+@dataclasses.dataclass
+class NativeQuantTensor:
+    """The reference's native-code leaf (``ops/quant.py:NativeQuantTensor``):
+    codes in ``[0, 2**bits)`` with the affines of a :class:`QuantTensor`,
+    ``(out, in)``. The codes are held as a QuantTensor's packed words, which
+    encode them exactly (``codes`` unpacks them)."""
+
+    w_q: torch.Tensor
+    scales: torch.Tensor
+    biases: torch.Tensor
+    bits: int
+    group_size: int
+
+    shape = QuantTensor.shape
+    dequantize = QuantTensor.dequantize
+
+    @property
+    def codes(self) -> torch.Tensor:
+        """``(out, in)`` uint8 codes, as the reference holds them."""
+        return unpack(self.w_q, self.bits).to(torch.uint8)
+
+    def __repr__(self) -> str:
+        return f"NativeQuantTensor{self.shape}[{self.bits}b/g{self.group_size}]"
+
+
+@dataclasses.dataclass
+class DenseWeight:
+    """A weight dequantized once, in its ``(out, in)`` layout
+    (``ops/quant.py:DenseWeight`` of the reference); ``quant_matmul`` is
+    ``x @ w.T``."""
+
+    w: torch.Tensor
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.w.shape)
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.w.to(dtype)
+
+
+def native_from_codes(codes: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
+                      bits: int, group_size: int) -> NativeQuantTensor:
+    """``(out, in)`` codes in ``[0, 2**bits)`` -> a native leaf, the codes
+    packed into 32-bit words as MLX packs them."""
+    return NativeQuantTensor(_pack(codes, bits), scales, biases, bits, group_size)
+
+
+def to_native(q: QuantTensor) -> NativeQuantTensor:
+    """A packed leaf as a native one (``ops/quant.py:to_native``): its codes
+    re-encoded into the same packed words, so the words are reused."""
+    return NativeQuantTensor(q.w_q, q.scales, q.biases, q.bits, q.group_size)
+
+
 def _to_int32_bits(words: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 with the same 32 bits."""
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _pack(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """``(out, in)`` codes in ``[0, 2**bits)`` -> MLX's little-endian words
+    ``(out, in * bits // 32)`` as int32 with the bits of its uint32."""
+    per_word = 32 // bits
+    out_dim, in_dim = codes.shape
+    q = codes.to(torch.int64).reshape(out_dim, in_dim // per_word, per_word)
+    shifts = torch.arange(per_word, device=codes.device, dtype=torch.int64) * bits
+    return _to_int32_bits((q << shifts).sum(dim=-1))  # disjoint bit fields: sum == or
 
 
 def quantize(w: torch.Tensor, bits: int = 4, group_size: int = 64) -> QuantTensor:
@@ -98,11 +168,7 @@ def quantize(w: torch.Tensor, bits: int = 4, group_size: int = 64) -> QuantTenso
     scales = (w_max - w_min) / n_levels
     scales = torch.where(scales == 0, torch.full_like(scales, 1e-8), scales)
     q = torch.round((g - w_min[..., None]) / scales[..., None]).clamp(0, n_levels)
-    per_word = 32 // bits
-    q = q.to(torch.int64).reshape(out_dim, in_dim // per_word, per_word)
-    shifts = torch.arange(per_word, device=w.device, dtype=torch.int64) * bits
-    words = (q << shifts).sum(dim=-1)  # disjoint bit fields: sum == or
-    return QuantTensor(_to_int32_bits(words), scales, w_min, bits, group_size)
+    return QuantTensor(_pack(q.reshape(out_dim, in_dim), bits), scales, w_min, bits, group_size)
 
 
 def unpack(w_q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -124,11 +190,13 @@ def dequantize(w_q, scales, biases, bits: int, group_size: int,
     return w.reshape(out_dim, in_dim)
 
 
-def quant_rows(q: QuantTensor, rows: torch.Tensor,
+def quant_rows(q: QuantTensor | NativeQuantTensor, rows: torch.Tensor,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Dequantize selected rows (embedding lookup): rows ``(...)`` ->
-    ``(..., in)``, reading only the requested rows' words and affines."""
-    _check_leaf(q)
+    ``(..., in)``, reading only the requested rows' words and affines. A
+    native leaf's codes dequantize as the reference's do."""
+    if not isinstance(q, NativeQuantTensor):
+        _check_leaf(q)
     vals = unpack(q.w_q[rows], q.bits).to(dtype)
     *lead, in_dim = vals.shape
     vals = vals.reshape(*lead, in_dim // q.group_size, q.group_size)
@@ -334,9 +402,6 @@ def maybe_dense_decode_params(params: Any, rows: int,
 
 
 def _check_leaf(q: Any) -> None:
-    item = _NOT_PORTED.get(type(q).__name__)
-    if item is not None:
-        raise NotImplementedError(f"{type(q).__name__} weights are not ported: ROADMAP.md {item}")
     if not isinstance(q, QuantTensor):
         raise TypeError(f"expected a QuantTensor, got {type(q).__name__}")
 
@@ -375,6 +440,92 @@ def prepare_mbt_params(params: Any, embed_keys: tuple = ("embed", "token_emb"),
     return walk(params)
 
 
+def prepare_native_params(params: Any, embed_keys: tuple = ("embed", "token_emb"),
+                          embed_dtype: torch.dtype = torch.bfloat16,
+                          decode_rows: int = 1) -> Any:
+    """Packed leaves -> decode-ready ones by the decode loop's matmul rows
+    (``ops/quant.py:prepare_native_params`` of the reference): at most 16
+    rows, :class:`NativeQuantTensor` leaves; more, :class:`DenseWeight`
+    leaves dequantized once to ``embed_dtype``. Embedding tables (dict keys
+    in ``embed_keys``) that are packed dequantize to ``embed_dtype`` tensors;
+    native ones stay native at few rows."""
+    native = decode_rows <= 16
+
+    def walk(node):
+        if isinstance(node, QuantTensor):
+            return to_native(node) if native else DenseWeight(node.dequantize(embed_dtype))
+        if isinstance(node, NativeQuantTensor):
+            return node if native else DenseWeight(node.dequantize(embed_dtype))
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k in embed_keys and isinstance(v, QuantTensor):
+                    out[k] = v.dequantize(embed_dtype)
+                elif k in embed_keys and isinstance(v, NativeQuantTensor):
+                    out[k] = v if native else v.dequantize(embed_dtype)
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def promote_resident_native(params: Any, budget_bytes: int | None = 9 << 30
+                            ) -> tuple[Any, bool]:
+    """Every packed leaf -> :class:`NativeQuantTensor`
+    (``ops/quant.py:promote_resident_native`` of the reference), unless the
+    tree holds more than ``budget_bytes`` elements (None: no limit; the
+    reference's budget at one byte an element) -> ``(params, promoted)``."""
+    leaves: list[QuantTensor] = []
+
+    def scan(node):
+        if isinstance(node, QuantTensor):
+            leaves.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                scan(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                scan(v)
+
+    scan(params)
+    if not leaves:
+        return params, False
+    if budget_bytes is not None and sum(q.shape[0] * q.shape[1] for q in leaves) > budget_bytes:
+        return params, False
+
+    def walk(node):
+        if isinstance(node, QuantTensor):
+            return to_native(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params), True
+
+
+NATIVE_MAX_ROWS = 32  # the grouped form's rows (``ops/quant.py:native_group_matmul``)
+NATIVE_MAX_PARTIAL = 768 * 1024 * 1024  # bytes of its fp32 (rows, out, groups) partial
+
+
+def native_group_matmul(x: torch.Tensor, q: NativeQuantTensor) -> torch.Tensor:
+    """``x @ dequant(q).T`` over a native leaf by the reference's row rule:
+    up to :data:`NATIVE_MAX_ROWS` rows and a grouped partial of at most
+    :data:`NATIVE_MAX_PARTIAL` bytes, kernel K5 on the packed words (its
+    plain version on a CPU tensor); past it, dequantize to x's dtype and
+    ``torch.matmul``."""
+    rows = x.numel() // x.shape[-1]
+    n, groups = q.scales.shape
+    if rows > NATIVE_MAX_ROWS or rows * n * groups * 4 > NATIVE_MAX_PARTIAL:
+        return torch.matmul(x, q.dequantize(x.dtype).T)
+    return quant_matmul_kernel(x, q.w_q, q.scales, q.biases, q.bits, q.group_size)
+
+
 def quant_matmul(x: torch.Tensor, q: Any) -> torch.Tensor:
     """``x @ dequant(q).T``: x ``(..., in)`` -> ``(..., out)`` in x's dtype.
 
@@ -397,6 +548,10 @@ def quant_matmul(x: torch.Tensor, q: Any) -> torch.Tensor:
         raise ValueError(f"WTPU_QMM_PALLAS_MAX_ROWS={max_rows}: on CUDA the quantized "
                          "matmul kernels run every call of at most 512 rows (the bound "
                          "may only rise)")
+    if isinstance(q, DenseWeight):
+        return torch.matmul(x, q.w.to(x.dtype).T)
+    if isinstance(q, NativeQuantTensor):
+        return native_group_matmul(x, q)
     rows = x.numel() // x.shape[-1]
     if isinstance(q, (A8Tensor, QuantTensorT)):
         if rows > max_rows:
