@@ -100,7 +100,7 @@ is non-zero and the result line is not printed:
 15. whisper 4-bit main path: large-v3 at full width, bf16 weights from seed
    0 quantized on the card (int4, group 64) and written as an mlx-format
    directory, then the CLI with --model <dir> on the 65 s WAV (packed, fused
-   qkv: K5; the ladder cut to T = 0 and 1.0), K5 and K6 against their
+   qkv: K5), K5 and K6 against their
    plain versions at the loaded leaves' shapes, K5 summed over a decode
    step's 193 calls at 1 and 8 rows, L2 cold, beside bf16 torch.matmul on
    the leaves dequantized once (a yardstick, not the same function), 8
@@ -149,8 +149,8 @@ is non-zero and the result line is not printed:
    read by load_audio_serving as int16) through TranscriptionBatcher at the
    serving knobs' default buckets and flush, one of them streamed, with its
    windows, batches, fill, wall, audio-s/s, launches and peak memory; one
-   request of 56 windows at the largest default bucket, with its wall and
-   peak memory; then transcribe(batch_windows=True,
+   request of 56 windows at the largest default bucket, BIG_BUCKET_SAMPLE_LEN
+   tokens, with its wall and peak memory; then transcribe(batch_windows=True,
    word_timestamps=True, temperature=(0.0, 1.0)) on the 65 s file (the
    pending-only retry rung runs once), its rungs, words and stages.
    Tokens come from a four-letter-word tokenizer (_wordy_tokenizer), so
@@ -163,7 +163,7 @@ is non-zero and the result line is not printed:
    through QwenModel. Then at full width, each run with its wall, tokens,
    proposed, accepted, target and draft calls, launches of K1-K5 and peak
    memory: large-v3 (bf16 from seed 0, int4 cross, int8 self, sample_len
-   128, cut from 224 for the time limit, no timestamps) on one 30 s window
+   SPEC_WHISPER_TOKENS = 64, cut from 224 for the time limit, no timestamps) on one 30 s window
    of noise, plain greedy, then k = 4 with the target as its own draft (the
    upper bracket) and with a random large-v3-turbo-shaped draft sharing the
    encoder (the lower bracket); Qwen3-32B packed int4 through LLMEngine.generate, 32 new
@@ -232,7 +232,42 @@ is non-zero and the result line is not printed:
    engine's, equal up to a near tie bounded as phase 25 bounds it, and one
    128-token prefill past the row rule (no K5) against the packed
    prefill's logits within TINY_LOGIT_TOL. K1-K5 and K8 (its split and
-   per-lane modes) must launch over the phase's runs.
+   per-lane modes) must launch over the phase's runs;
+27. m14, run in every whole run after phase 26: multi-device parallelism
+   (ROADMAP M14). First the kernels at the shapes the tp-2 ranks give
+   them (_m14_shard_kernels), each against its plain version and bit-equal
+   on a repeat: K2 and K3 over 10 heads, K4 at 32 query over 4 KV heads,
+   K3's GQA mode over 4 KV heads (each query row within ATTN_TOL of its
+   max|ref|), K5 on a rank's Qwen3-32B column and row shards at M = 1 and
+   270 (within QMM_TOL). (a) This process in an NCCL group of world size 1,
+   make_mesh(dp=1, tp=1): transcribe(batch_windows=True, mesh=) on phase
+   22's 65 s file on large-v3 (bf16, int4 cross, int8 self, random weights of
+   seed 0, BATCH_SAMPLE_LEN tokens), whose tokens must equal the meshless
+   run's bit for bit. (b) Two ranks sharing the card in a gloo group (NCCL
+   refuses two ranks on one card), started as processes by
+   parallel/launch.py:run_ranks, each building the same weights: (b1) dp 2,
+   phase 22's burst of four requests (8 windows) through
+   TranscriptionBatcher(mesh=) in one bucket of 8 (rank 0 holds the queue,
+   rank 1 follows), 4 windows a rank, each rank's tokens bit-equal to a
+   meshless run of its own 4 windows, the 8 gathered windows' agreement
+   with a meshless run of all 8 printed; (b2) tp 2 on large-v3, 2 windows,
+   M14_TP_STEPS greedy steps, K2 and K3 at 10 heads a rank; (b3) tp 2 at
+   Qwen3-32B's widths, packed int4, M14_QWEN_LAYERS of its 64 layers, the
+   270-token prompt's prefill (K4 at 32 query heads over 4 KV heads) and
+   M14_QWEN_STEPS steps (K5 on column and row shards) at kv 0 and kv 8 (K3's
+   GQA mode at 4 KV heads). (b2) and (b3) are held to their meshless runs:
+   the residual stream bit-equal before the first block (its error after
+   each block printed: the drift's growth); the first step's logits within
+   QMM_TOL x max(1, |ref|) or, where the same pair of runs with every kernel
+   replaced by its plain version on the card differs by more (the net's own
+   drift under tp's reordered bf16 sums, itself held within TINY_LOGIT_TOL
+   x max(1, |ref|)), within SPEC_TIE_FACTOR times that; the tokens up to a
+   first parting that is a
+   near tie (SPEC_TIE_FACTOR x D, D the largest logit difference over the
+   steps both runs take on the same tokens). Each rank's lines, launches and
+   peak memory, the collectives a step and the phase's wall are printed; a
+   failure in any rank fails the phase. K1-K5 and K3's GQA mode must launch
+   over the main-path runs (summed over the ranks).
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -252,7 +287,9 @@ phase 24's HTTP requests as ``launches_daemon``; K3's GQA mode's launches
 over phase 25's runs as ``launches_gqa``, and K4's and K5's as
 ``launches_kv``; K1-K5's and K8's over phase 26's runs as ``launches_m15``, K8's
 split and per-lane modes apart as ``launches_split_m15`` and
-``launches_lane_m15``). K8's row also carries phase 26's readings of its
+``launches_lane_m15``; K1-K5's over phase 27's sharded runs, summed over its
+ranks, as ``launches_m14``, and K3's GQA mode's there as the decode row's
+``launches_gqa_m14``). K8's row also carries phase 26's readings of its
 two new modes: ``ms_split``, ``plain_split_ms``, ``bound_split_ms``,
 ``bound_split_by``, ``library_split_ms`` (null), ``max_abs_err_split``,
 ``flat_ms_split_shape`` (K8 flat at the same ancestry) and ``cases_split``
@@ -362,6 +399,10 @@ TINY_LOGIT_TOL = 5e-2  # times max(1, |ref|max)
 # and 24's batcher): cut from 224, a window's whole budget, to keep the
 # whole run near 900 s of its 1,200 s limit
 BATCH_SAMPLE_LEN = 112
+# phase 22's one request of 56 windows at the largest bucket: its decode depth
+# (cut from BATCH_SAMPLE_LEN for the whole run's time limit; F5 showed at the
+# first steps)
+BIG_BUCKET_SAMPLE_LEN = 32
 QMM_TOL = 1e-2  # times max(1, |ref|max): one bf16 ulp of the output
 QWEN32 = qw.QWEN_CONFIGS["qwen3-32b"]
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): device
@@ -3497,9 +3538,9 @@ def phase_serve() -> dict:
               f"{sum(len(s['tokens']) for r in results for s in r['segments'])} tokens")
 
         # the largest default bucket once: one request of 56 windows
-        # (1,675 s) rides one batch of 56, greedy to BATCH_SAMPLE_LEN tokens
+        # (1,675 s) rides one batch of 56, greedy to BIG_BUCKET_SAMPLE_LEN tokens
         big = TranscriptionBatcher(params, config, tok, device=dev,
-                                   decoding=DecodingOptions(sample_len=BATCH_SAMPLE_LEN))
+                                   decoding=DecodingOptions(sample_len=BIG_BUCKET_SAMPLE_LEN))
         long_audio = _request_audio(1675.0, 4)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3573,8 +3614,8 @@ def phase_serve() -> dict:
 
 SPEC_K = 4
 # the tokens of phase 23's large-v3 runs (cut from 224, a window's whole
-# horizon, for the whole run's time limit)
-SPEC_WHISPER_TOKENS = 128
+# horizon, to 128 and then 64 for the whole run's time limit)
+SPEC_WHISPER_TOKENS = 64
 # a flip of the argmax between a k + 1-row verify and a 1-row step needs the
 # two tokens' gap within |d_a| + |d_b| <= 2 D, where D is the largest
 # verify-vs-step logit difference; D is measured in the same run on the plain
@@ -5238,6 +5279,598 @@ def _encoder_dequant_cost(params, dense, config, mel) -> None:
           f"{packed_ms - dense_ms:.1f} ms of dequantization")
 
 
+# ---------------------------------------------------------------------------
+# multi-device parallelism (ROADMAP M14): a world of one on NCCL, then two
+# ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+M14_TP_STEPS = 16  # (b2): large-v3 decode steps at tp 2 (cut from 64 for the time limit)
+M14_QWEN_LAYERS = 8  # (b3): of Qwen3-32B's 64; every width is full
+M14_QWEN_STEPS = 16  # (b3): decode steps after the prefill
+M14_RANKS_TIMEOUT_S = 420
+
+
+def _m14_zero() -> None:
+    _zero_counts()
+    fa.LAUNCHES = qm.LAUNCHES = qm.TILED_LAUNCHES = gq.LAUNCHES = 0
+
+
+def _m14_counts() -> dict:
+    return {"mel": mk.LAUNCHES, "dense": dn.LAUNCHES, "decode": da.LAUNCHES,
+            "flash": fa.LAUNCHES, "quant": qm.LAUNCHES, "gqa": gq.LAUNCHES}
+
+
+def _m14_add(totals: dict, counts: dict) -> None:
+    for key, n in counts.items():
+        totals[key] = totals.get(key, 0) + n
+
+
+def _m14_tokens(results) -> list:
+    return [r.tokens for r in results]
+
+
+def _m14_check_k5(label: str, q, m: int, gen) -> float:
+    """K5 on one tp-2 shard leaf at ``m`` rows against its plain version:
+    within QMM_TOL x max(1, |ref|) (phase 7's limit), bit-equal on a
+    repeat. -> the error."""
+    n, k = q.shape
+    x = torch.randn((m, k), generator=gen, device=gen.device).to(torch.bfloat16)
+    got = tq.quant_matmul(x, q)
+    ref = _k5_plain(x, q)
+    err = _check(f"quant_matmul tp-2 shard {label} N={n} K={k} M={m}", got, ref,
+                 QMM_TOL * max(1.0, ref.float().abs().max().item()))
+    if not torch.equal(got, tq.quant_matmul(x, q)):
+        raise AssertionError(f"quant_matmul tp-2 shard {label} M={m}: a repeat is not bit-equal")
+    return err
+
+
+def _m14_shard_kernels() -> None:
+    """The kernels at the shapes phase 27's tp-2 ranks give them, each
+    against its plain version on the same inputs and bit-equal on a repeat:
+    K2 over 10 of large-v3's 20 heads (2 windows), K3 over 10 heads (the
+    int8 self cache at the SOT block and a step, the int4 cross cache), K4
+    at 32 query over 4 KV heads (the 270-token prefill), K3's GQA mode over
+    4 KV heads (int8, the decode's first and last positions), each query
+    row within ATTN_TOL of its max|ref|; K5 on every leaf of a rank's shard
+    of a Qwen3-32B layer and its head (column shards qkv, gate_up, lm_head;
+    row shards o over K 4096 and down over K 12800, cut by
+    parallel/sharding_llm.py as the ranks cut them) at M = 1 and the
+    prefill's 270 rows, within QMM_TOL x max(1, |ref|)."""
+    from whisper_mlx_tpu_torch.parallel.mesh import Mesh
+    from whisper_mlx_tpu_torch.parallel.sharding_llm import shard_qwen_params
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(27)
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def bf(shape, std):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(
+            dev, torch.bfloat16)
+
+    def repeat(label, got, call):
+        if not torch.equal(got, call()):
+            raise AssertionError(f"{label}: a repeat is not bit-equal")
+
+    q, k, v = bf((2, 10, 1500, 64), 0.35), bf((2, 10, 1500, 64), 0.35), bf((2, 10, 1500, 64), 1)
+    label = "dense_attention tp-2 shard B=2 H=10 T=1500"
+    got = dn.dense_attention(q, k, v)
+    _check_rows(label, got, dn.dense_attention_plain(q, k, v))
+    repeat(label, got, lambda: dn.dense_attention(q, k, v))
+    self_c, cross_c = _quant_cache(rng, 2, 10, 448, 8), _quant_cache(rng, 2, 10, 1500, 4)
+    for name, rows, c, kw in (("self int8 Tq=4 pos=0", 4, self_c, dict(pos=0, causal=True)),
+                              ("self int8 Tq=1 pos=35", 1, self_c, dict(pos=35, causal=True)),
+                              ("cross int4 Tq=4", 4, cross_c, dict(valid_len=1500)),
+                              ("cross int4 Tq=1", 1, cross_c, dict(valid_len=1500))):
+        qd = bf((2, 10, rows, 64), 0.35)
+        label = f"decode_attention tp-2 shard B=2 H=10 {name}"
+        got = da.decode_attention(qd, *c, **kw)
+        _check_rows(label, got, da.decode_attention_plain(qd, *c, **kw))
+        repeat(label, got, lambda: da.decode_attention(qd, *c, **kw))
+    s = 128 ** -0.25
+    qf = (torch.randn((1, 32, 270, 128), generator=gen, device=dev) * s).to(torch.bfloat16)
+    kf = (torch.randn((1, 4, 270, 128), generator=gen, device=dev) * s).to(torch.bfloat16)
+    vf = torch.randn((1, 4, 270, 128), generator=gen, device=dev).to(torch.bfloat16)
+    label = "flash_attention tp-2 shard H=32 KV=4 T=270 causal"
+    got = fa.flash_attention(qf, kf, vf, causal=True)
+    _check_rows(label, got, fa.flash_attention_plain(qf, kf, vf, causal=True))
+    repeat(label, got, lambda: fa.flash_attention(qf, kf, vf, causal=True))
+    for pos in (270, 285):
+        qg, cache, p, kw = _gqa_inputs(gen, 4, 8, 128, [pos], 1, 294, 8)
+        label = f"gqa tp-2 shard int8 KV=4 rep=8 hd=128 pos={pos} T=294"
+        got = gq.gqa_decode_attention(qg, *cache, p, out_dtype=torch.bfloat16, **kw)
+        _check_rows(label, got, gq.gqa_decode_attention_plain(qg, *cache, p, **kw))
+        repeat(label, got, lambda: gq.gqa_decode_attention(qg, *cache, p,
+                                                           out_dtype=torch.bfloat16, **kw))
+    del q, k, v, self_c, cross_c, qf, kf, vf
+    config = dataclasses.replace(QWEN32, num_hidden_layers=1, dtype=torch.bfloat16)
+    params = qw.init_random_quant_params(config, seed=0, device=dev)
+    local = shard_qwen_params(params, Mesh(dp=1, tp=2, rank=0, device=dev), config=config)
+    del params
+    blk = local["layers"][0]
+    leaves = dict(qkv=blk["attn"]["qkv"]["w"], o=blk["attn"]["o"]["w"],
+                  gate_up=blk["mlp"]["gate_up"]["w"], down=blk["mlp"]["down"]["w"],
+                  lm_head=local["lm_head"]["w"])
+    for name, leaf in leaves.items():
+        for m in (1, 270):
+            _m14_check_k5(name, leaf, m, gen)
+    del local, blk, leaves
+    torch.cuda.empty_cache()
+
+
+def _m14_world_of_one(totals: dict) -> None:
+    """(a) One process in an NCCL group of world size 1, make_mesh(dp=1,
+    tp=1): transcribe(batch_windows=True, mesh=) over phase 22's 65 s file on
+    large-v3, whose tokens must equal the meshless run's bit for bit."""
+    import torch.distributed as dist
+
+    from whisper_mlx_tpu_torch.parallel.launch import free_port
+    from whisper_mlx_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    base = WHISPER_CONFIGS["large-v3"]
+    params, config = apply_asr_serving_config(
+        init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+    tok = _wordy_tokenizer(config.n_vocab)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        with tempfile.TemporaryDirectory() as tmp:
+            wav = os.path.join(tmp, "req0.wav")
+            _write_wav(wav, 65.0)
+            kw = dict(params=params, config=config, device=dev, temperature=0.0,
+                      batch_windows=True, sample_len=BATCH_SAMPLE_LEN,
+                      no_speech_threshold=None, language="en", verbose=False)
+            ref = transcribe_mod.transcribe(wav, tokenizer=_wordy_tokenizer(config.n_vocab),
+                                            **kw)
+            _m14_zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = transcribe_mod.transcribe(wav, tokenizer=tok, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _m14_counts()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    same = [s["tokens"] for s in got["segments"]] == [s["tokens"] for s in ref["segments"]]
+    print(f"  m14 (a) world of one, backend {backend}, make_mesh(dp=1, tp=1): "
+          f"transcribe(batch_windows=True, mesh=) on the 65 s file, {len(got['segments'])} "
+          f"segments, {sum(len(s['tokens']) for s in got['segments'])} tokens, bit-equal to "
+          f"the meshless run: {same}; wall {wall:.3f} s, launches {counts}")
+    assert same and got["text"] == ref["text"], "(a) the mesh of one changed the tokens"
+    _m14_add(totals, counts)
+
+
+def _m14_dp(rank: int, params, config, tok, dev, mesh, lines: list) -> dict:
+    """(b1) dp 2: phase 22's burst of four requests (8 windows) through
+    TranscriptionBatcher(mesh=), rank 0 holding the queue and rank 1
+    following, in one bucket of 8 at a raised flush, so that the burst rides
+    one batch (4 windows a rank). Each rank's tokens are held bit for bit to a meshless
+    run of its own 4 windows. -> the launches of the burst."""
+    from whisper_mlx_tpu_torch.parallel.sharding import shard_batch
+
+    batcher = TranscriptionBatcher(params, config, tok, device=dev, mesh=mesh, batch_size=8,
+                                   decoding=DecodingOptions(sample_len=BATCH_SAMPLE_LEN),
+                                   max_wait_ms=CHECKED_FLUSH[0], idle_gap_ms=CHECKED_FLUSH[1])
+    slices, run_slice = [], batcher._run_slice
+
+    def spy(mel):
+        out = run_slice(mel)
+        slices.append((mel.clone(), out))
+        return out
+
+    batcher._run_slice = spy
+    seconds = (65.0, 30.0, 20.0, 65.0)
+    _m14_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rank == 0:
+        with tempfile.TemporaryDirectory() as tmp:
+            audios = []
+            for i, sec in enumerate(seconds):
+                path = os.path.join(tmp, f"req{i}.wav")
+                _write_wav(path, sec)
+                audios.append(load_audio_serving(path))
+        results, _ = _burst(batcher, audios)
+        _check_segments(results, seconds)
+        batches = batcher.stats["batches"]
+    else:
+        batches = batcher.follow()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _m14_counts()
+    assert batches == 1 and len(slices) == 1, f"(b1) {batches} batches: expected one of 8"
+    mel, gathered = slices[0]
+    local = shard_batch(mel, mesh)
+    start = mesh.index("dp") * local.shape[0]
+    with torch.inference_mode():
+        alone = decode(params, encode(params, local, config), tok, config, batcher.decoding,
+                       states_precomputed=True)
+    mine = _m14_tokens(gathered[start:start + local.shape[0]])
+    same = mine == _m14_tokens(alone)
+    lines.append(f"(b1) dp 2: the burst of {len(seconds)} requests (8 windows) in {batches} "
+                 f"batch of {mel.shape[0]}, windows {start}-{start + local.shape[0] - 1} on "
+                 f"this rank; wall {wall:.3f} s; launches {counts}; tokens bit-equal to a "
+                 f"meshless run of the same {local.shape[0]} windows: {same}")
+    assert same, f"(b1) rank {rank}: its windows' tokens differ from the meshless run's"
+    if rank == 0:
+        with torch.inference_mode():
+            whole = decode(params, encode(params, mel, config), tok, config, batcher.decoding,
+                           states_precomputed=True)
+        agree, total = _agreement(gathered, whole)
+        lines.append(f"(b1) the 8 gathered windows beside a meshless run of all 8: "
+                     f"{agree}/{total} tokens agree")
+    return counts
+
+
+class _M14Spy:
+    """greedy's ``decode_step`` while in use: each call's last-position
+    logits (fp32) and the collectives it ran."""
+
+    def __enter__(self):
+        from whisper_mlx_tpu_torch.decoding import greedy
+        from whisper_mlx_tpu_torch.parallel import mesh as mesh_mod
+
+        self.module, self.real = greedy, greedy.decode_step
+        self.logits, self.collectives = [], []
+
+        def spy(*a, **kw):
+            before = dict(mesh_mod.COUNTS)
+            out = self.real(*a, **kw)
+            self.logits.append(out[0][:, -1].float())
+            self.collectives.append({k: mesh_mod.COUNTS[k] - before[k] for k in before})
+            return out
+
+        greedy.decode_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decode_step = self.real
+
+
+def _m14_d(ref_logits: list, got_logits: list, ref_toks: list, got_toks: list) -> float:
+    """D: the largest logit difference between two greedy runs over the
+    steps both take on the same tokens, up to and with their first parting."""
+    first = _first_difference(ref_toks, got_toks)
+    last = min(len(ref_logits), len(got_logits)) - 1 if first is None else first
+    return max(float((a - b).abs().max())
+               for a, b in zip(ref_logits[:last + 1], got_logits[:last + 1]))
+
+
+class _M14Stream:
+    """While in use: the residual stream at the input of each call of
+    ``module.name`` (whisper's layer_norm, Qwen's rms_norm) on a tensor
+    ``width`` wide, in call order. Without ``ref`` the tensors are kept;
+    with ``ref`` (a first run's tensors) each point's max|err| over
+    max(1, max|ref|) is kept instead."""
+
+    def __init__(self, module, name: str, width: int, ref: list | None = None):
+        self.module, self.name, self.width, self.ref, self.points = module, name, width, ref, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def spy(x, *a, **kw):
+            if x.shape[-1] == self.width:
+                if self.ref is None:
+                    self.points.append(x.clone())
+                elif len(self.points) < len(self.ref):
+                    r = self.ref[len(self.points)].float()
+                    self.points.append(float((x.float() - r).abs().max())
+                                       / max(1.0, float(r.abs().max())))
+            return self.real(x, *a, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+class _M14Plain:
+    """While in use, the models run every kernel of phase 27's paths as its
+    plain version on the card: K2, K3, K3's GQA mode, K4 and K5 (a
+    comparison run's, launching none of them)."""
+
+    def __enter__(self):
+        real = tq.quant_matmul
+
+        def qmm(x, q):
+            if isinstance(q, tq.QuantTensor) and x.numel() // x.shape[-1] <= 512:
+                return _k5_plain(x, q).to(x.dtype)
+            return real(x, q)
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (tw, "dense_attention"), (tw, "decode_attention"), (tw, "flash_attention"),
+            (tw, "quant_matmul"), (qw, "flash_attention"), (qw, "gqa_decode_attention"),
+            (qw, "quant_matmul"))]
+        tw.dense_attention, tw.decode_attention = dn.dense_attention_plain, da.decode_attention_plain
+        tw.flash_attention = qw.flash_attention = fa.flash_attention_plain
+        qw.gqa_decode_attention = gq.gqa_decode_attention_plain
+        tw.quant_matmul = qw.quant_matmul = qmm
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def _m14_growth(errs: list, marks: dict) -> str:
+    return ", ".join(f"{name} {errs[i]:.3e}" for name, i in marks.items() if i < len(errs))
+
+
+def _m14_check_stem(label: str, errs: list) -> None:
+    """The stream before the first block (the conv stem, replicated, or the
+    vocabulary lookup, masked and summed over "tp") bit-equal at tp 2."""
+    assert errs[0] == 0.0, f"{label}: the stream differs before the first block ({errs[0]})"
+
+
+def _m14_marks(name: str, n: int, index) -> dict:
+    """Points of the stream to print: after blocks 1, 2, 4, ... and the last."""
+    blocks = sorted({b for b in (1, 2, 4, 8, 16, 32, 64) if b < n} | {n})
+    return {f"{name} {b}": index(b) for b in blocks}
+
+
+def _m14_check_logits(label: str, got, ref, plain_err: float) -> str:
+    """The first step's logits at tp 2 against the meshless run: within
+    QMM_TOL x max(1, |ref|) or, where the same pair of runs with every
+    kernel replaced by its plain version on the card (_M14Plain) differs by
+    more, within SPEC_TIE_FACTOR times that: the net's own drift under tp
+    2's reordered bf16 sums, measured in the run, which must itself stay
+    within TINY_LOGIT_TOL x max(1, |ref|), the limit of two bf16
+    computations of a whole net (phases 4, 22, 26). -> the reading."""
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert plain_err <= TINY_LOGIT_TOL * scale, f"{label}: with the plain versions, tp 2's " \
+        f"first-step logits differ by {plain_err} > {TINY_LOGIT_TOL * scale}"
+    tol = max(QMM_TOL * scale, SPEC_TIE_FACTOR * plain_err)
+    assert err <= tol, f"{label}: first step's logits {err} > {tol} (the plain versions' " \
+        f"tp drift {plain_err})"
+    return (f"first step's logits max |err| {err:.4e} ({err / (QMM_TOL * scale):.2f} x QMM_TOL x "
+            f"max(1, |ref|)); the same pair with the plain versions in the kernels' place "
+            f"{plain_err:.4e} ({plain_err / (QMM_TOL * scale):.2f} x); limit {tol:.4e}")
+
+
+def _m14_whisper_drift(params, local, config, tp_config, mel, tok) -> tuple[str, float]:
+    """(b2)'s first step again, meshless and at tp 2: the residual stream's
+    error at each layer_norm input (encoder blocks, then the first decode
+    step's), and the first step's logit difference of the same pair with
+    the plain versions in the kernels' place. -> (growth line, that
+    difference)."""
+    opts = DecodingOptions(sample_len=1, language="en")
+
+    def first(p, c, stream=None):
+        with contextlib.ExitStack() as stack:
+            if stream is not None:
+                stack.enter_context(stream)
+            spy = stack.enter_context(_M14Spy())
+            decode(p, mel, tok, c, opts)
+        return spy.logits[0]
+
+    with _M14Stream(tw, "layer_norm", config.n_audio_state) as ref_stream:
+        first(params, config)
+    stream = _M14Stream(tw, "layer_norm", config.n_audio_state, ref_stream.points)
+    first(local, tp_config, stream)
+    del ref_stream
+    with _M14Plain():
+        plain_err = float((first(local, tp_config) - first(params, config)).abs().max())
+    n = config.n_audio_layer
+    marks = {"encoder's first attention half": 1,
+             **_m14_marks("encoder block", n, lambda b: 2 * b),
+             **_m14_marks("step-1 decoder block", config.n_text_layer,
+                          lambda b: 2 * n + 1 + 3 * b)}
+    _m14_check_stem("(b2) encoder", stream.points)
+    return (f"(b2) residual stream at tp 2 against meshless, max|err| / max(1, max|ref|): "
+            f"{_m14_growth(stream.points, marks)}", plain_err)
+
+
+def _m14_qwen_drift(params, local, config, tp_config, ids, dev) -> tuple[str, float]:
+    """(b3)'s prefill again, meshless and at tp 2: the residual stream's
+    error at each rms_norm input of the model's width, and the last
+    position's logit difference of the same pair with the plain versions
+    in the kernels' place. -> (growth line, that difference)."""
+    def prefill(p, c):
+        cache = qw.init_kv_cache(c, 1, len(ids) + 8, dev)
+        return qw.decode_step(p, torch.tensor([ids], device=dev), 0, cache, c)[0][0, -1].float()
+
+    with _M14Stream(qw, "rms_norm", config.hidden_size) as ref_stream:
+        prefill(params, config)
+    with _M14Stream(qw, "rms_norm", config.hidden_size, ref_stream.points) as stream:
+        prefill(local, tp_config)
+    del ref_stream
+    with _M14Plain():
+        plain_err = float((prefill(local, tp_config) - prefill(params, config)).abs().max())
+    marks = {"first attention half": 1,
+             **_m14_marks("layer", config.num_hidden_layers, lambda b: 2 * b)}
+    _m14_check_stem("(b3)", stream.points)
+    return (f"(b3) residual stream of the prefill at tp 2 against meshless, max|err| / max(1, "
+            f"max|ref|): {_m14_growth(stream.points, marks)}", plain_err)
+
+
+def _m14_tp_whisper(params, config, tok, dev, mesh, lines: list) -> dict:
+    """(b2) tp 2 on large-v3: 2 windows of the 65 s file, M14_TP_STEPS greedy
+    steps, K2 and K3 at 10 of the 20 heads a rank, beside the meshless run:
+    the first step's logits (_m14_check_logits) and the tokens up to a first
+    parting that is a near tie (SPEC_TIE_FACTOR x D, D the largest logit
+    difference over the steps both runs take on the same tokens). -> the
+    launches of the tensor-parallel decode."""
+    from whisper_mlx_tpu_torch.parallel.sharding import shard_model
+
+    audio = _request_audio(65.0, 0)
+    with torch.inference_mode():
+        mel_all = log_mel_spectrogram(F.pad(torch.from_numpy(audio).to(dev), (0, N_SAMPLES)),
+                                      n_mels=config.n_mels)
+        mel = mel_all[:6000].reshape(2, 3000, -1)
+        opts = DecodingOptions(sample_len=M14_TP_STEPS, language="en")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _M14Spy() as ref_spy:
+            ref = decode(params, mel, tok, config, opts)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        local, tp_config = shard_model(params, config, mesh)
+        heads = local["encoder"]["blocks"][0]["attn"]["q"]["w"].shape[0] // config.head_dim
+        _m14_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _M14Spy() as spy:
+            got = decode(local, mel, tok, tp_config, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _m14_counts()
+        growth, plain_err = _m14_whisper_drift(params, local, config, tp_config, mel, tok)
+    assert heads == config.n_audio_head // mesh.tp, heads
+    lines.append(growth)
+    d = max(_m14_d([x[w] for x in ref_spy.logits], [x[w] for x in spy.logits], a.tokens,
+                   b.tokens) for w, (a, b) in enumerate(zip(ref, got)))
+    lines.append(f"(b2) tp 2 large-v3: {heads} heads a rank, 2 windows, {M14_TP_STEPS} steps, "
+                 f"wall {wall:.3f} s (meshless {ref_wall:.3f} s), launches {counts}; "
+                 f"collectives a step (the second) "
+                 f"{spy.collectives[1]}; "
+                 f"{_m14_check_logits('(b2)', spy.logits[0], ref_spy.logits[0], plain_err)}; "
+                 f"D {d:.4e}")
+    for w, (a, b) in enumerate(zip(ref, got)):
+        _spec_check(f"m14 (b2) window {w}", a.tokens, b.tokens,
+                    lambda i, w=w, a=a, b=b: float(ref_spy.logits[i][w, a.tokens[i]]
+                                                   - ref_spy.logits[i][w, b.tokens[i]]), d)
+    return counts
+
+
+def _m14_qwen_run(params, config, ids, dev):
+    """Prefill of ``ids`` then M14_QWEN_STEPS greedy steps: -> (M14_QWEN_STEPS
+    + 1 tokens, the logits predicting each, the collectives of one step)."""
+    from whisper_mlx_tpu_torch.parallel import mesh as mesh_mod
+
+    cache = qw.init_kv_cache(config, 1, len(ids) + M14_QWEN_STEPS + 8, dev)
+    logits, _ = qw.decode_step(params, torch.tensor([ids], device=dev), 0, cache, config)
+    out, toks = [logits[0, -1].float()], []
+    for s in range(M14_QWEN_STEPS + 1):
+        toks.append(int(out[-1].argmax()))
+        if s == M14_QWEN_STEPS:
+            break
+        before = dict(mesh_mod.COUNTS)
+        logits, _ = qw.decode_step(params, torch.tensor([[toks[-1]]], device=dev),
+                                   len(ids) + s, cache, config)
+        step = {k: mesh_mod.COUNTS[k] - before[k] for k in before}
+        out.append(logits[0, -1].float())
+    return toks, out, step
+
+
+def _m14_tp_qwen(dev, mesh, lines: list) -> dict:
+    """(b3) tp 2 at Qwen3-32B's widths, packed int4, M14_QWEN_LAYERS layers:
+    the 270-token prompt's prefill (K4, 32 query heads over 4 KV heads a
+    rank) and M14_QWEN_STEPS steps (K5 on column and row shards), at kv 0
+    and kv 8 (K3's GQA mode), held as (b2) holds whisper. -> launches."""
+    from whisper_mlx_tpu_torch.parallel.sharding_llm import shard_qwen_model
+
+    base = dataclasses.replace(QWEN32, num_hidden_layers=M14_QWEN_LAYERS, dtype=torch.bfloat16,
+                               flash_attention=True)
+    params = qw.init_random_quant_params(base, seed=0, device=dev)
+    ids = ByteFallbackTokenizer().encode(_prompt_text(np.random.default_rng(6), 270))
+    totals: dict = {}
+    local, tp_config = shard_qwen_model(params, base, mesh)
+    with torch.inference_mode():
+        growth, plain_err = _m14_qwen_drift(params, local, base, tp_config, ids, dev)
+    lines.append(growth)
+    del local
+    for kv in (0, 8):
+        config = dataclasses.replace(base, kv_bits=kv)
+        local, tp_config = shard_qwen_model(params, config, mesh)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_toks, ref_logits, _ = _m14_qwen_run(params, config, ids, dev)
+            torch.cuda.synchronize()
+            ref_wall = time.perf_counter() - t0
+            _m14_zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, logits, step = _m14_qwen_run(local, tp_config, ids, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _m14_counts()
+        d = _m14_d(ref_logits, logits, ref_toks, toks)
+        qkv = local["layers"][0]["attn"]["qkv"]["w"].shape
+        lines.append(f"(b3) tp 2 Qwen3-32B int4 kv {kv}, {M14_QWEN_LAYERS} layers: qkv shard "
+                     f"{qkv}, prefill {len(ids)} tokens + {M14_QWEN_STEPS} steps, wall "
+                     f"{wall:.3f} s (meshless {ref_wall:.3f} s), launches {counts}; "
+                     f"collectives a step {step}; "
+                     f"{_m14_check_logits(f'(b3) kv {kv}', logits[0], ref_logits[0], plain_err)}; "
+                     f"D {d:.4e}")
+        _spec_check(f"m14 (b3) kv {kv}", ref_toks, toks,
+                    lambda i: float(ref_logits[i][ref_toks[i]] - ref_logits[i][toks[i]]), d)
+        _m14_add(totals, counts)
+        del local
+    return totals
+
+
+def _m14_rank(rank: int, world: int, coordinator: str) -> dict:
+    """One of phase 27's two ranks, both on cuda:0, in a gloo group: (b1),
+    (b2) and (b3). -> its lines, launches and peak memory."""
+    import torch.distributed as dist
+
+    from whisper_mlx_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    import io
+
+    dev = setup_device("cuda:0")
+    init_distributed(coordinator, world, rank, backend="gloo", device=dev)
+    printed = io.StringIO()  # _spec_check's lines, returned with the rank's own
+    try:
+        lines = [f"backend {dist.get_backend()}, {world} ranks on {torch.cuda.get_device_name(0)}"]
+        devices = [dev] * world
+        dp2, tp2 = make_mesh(dp=2, tp=1, devices=devices), make_mesh(dp=1, tp=2, devices=devices)
+        base = WHISPER_CONFIGS["large-v3"]
+        params, config = apply_asr_serving_config(
+            init_params(base, seed=0, device=dev, dtype=torch.bfloat16), base, dev)
+        tok = _wordy_tokenizer(config.n_vocab)
+        torch.cuda.reset_peak_memory_stats()
+        totals: dict = {}
+        with contextlib.redirect_stdout(printed):
+            _m14_add(totals, _m14_dp(rank, params, config, tok, dev, dp2, lines))
+            _m14_add(totals, _m14_tp_whisper(params, config, tok, dev, tp2, lines))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            _m14_add(totals, _m14_tp_qwen(dev, tp2, lines))
+        return {"lines": lines + [ln.strip() for ln in printed.getvalue().splitlines()],
+                "launches": totals, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_m14() -> dict:
+    """Phase 27: multi-device parallelism (ROADMAP M14). (a) in this process
+    (_m14_world_of_one), then (b) two ranks sharing the card over gloo
+    (_m14_rank through parallel/launch.py:run_ranks). -> the launches of
+    K1-K5 and K3's GQA mode over the phase's main-path runs, summed over
+    the ranks (the comparison runs left out)."""
+    from whisper_mlx_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    _m14_shard_kernels()
+    print(f"  m14 kernels at the tp-2 shard shapes: {time.perf_counter() - t_phase:.1f} s")
+    _m14_world_of_one(totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke.py:_m14_rank", 2, timeout_s=M14_RANKS_TIMEOUT_S)
+    for r, out in enumerate(ranks):
+        for line in out["lines"]:
+            print(f"  m14 rank {r}: {line}")
+        print(f"  m14 rank {r}: peak memory {out['peak_gib']:.2f} GiB, launches {out['launches']}")
+        _m14_add(totals, out["launches"])
+    print(f"  m14 (b) two ranks over gloo: {time.perf_counter() - t0:.1f} s with the ranks' "
+          f"start; the phase {time.perf_counter() - t_phase:.1f} s")
+    print(f"  launches over the phase's main-path runs, summed over ranks: {totals}")
+    for key in ("mel", "dense", "decode", "flash", "quant", "gqa"):
+        assert totals.get(key, 0) > 0, f"kernel {key} was not launched on phase 27's path"
+    print(f"m14: {_smi()}")
+    return totals
+
+
 def _timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5251,7 +5884,7 @@ def main(argv: list[str] | None = None) -> int:
                         "device and build phases (a partial run prints no result line and exits 2): "
                         "kernels, tiny, main, beam, llm_kernels, tiny_qwen, llm, "
                         "residency_kernels, residency, probe_kernels, probe_mains, tiny_quant, "
-                        "quant_main, serve, spec, daemon, llm_kv, m15, and batches, "
+                        "quant_main, serve, spec, daemon, llm_kv, m15, m14, and batches, "
                         "residency_times, "
                         "beam_times, "
                         "beam_batches, tiled_times and a8_times, which run only when named")
@@ -5259,7 +5892,8 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    rows, launches, on_4bit, serve, spec, daemon, kv, m15 = {}, {}, {}, {}, {}, {}, {}, {}
+    rows, launches, on_4bit, serve, spec, daemon, kv, m15, m14 = ({}, {}, {}, {}, {}, {}, {},
+                                                                  {}, {})
 
     def residency():
         out = {}
@@ -5289,6 +5923,7 @@ def main(argv: list[str] | None = None) -> int:
         "daemon": ("daemon", phase_daemon, daemon),
         "llm_kv": ("llm kv cache", phase_llm_kv, kv),
         "m15": ("m15", phase_m15, m15),
+        "m14": ("m14", phase_m14, m14),
         "batches": ("batches", phase_batches, None),
         "residency_times": ("llm residency times", phase_residency_times, None),
         "beam_times": ("beam kernel times", phase_beam_times, None),
@@ -5335,6 +5970,10 @@ def main(argv: list[str] | None = None) -> int:
             row["launches_kv"] = kv[f"{key}_kv"]
         if key in m15["launches"]:  # the last opt-ins' path (phase 26)
             row["launches_m15"] = m15["launches"][key]
+        if key in m14:  # the sharded paths, summed over the ranks (phase 27)
+            row["launches_m14"] = m14[key]
+        if key == "decode":  # K3's GQA mode on phase 27's tensor-parallel Qwen
+            row["launches_gqa_m14"] = m14["gqa"]
         if key == "beamflat":  # its split and per-lane modes (phase 26)
             row.update(m15["rows"], launches_split_m15=m15["launches"]["beamflat_split"],
                        launches_lane_m15=m15["launches"]["beamflat_lane"])

@@ -193,11 +193,20 @@ def test_batched_quantized_matches_jax(pair):
 
 @pytest.mark.parametrize("batch_windows", [True, False])
 def test_mesh_raises_m14(pair, batch_windows):
+    """``mesh=`` is ported (ROADMAP.md M14): a mesh of one rank, which needs
+    no process group, gives the meshless result in both modes, the retry
+    rung included (the ranks of wider meshes: tests/test_torch_parallel_mp.py)."""
+    from whisper_mlx_tpu_torch.parallel.mesh import make_mesh
+
     _, _, tparams, tcfg = pair
-    with pytest.raises(NotImplementedError, match="M14"):
-        t_tr.transcribe(np.zeros(16000, np.float32), params=tparams, config=tcfg,
-                        tokenizer=t_tokenizer.make_synthetic_tokenizer(), device="cpu",
-                        batch_windows=batch_windows, mesh=object())
+    kw = dict(params=tparams, config=tcfg, device="cpu", temperature=(0.0, 1.0),
+              batch_windows=batch_windows, window_batch_size=3, sample_len=8,
+              no_speech_threshold=None, verbose=False)
+    audio = make_speechy_audio(40.0, seed=3)
+    ref = t_tr.transcribe(audio, tokenizer=t_tokenizer.make_synthetic_tokenizer(), **kw)
+    got = t_tr.transcribe(audio, tokenizer=t_tokenizer.make_synthetic_tokenizer(),
+                          mesh=make_mesh(dp=1, tp=1), **kw)
+    assert got["segments"] == ref["segments"] and got["text"] == ref["text"]
 
 
 def test_batched_equals_sequential_on_full_stride(pair, monkeypatch):

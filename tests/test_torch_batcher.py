@@ -1,10 +1,10 @@
 """Port parity: the cross-request TranscriptionBatcher and the serving
 knobs of whisper_mlx_tpu_torch against the JAX package on the CPU.
 
-Mirrors tests/test_batcher.py on the port (the mesh cases become one test
-that ``mesh=`` raises, ROADMAP.md M14), and holds the port's batcher token
-for token to the JAX package's on the same requests and to the port's own
-batched transcribe.
+Mirrors tests/test_batcher.py on the port (the mesh cases over several
+ranks are in tests/test_torch_parallel_mp.py), and holds the port's batcher
+token for token to the JAX package's on the same requests and to the
+port's own batched transcribe.
 """
 
 from __future__ import annotations
@@ -315,11 +315,26 @@ def test_adaptive_flush_fills_while_device_busy(tiny, monkeypatch):
 
 
 def test_batcher_mesh_raises_m14(tiny):
-    """The JAX package's mesh cases (token identity over dp=4, buckets
-    rounded to dp, quantized trees replicated): data parallelism over
-    windows is not ported, so ``mesh=`` raises naming its item."""
-    with pytest.raises(NotImplementedError, match="M14"):
+    """``mesh=`` is ported (ROADMAP.md M14): a mesh of one rank, which needs
+    no process group, answers as the meshless batcher does, and anything
+    but a ``parallel.mesh.Mesh`` raises naming it. Several ranks: 
+    tests/test_torch_parallel_mp.py."""
+    from whisper_mlx_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         _batcher(tiny, batch_size=4, mesh=object())
+    audios = [make_speechy_audio(seconds=s, seed=i) for i, s in enumerate((35.0, 5.0))]
+
+    async def burst(b):
+        out = await asyncio.gather(*(b.transcribe(a) for a in audios))
+        b.shutdown()
+        return out
+
+    opts = DecodingOptions(sample_len=8)
+    ref = asyncio.run(burst(_batcher(tiny, batch_size=(2, 6), decoding=opts)))
+    b = _batcher(tiny, batch_size=(2, 6), decoding=opts, mesh=make_mesh(dp=1, tp=1))
+    assert b.buckets == (2, 6)
+    assert asyncio.run(burst(b)) == ref
 
 
 def test_batcher_defaults_read_serving_knobs(tiny, monkeypatch):
@@ -336,9 +351,17 @@ def test_batcher_defaults_read_serving_knobs(tiny, monkeypatch):
 
 @pytest.mark.parametrize("value", ["2", "4"])
 def test_batcher_serve_dp_raises_m14(tiny, monkeypatch, value):
+    """WTPU_SERVE_DP is the daemon's knob (it starts the ranks and passes
+    the mesh); a batcher built without ``mesh=`` serves on its one device
+    whatever it says, and serving_mesh in a job of one rank refuses a
+    width it cannot build."""
     monkeypatch.setenv("WTPU_SERVE_DP", value)
-    with pytest.raises(NotImplementedError, match="M14"):
-        _batcher(tiny)
+    monkeypatch.delenv("WTPU_TRANSCRIBE_BATCH", raising=False)
+    b = _batcher(tiny)
+    assert b.mesh is None and b.buckets == (8,)
+    assert sc.serving_dp("cpu") == int(value)
+    with pytest.raises(ValueError, match=f"dp\\*tp = {value}\\*1 != 1 devices"):
+        sc.serving_mesh("cpu")
 
 
 def test_batcher_cuda_without_gpu_raises(tiny, monkeypatch):
@@ -395,10 +418,15 @@ def test_serving_mesh_one_card_is_none(monkeypatch, value):
 
 @pytest.mark.parametrize("value,cards", [("2", 1), ("4", 4), ("auto", 4)])
 def test_serving_mesh_wider_raises_m14(monkeypatch, value, cards):
+    """On CUDA "auto" takes every card and an int pins the width; a width
+    above the host's cards raises, as in the JAX package."""
     monkeypatch.setenv("WTPU_SERVE_DP", value)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    with pytest.raises(NotImplementedError, match="M14"):
-        sc.serving_mesh("cuda")
+    if int(value if value != "auto" else cards) > cards:
+        with pytest.raises(ValueError, match="exceeds 1 local devices"):
+            sc.serving_dp("cuda")
+    else:
+        assert sc.serving_dp("cuda") == 4
 
 
 def test_dense_policy_cache_one_thread_at_a_time(pair, monkeypatch):

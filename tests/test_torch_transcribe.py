@@ -208,12 +208,14 @@ def test_serving_config_rejects_skipping_kernels(monkeypatch, name, value, devic
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "M14"),
-    (dict(batch_windows=True, mesh=object()), "M14"),
+    (dict(mesh=object()), "Mesh"),
+    (dict(batch_windows=True, mesh=object()), "Mesh"),
 ])
 def test_features_out_of_slice_raise(pair, kwargs, item):
+    """Every feature is ported (``mesh=`` since ROADMAP.md M14); a mesh that
+    is not a ``parallel.mesh.Mesh`` raises naming the type it takes."""
     _, _, tparams, tcfg, _ = pair
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         t_transcribe(np.zeros(16000, np.float32), params=tparams, config=tcfg,
                      tokenizer=t_tokenizer.make_synthetic_tokenizer(), device="cpu",
                      temperature=0.0, sample_len=4, **kwargs)

@@ -40,12 +40,19 @@ class GreedyResult(NamedTuple):
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float,
-                  generator: torch.Generator | None) -> torch.Tensor:
+                  generator: torch.Generator | None,
+                  rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Argmax at temperature 0, else a categorical draw (Gumbel-max with
-    noise from ``generator``) from ``softmax(logits / temperature)``."""
+    noise from ``generator``) from ``softmax(logits / temperature)``.
+    ``rows = (start, total)``: ``logits`` are rows ``[start, start + b)`` of
+    a batch of ``total`` (a data-parallel slice); the whole batch's noise
+    is drawn and this slice's rows kept, so that every slice samples what
+    the whole batch would."""
     if temperature <= 0:
         return logits.argmax(dim=-1)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    start, total = rows or (0, logits.shape[0])
+    u = torch.rand((total, *logits.shape[1:]), generator=generator,
+                   device=logits.device)[start:start + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return (logits / temperature + gumbel).argmax(dim=-1)
 
@@ -65,9 +72,11 @@ def greedy_decode(
     sot_index: int,
     no_speech_token: int,
     share_xkv_groups: int = 1,
+    rows: tuple[int, int] | None = None,
 ) -> GreedyResult:
     """``share_xkv_groups=g``: audio_states holds batch/g windows whose
-    cross K/V are shared by g consecutive decode rows (best_of)."""
+    cross K/V are shared by g consecutive decode rows (best_of). ``rows``:
+    see :func:`sample_tokens`."""
     device = audio_states.device
     batch, n_init = initial_tokens.shape
     n_ctx = config.n_text_ctx
@@ -94,7 +103,7 @@ def greedy_decode(
         filtered = apply_filters(logits, tokens, cur_len, suppress_mask, blank_mask,
                                  filter_cfg)
         logprobs = torch.log_softmax(filtered, dim=-1)
-        next_tok = sample_tokens(filtered, temperature, generator)
+        next_tok = sample_tokens(filtered, temperature, generator, rows)
         tok_logprob = logprobs.gather(1, next_tok[:, None])[:, 0]
         sum_logprobs += torch.where(done, torch.zeros_like(tok_logprob), tok_logprob)
         next_tok = torch.where(done, eot_t, next_tok)

@@ -199,12 +199,15 @@ def decode(
     *,
     states_precomputed: bool = False,
     generator: torch.Generator | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> list[DecodingResult]:
     """Decode a batch of 30 s windows -> one DecodingResult per window.
 
     ``mel_or_states``: (batch, 3000, n_mels) mel, or (batch, 1500, d)
     encoder states when ``states_precomputed``. ``generator`` drives the
-    temperature > 0 draws.
+    temperature > 0 draws. ``rows = (start, total)``: these windows are
+    ``[start, start + batch)`` of a batch of ``total`` (a data-parallel
+    slice), and the draws are the whole batch's.
 
     A packed 4/8-bit tree goes through ``maybe_dense_decode_params`` first:
     by the loop's matmul rows (windows x beam_size or best_of) it stays
@@ -240,6 +243,7 @@ def decode(
         filter_cfg=setup.filter_cfg, sample_len=setup.sample_len,
         sot_index=setup.sot_index, no_speech_token=tokenizer.no_speech,
         share_xkv_groups=n_candidates,
+        rows=None if rows is None else (rows[0] * n_candidates, rows[1] * n_candidates),
     )
     # the one device -> host fetch of the greedy path
     tokens_np = result.tokens.cpu().numpy()

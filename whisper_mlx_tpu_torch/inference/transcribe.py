@@ -27,7 +27,16 @@ sequential mode's T = 0 rung runs draft-assisted greedy decoding
 is asked for: token-identical to plain greedy. The batched mode ignores the
 draft, as the reference does.
 
-Not in this slice: ``mesh=`` (ROADMAP.md M14) raises ``NotImplementedError``.
+``mesh=`` (``parallel/mesh.py:make_mesh``): every rank of the job calls
+``transcribe`` with the same arguments (SPMD) and gets the same dict. The
+tree is sharded over the mesh (``parallel/sharding.py:shard_model``: a
+tensor-parallel fp tree, a quantized one whole). In the batched mode
+``window_batch_size`` and the retry rungs' buckets are rounded up to
+multiples of dp, each rank encodes and decodes its contiguous slice of a
+chunk, and the results are gathered in window order; sampled rungs draw
+the whole chunk's noise on every rank, so the tokens equal one device's.
+The sequential mode decodes every window on every rank (tensor
+parallelism still splits each step).
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ from whisper_mlx_tpu_torch.decoding.tokenizer import WhisperTokenizer
 from whisper_mlx_tpu_torch.inference.word_timestamps import add_word_timestamps
 from whisper_mlx_tpu_torch.models.whisper import Params, WhisperConfig, encode
 from whisper_mlx_tpu_torch.ops.quant import maybe_dense_decode_params
+from whisper_mlx_tpu_torch.parallel.mesh import Mesh, all_gather_cat, all_gather_objects
+from whisper_mlx_tpu_torch.parallel.sharding import dp_round, shard_batch, shard_model
 from whisper_mlx_tpu_torch.runtime.device import setup_device
 from whisper_mlx_tpu_torch.runtime.profiling import StageTimer
 
@@ -129,9 +140,9 @@ def transcribe(
     raises. ``hallucination_silence_threshold`` acts only with word
     timestamps in the sequential mode, as in the reference.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh=: data parallelism over windows is not ported "
-                                  "(ROADMAP.md M14)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh=: expected a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    params, config = shard_model(params, config, mesh)
     device = setup_device(device)
     if isinstance(audio, (str, bytes)) or hasattr(audio, "__fspath__"):
         audio = load_audio(audio)
@@ -181,7 +192,7 @@ def transcribe(
             mel_all, content_frames, params, config, tokenizer, device,
             temperatures, compression_ratio_threshold, logprob_threshold,
             no_speech_threshold, initial_prompt, window_batch_size,
-            word_timestamps, decode_options, stage_timer,
+            word_timestamps, decode_options, stage_timer, mesh,
         )
 
     input_stride = N_FRAMES // config.n_audio_ctx  # 2 mel frames per token
@@ -558,11 +569,14 @@ def _transcribe_batched(
     word_timestamps: bool,
     decode_options: dict,
     stage_timer: StageTimer,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """Fixed-stride windows, decoded ``window_batch_size`` at a time; every
     window is independent (no conditioning on previous text, as the
     reference launcher runs). The windows are device slices of ``mel_all``,
-    whose 30 s tail of padding makes every slice full length."""
+    whose 30 s tail of padding makes every slice full length. With
+    ``mesh`` each rank runs its dp slice of every chunk (module docstring)."""
+    window_batch_size = dp_round(window_batch_size, mesh)
     n_windows = max(1, -(-content_frames // N_FRAMES))
     mel_batch = mel_all[: n_windows * N_FRAMES].reshape(n_windows, N_FRAMES, -1)
 
@@ -587,13 +601,24 @@ def _transcribe_batched(
     def _generator(t: float) -> torch.Generator:
         return torch.Generator(device=device).manual_seed(int(t * 1000))
 
+    def _decode(local: torch.Tensor, total: int, t: float) -> list:
+        """One rung over this rank's dp slice ``local`` of ``total`` windows'
+        states; the results of every slice, gathered in order."""
+        rows = None
+        if mesh is not None:
+            rows = (mesh.index("dp") * local.shape[0], total)
+        out = decode(params, local, tokenizer, config, _rung_opts(t),
+                     states_precomputed=True, generator=_generator(t), rows=rows)
+        return [r for part in all_gather_objects(out, mesh, "dp") for r in part]
+
     for start in range(0, n_windows, window_batch_size):
         chunk = mel_batch[start: start + window_batch_size]
         real = chunk.shape[0]
         if real < window_batch_size:  # one shape for every chunk
             chunk = F.pad(chunk, (0, 0, 0, 0, 0, window_batch_size - real))
         with stage_timer.stage("encode"):
-            states = encode(params, chunk, config)
+            local_states = encode(params, shard_batch(chunk, mesh), config)
+        states = None  # the whole chunk's, gathered over dp for a retry rung
         results: list[DecodingResult | None] = [None] * real
         pending = list(range(real))
         for ti, t in enumerate(temperatures):
@@ -601,17 +626,20 @@ def _transcribe_batched(
                 break
             with stage_timer.stage("decode"):
                 if ti == 0:
-                    sub_states, idx_map = states, list(range(real))
+                    idx_map = list(range(real))
+                    batch_results = _decode(local_states, window_batch_size, t)
                 else:
                     # retry rungs decode only the pending windows, gathered
-                    # to the next power of two (capped at the batch)
-                    bucket = min(1 << (len(pending) - 1).bit_length(), window_batch_size)
+                    # to the next power of two (a multiple of dp, capped at
+                    # the batch)
+                    if states is None:
+                        states = all_gather_cat(local_states, mesh, "dp")
+                    bucket = min(dp_round(1 << (len(pending) - 1).bit_length(), mesh),
+                                 window_batch_size)
                     sel = (pending + [pending[-1]] * (bucket - len(pending)))[:bucket]
-                    sub_states = states[torch.tensor(sel, device=states.device)]
                     idx_map = pending
-                batch_results = decode(params, sub_states, tokenizer, config,
-                                       _rung_opts(t), states_precomputed=True,
-                                       generator=_generator(t))
+                    sub = states[torch.tensor(sel, device=states.device)]
+                    batch_results = _decode(shard_batch(sub, mesh), bucket, t)
             still = []
             for j, i in enumerate(idx_map):
                 r = batch_results[j]

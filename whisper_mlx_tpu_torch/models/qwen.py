@@ -54,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_mlx_tpu_torch.models.whisper import embed_logits
+from whisper_mlx_tpu_torch.models.whisper import embed_logits, embed_tokens, row_linear, tp_mesh
 from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
 from whisper_mlx_tpu_torch.ops.gqa_decode_attention import (
     causal_mask,
@@ -65,9 +65,9 @@ from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.ops.quant import (
     QuantTensor,
     quant_matmul,
-    quant_rows,
     stack_quant,
 )
+from whisper_mlx_tpu_torch.parallel.mesh import all_gather_cat
 
 Params = dict[str, Any]
 
@@ -97,6 +97,26 @@ class QwenConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    def local_heads(self) -> tuple[int, int]:
+        """(query heads, KV heads) of this rank: the whole counts, or their
+        shares under tensor parallelism."""
+        mesh = tp_mesh(self)
+        tp = mesh.tp if mesh is not None else 1
+        if self.num_attention_heads % tp or self.num_key_value_heads % tp:
+            raise ValueError(f"qwen: heads ({self.num_attention_heads}, "
+                             f"{self.num_key_value_heads}) do not divide over tp={tp}")
+        return self.num_attention_heads // tp, self.num_key_value_heads // tp
+
+
+@dataclasses.dataclass(frozen=True)
+class TPQwenConfig(QwenConfig):
+    """A rank's config under tensor parallelism
+    (``parallel/sharding_llm.py:shard_qwen_model``): its tree holds this
+    rank's heads, MLP widths and vocabulary rows of ``mesh``'s "tp" axis;
+    the head counts and widths above stay the model's full ones."""
+
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 QWEN_CONFIGS: dict[str, QwenConfig] = {
@@ -165,8 +185,9 @@ def init_kv_cache(config: QwenConfig, batch: int, max_len: int,
     """Position-major cache: fp ``{"k", "v"}`` ``(batch, kv, max_len, hd)``,
     or under ``kv_bits`` 8 / 4 codes ``{"k8", "v8"}`` (int8 ``hd`` wide, or
     uint8 ``hd / 2`` wide holding int4 pairs) and bf16 scales ``{"ks",
-    "vs"}`` ``(batch, kv, max_len)``."""
-    KV, hd = config.num_key_value_heads, config.hd
+    "vs"}`` ``(batch, kv, max_len)``; a tensor-parallel rank holds its own
+    KV heads."""
+    KV, hd = config.local_heads()[1], config.hd
     if quantized_cache(config):
         width, cdt = (hd, torch.int8) if config.kv_bits == 8 else (hd // 2, torch.uint8)
         return [{"k8": torch.zeros((batch, KV, max_len, width), dtype=cdt, device=device),
@@ -181,11 +202,9 @@ def init_kv_cache(config: QwenConfig, batch: int, max_len: int,
             for _ in range(config.num_hidden_layers)]
 
 
-def _embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    emb = params["embed"]
-    if isinstance(emb, torch.Tensor):
-        return emb.to(dtype)[tokens]
-    return quant_rows(emb, tokens, dtype)
+def _embed(params: Params, tokens: torch.Tensor, config: QwenConfig) -> torch.Tensor:
+    return embed_tokens(params["embed"], tokens, config.dtype, tp_mesh(config),
+                        config.vocab_size)
 
 
 def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
@@ -206,7 +225,8 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
     quant_kv = quantized_cache(config)
     max_len = kv_cache[0]["k8" if quant_kv else "k"].shape[2]
     per_row = not isinstance(pos, int)
-    H, KV, hd = config.num_attention_heads, config.num_key_value_heads, config.hd
+    mesh = tp_mesh(config)
+    (H, KV), hd = config.local_heads(), config.hd
     # a prefill (a block at position 0) runs K4; a block past position 0
     # (speculative decoding's verify and draft sync) attends over the cache
     # on the grouped path, as a one-token step does
@@ -215,7 +235,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
         raise ValueError("qwen decode_step: on CUDA a prefill runs kernel K4; set "
                          "flash_attention=True")
 
-    x = _embed(params, tokens, config.dtype)
+    x = _embed(params, tokens, config)
     if per_row:
         starts = torch.tensor(list(pos), dtype=torch.int64)
         if starts.shape != (b,):
@@ -280,7 +300,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
         else:
             attn = grouped_attention(q, c["k"][:, :, :limit], c["v"][:, :, :limit], mask, scale)
         attn = attn.to(config.dtype).reshape(b, H, t, hd).transpose(1, 2).reshape(b, t, H * hd)
-        x = x + _linear(attn, blk["attn"]["o"])
+        x = x + row_linear(attn, blk["attn"]["o"], mesh, _linear)
 
         h = rms_norm(x, blk["post_ln"], config.rms_norm_eps)
         if "gate_up" in blk["mlp"]:
@@ -290,13 +310,15 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int | Sequence[int],
         else:
             gate = F.silu(_linear(h, blk["mlp"]["gate"]))
             up = _linear(h, blk["mlp"]["up"])
-        x = x + _linear(gate * up, blk["mlp"]["down"])
+        x = x + row_linear(gate * up, blk["mlp"]["down"], mesh, _linear)
 
     x = rms_norm(x, params["final_ln"], config.rms_norm_eps)
     if config.tie_word_embeddings:
-        logits = embed_logits(params["embed"], x, config.dtype)
+        logits = embed_logits(params["embed"], x, config.dtype, mesh, config.vocab_size)
     else:
         logits = _linear(x, params["lm_head"])
+        if mesh is not None:
+            logits = all_gather_cat(logits, mesh, "tp", dim=-1, total=config.vocab_size)
     return logits.to(torch.promote_types(logits.dtype, torch.float32)), kv_cache
 
 

@@ -64,6 +64,7 @@ from whisper_mlx_tpu_torch.ops.dense_attention import dense_attention
 from whisper_mlx_tpu_torch.ops.flash_attention import flash_attention
 from whisper_mlx_tpu_torch.ops.kv_quant import quantize_kv
 from whisper_mlx_tpu_torch.ops.quant import quant_matmul, quant_rows
+from whisper_mlx_tpu_torch.parallel.mesh import all_gather_cat, all_sum, local_slice
 
 Params = dict[str, Any]
 
@@ -108,6 +109,16 @@ class WhisperConfig:
     @property
     def head_dim(self) -> int:
         return self.n_audio_state // self.n_audio_head
+
+
+@dataclasses.dataclass(frozen=True)
+class TPWhisperConfig(WhisperConfig):
+    """A rank's config under tensor parallelism
+    (``parallel/sharding.py:shard_model``): its tree holds this rank's
+    heads, MLP widths and vocabulary rows of ``mesh``'s "tp" axis; the
+    widths above stay the model's full ones."""
+
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 WHISPER_CONFIGS: dict[str, WhisperConfig] = {
@@ -163,20 +174,57 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
-def embed_tokens(emb, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def tp_mesh(config) -> Any:
+    """The config's mesh when its tree is tensor-parallel (tp > 1), else None."""
+    mesh = getattr(config, "mesh", None)
+    return mesh if mesh is not None and mesh.tp > 1 else None
+
+
+def row_linear(x: torch.Tensor, p: Params, mesh: Any, lin=None) -> torch.Tensor:
+    """A row-parallel linear (``lin``, :func:`linear` by default) under
+    tensor parallelism: this rank's partial product over its slice of the
+    input features, summed over "tp" (in fp32, ``parallel/mesh.py``), then
+    the bias once. A leaf kept whole on every rank
+    (``parallel/sharding_llm.py``) gathers x over "tp" first and needs no
+    sum."""
+    lin = lin or linear
+    if mesh is None:
+        return lin(x, p)
+    w = p["w"]
+    if w.shape[1] != x.shape[-1]:
+        return lin(all_gather_cat(x, mesh, "tp", dim=-1), p)
+    y = all_sum(lin(x, {"w": w}), mesh)
+    return y if "b" not in p else y + p["b"].to(y.dtype)
+
+
+def embed_tokens(emb, tokens: torch.Tensor, dtype: torch.dtype, mesh: Any = None,
+                 n_vocab: int | None = None) -> torch.Tensor:
     """Token embedding lookup; a quantized table dequantizes the rows it
-    gathers only."""
-    if not isinstance(emb, torch.Tensor):
-        return quant_rows(emb, tokens, dtype=dtype)
-    return emb.to(dtype)[tokens]
+    gathers only. Under tensor parallelism ``emb`` holds this rank's
+    ceil-split slice of the ``n_vocab`` rows: a masked lookup, summed over
+    "tp" (one rank contributes each row, the others zeros)."""
+    if mesh is None:
+        if not isinstance(emb, torch.Tensor):
+            return quant_rows(emb, tokens, dtype=dtype)
+        return emb.to(dtype)[tokens]
+    own = local_slice(n_vocab, mesh.tp, mesh.index("tp"))
+    local = tokens - own.start
+    hit = (local >= 0) & (local < own.stop - own.start)
+    x = embed_tokens(emb, local.clamp(0, own.stop - own.start - 1), dtype)
+    return all_sum(x * hit[..., None].to(dtype), mesh)
 
 
-def embed_logits(emb, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def embed_logits(emb, x: torch.Tensor, dtype: torch.dtype, mesh: Any = None,
+                 n_vocab: int | None = None) -> torch.Tensor:
     """Tied-embedding output head: x (b, t, d) -> logits (b, t, vocab); a
-    quantized table goes through ``quant_matmul`` (kernel K5)."""
+    quantized table goes through ``quant_matmul`` (kernel K5). Under tensor
+    parallelism each rank computes its vocabulary slice's logits, gathered
+    over "tp"."""
     if not isinstance(emb, torch.Tensor):
-        return quant_matmul(x, emb)
-    return torch.matmul(x, emb.to(dtype).T)
+        out = quant_matmul(x, emb)
+    else:
+        out = torch.matmul(x, emb.to(dtype).T)
+    return out if mesh is None else all_gather_cat(out, mesh, "tp", dim=-1, total=n_vocab)
 
 
 def conv1d_nwc(x: torch.Tensor, p: Params, stride: int) -> torch.Tensor:
@@ -186,9 +234,11 @@ def conv1d_nwc(x: torch.Tensor, p: Params, stride: int) -> torch.Tensor:
     return y.transpose(1, 2)
 
 
-def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(b, t, heads * hd) -> (b, heads, t, hd): the heads are counted from
+    the width, so a tensor-parallel rank splits its own share."""
     b, t, d = x.shape
-    return x.view(b, t, n_head, d // n_head).transpose(1, 2)
+    return x.view(b, t, d // hd, hd).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -231,19 +281,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _qkv_proj(h: torch.Tensor, attn: Params, n_head: int):
-    """Self-attention q/k/v -> (b, h, t, hd) each. A quantized checkpoint
-    may carry one stacked ``qkv`` (``ops/quant.py:fuse_whisper_qkv``): one
-    dequant-matmul instead of three."""
+    """Self-attention q/k/v -> (b, h, t, hd) each, ``hd`` from the full
+    width ``h`` carries and the model's ``n_head`` (a tensor-parallel rank
+    gets its own heads). A quantized checkpoint may carry one stacked
+    ``qkv`` (``ops/quant.py:fuse_whisper_qkv``): one dequant-matmul instead
+    of three."""
+    hd = h.shape[-1] // n_head
     if "qkv" in attn:
         q, k, v = linear(h, attn["qkv"]).chunk(3, dim=-1)
     else:
         q, k, v = (linear(h, attn[name]) for name in ("q", "k", "v"))
-    return _split_heads(q, n_head), _split_heads(k, n_head), _split_heads(v, n_head)
+    return _split_heads(q, hd), _split_heads(k, hd), _split_heads(v, hd)
 
 
-def mha(x: torch.Tensor, p: Params, n_head: int, use_flash: bool = False) -> torch.Tensor:
+def mha(x: torch.Tensor, p: Params, n_head: int, use_flash: bool = False,
+        mesh: Any = None) -> torch.Tensor:
     """Encoder self-attention when ``use_flash``: kernel K2 up to 2048 keys,
-    kernel K4 (non-causal) above, as the reference splits it."""
+    kernel K4 (non-causal) above, as the reference splits it. ``mesh``: a
+    tensor-parallel tree (:func:`tp_mesh`)."""
     q, k, v = _qkv_proj(x, p, n_head)
     if use_flash:
         scale = q.shape[-1] ** -0.25
@@ -251,11 +306,28 @@ def mha(x: torch.Tensor, p: Params, n_head: int, use_flash: bool = False) -> tor
         out = attend((q * scale).contiguous(), (k * scale).contiguous(), v.contiguous())
     else:
         out = attention(q, k, v)
-    return linear(_merge_heads(out), p["o"])
+    return row_linear(_merge_heads(out), p["o"], mesh)
 
 
-def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return linear(F.gelu(linear(x, p["fc1"])), p["fc2"])
+def mlp(x: torch.Tensor, p: Params, mesh: Any = None) -> torch.Tensor:
+    return row_linear(F.gelu(linear(x, p["fc1"])), p["fc2"], mesh)
+
+
+def _check_tp(params: Params, config: WhisperConfig) -> Any:
+    """The config's tensor-parallel mesh, checked against the tree: a
+    sharded tree holds a slice of the vocabulary, and every head count
+    divides over "tp"."""
+    mesh = tp_mesh(config)
+    emb = params.get("decoder", {}).get("token_emb")
+    rows = emb.shape[0] if emb is not None else config.n_vocab
+    if (mesh is not None) != (rows < config.n_vocab):
+        raise ValueError(f"whisper: config.mesh {'set' if mesh else 'unset'} but the "
+                         f"tree holds {rows} of {config.n_vocab} vocabulary rows "
+                         "(parallel/sharding.py:shard_model pairs them)")
+    if mesh is not None and (config.n_audio_head % mesh.tp or config.n_text_head % mesh.tp):
+        raise ValueError(f"whisper: heads ({config.n_audio_head}, {config.n_text_head}) "
+                         f"do not divide over tp={mesh.tp}")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -266,14 +338,16 @@ def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
 def encode(params: Params, mel: torch.Tensor, config: WhisperConfig) -> torch.Tensor:
     """mel (batch, 3000, n_mels) -> encoder states (batch, 1500, d)."""
     p = params["encoder"]
+    mesh = _check_tp(params, config)
     x = mel.to(config.dtype)
     x = F.gelu(conv1d_nwc(x, p["conv1"], stride=1))
     x = F.gelu(conv1d_nwc(x, p["conv2"], stride=2))
     x = x + p["pos_emb"].to(x.dtype)
     for blk in p["blocks"]:
         h = layer_norm(x, blk["attn_ln"])
-        x = x + mha(h, blk["attn"], config.n_audio_head, use_flash=config.flash_attention)
-        x = x + mlp(layer_norm(x, blk["mlp_ln"]), blk["mlp"])
+        x = x + mha(h, blk["attn"], config.n_audio_head, use_flash=config.flash_attention,
+                    mesh=mesh)
+        x = x + mlp(layer_norm(x, blk["mlp_ln"]), blk["mlp"], mesh)
     return layer_norm(x, p["ln_post"])
 
 
@@ -287,10 +361,11 @@ def cross_kv(params: Params, audio_states: torch.Tensor, config: WhisperConfig) 
     ``config.kv_bits`` 8 or 4 the keys (pre-scaled by head_dim**-0.25) and
     values are stored quantized with per-position scales."""
     out = []
-    scale = (config.n_text_state // config.n_text_head) ** -0.25
+    hd = config.n_text_state // config.n_text_head
+    scale = hd ** -0.25
     for blk in params["decoder"]["blocks"]:
-        k = _split_heads(linear(audio_states, blk["cross_attn"]["k"]), config.n_text_head)
-        v = _split_heads(linear(audio_states, blk["cross_attn"]["v"]), config.n_text_head)
+        k = _split_heads(linear(audio_states, blk["cross_attn"]["k"]), hd)
+        v = _split_heads(linear(audio_states, blk["cross_attn"]["v"]), hd)
         if config.kv_bits in (4, 8):
             k8, ks = quantize_kv(k * scale, bits=config.kv_bits)
             v8, vs = quantize_kv(v, bits=config.kv_bits)
@@ -303,11 +378,13 @@ def cross_kv(params: Params, audio_states: torch.Tensor, config: WhisperConfig) 
 def init_kv_cache(config: WhisperConfig, batch: int, device: torch.device | str,
                   max_len: int | None = None) -> list[Params]:
     """Self-attention KV cache, right-sized to ``max_len`` (the decode's
-    horizon, rounded up to 128) when given."""
+    horizon, rounded up to 128) when given; a tensor-parallel rank holds
+    its own heads."""
     hd = config.n_text_state // config.n_text_head
+    mesh = tp_mesh(config)
     t_alloc = config.n_text_ctx if max_len is None else min(
         -(-max_len // 128) * 128, config.n_text_ctx)
-    shape = (batch, config.n_text_head, t_alloc, hd)
+    shape = (batch, config.n_text_head // (mesh.tp if mesh else 1), t_alloc, hd)
     if config.self_kv_bits in (4, 8):
         if config.self_kv_bits == 8:
             cshape, cdtype = shape, torch.int8
@@ -413,13 +490,16 @@ def decode_step(
     ``(layers, batch, heads, t, n_audio_ctx)`` fp32. It takes fp caches
     only (``kv_bits=0``, ``self_kv_bits=0``, as ``find_alignment`` sets),
     one row a window, and runs both attentions through
-    :func:`attention_for_alignment` on any device.
+    :func:`attention_for_alignment` on any device. Under tensor parallelism
+    the weights of every rank's heads are gathered over "tp".
     """
     p = params["decoder"]
+    mesh = _check_tp(params, config)
     b, t = tokens.shape
     end = pos + t
     g = share_xkv_groups
-    x = embed_tokens(p["token_emb"], tokens, config.dtype)
+    hd = config.n_text_state // config.n_text_head
+    x = embed_tokens(p["token_emb"], tokens, config.dtype, mesh, config.n_vocab)
     x = x + p["pos_emb"][pos:end].to(config.dtype)
 
     beam_flat = "k8f" in kv_cache[0] or "kf" in kv_cache[0]
@@ -480,10 +560,10 @@ def decode_step(
                 attn_out, _ = attention_for_alignment(q, k_live, v_live, mask)
             else:
                 attn_out = attention(q, k_live, v_live, mask)
-        x = x + linear(_merge_heads(attn_out), blk["attn"]["o"])
+        x = x + row_linear(_merge_heads(attn_out), blk["attn"]["o"], mesh)
 
         h = layer_norm(x, blk["cross_attn_ln"])
-        qx = _split_heads(linear(h, blk["cross_attn"]["q"]), config.n_text_head)
+        qx = _split_heads(linear(h, blk["cross_attn"]["q"]), hd)
         xc = xkv[i]
         if "k8" in xc:
             qs = (qx * scale).contiguous()
@@ -500,14 +580,14 @@ def decode_step(
             cross_out = cross_out.reshape(qx.shape).to(qx.dtype)
         elif collect_cross_attn:
             cross_out, cw = attention_for_alignment(qx, xc["k"], xc["v"])
-            cross_weights.append(cw)
+            cross_weights.append(all_gather_cat(cw, mesh, "tp", dim=1) if mesh else cw)
         else:
             cross_out = attention(qx, xc["k"], xc["v"])
-        x = x + linear(_merge_heads(cross_out), blk["cross_attn"]["o"])
-        x = x + mlp(layer_norm(x, blk["mlp_ln"]), blk["mlp"])
+        x = x + row_linear(_merge_heads(cross_out), blk["cross_attn"]["o"], mesh)
+        x = x + mlp(layer_norm(x, blk["mlp_ln"]), blk["mlp"], mesh)
 
     x = layer_norm(x, p["ln"])
-    logits = embed_logits(p["token_emb"], x, config.dtype).float()
+    logits = embed_logits(p["token_emb"], x, config.dtype, mesh, config.n_vocab).float()
     if collect_cross_attn:
         return logits, kv_cache, torch.stack(cross_weights)
     return logits, kv_cache

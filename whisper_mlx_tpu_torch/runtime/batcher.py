@@ -20,15 +20,26 @@ Semantics match ``transcribe(batch_windows=True)`` at one rung: fixed-stride
 windows, no conditioning on previous text (the reference launcher's
 configuration), ``decoding`` for every window.
 
-The buckets, the flush deadlines and the data-parallel width default to
-the serving knobs (``runtime/serving_config.py``: WTPU_TRANSCRIBE_BATCH,
-SERVE_WAIT_MS, SERVE_IDLE_GAP_MS, WTPU_SERVE_DP). ``mesh=`` and a width of
-2 or more (data parallelism over cards) are not ported (ROADMAP.md M14).
+The buckets and the flush deadlines default to the serving knobs
+(``runtime/serving_config.py``: WTPU_TRANSCRIBE_BATCH, SERVE_WAIT_MS,
+SERVE_IDLE_GAP_MS).
+
+Data parallelism over windows (``mesh=``, ``parallel/mesh.py``): every
+rank of the job builds a batcher with the same arguments. Rank 0 holds the
+request queue and computes the mel; the other ranks call :meth:`follow`,
+which returns after :meth:`shutdown` on rank 0. The buckets are rounded up
+to multiples of dp. Each flush broadcasts its bucket and mel to every rank,
+each rank encodes and decodes its contiguous dp slice (a tensor-parallel
+tree splits each step besides), and rank 0 gathers the results in rank
+order and resolves the requests. A batch that raises on any rank fails on
+every rank (:class:`RankFailure`, gathered with the results): rank 0 fails
+its requests, and the followers go on to the next batch.
 """
 
 from __future__ import annotations
 
 import asyncio
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -42,12 +53,21 @@ from whisper_mlx_tpu_torch.decoding.task import DecodingOptions, decode
 from whisper_mlx_tpu_torch.inference.transcribe import window_segments
 from whisper_mlx_tpu_torch.models.whisper import encode
 from whisper_mlx_tpu_torch.ops.quant import maybe_dense_decode_params
+from whisper_mlx_tpu_torch.parallel.mesh import Mesh, all_gather_objects, broadcast
+from whisper_mlx_tpu_torch.parallel.sharding import dp_round, shard_batch, shard_model
 from whisper_mlx_tpu_torch.runtime.device import device_context, setup_device
 from whisper_mlx_tpu_torch.runtime.serving_config import (
     serving_batch_buckets,
     serving_flush_knobs,
-    serving_mesh,
 )
+
+# the header rank 0 broadcasts before each batch: (command, bucket, frames, mels)
+_STOP, _BATCH = 0, 1
+
+
+class RankFailure(RuntimeError):
+    """A batch raised on one or more ranks of the batcher's job; every rank
+    raises it for that batch."""
 
 
 @dataclass
@@ -82,22 +102,21 @@ class TranscriptionBatcher:
         mesh=None,
         idle_gap_ms: float | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("mesh=: data parallelism over windows is not "
-                                      "ported (ROADMAP.md M14)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh=: expected a parallel.mesh.Mesh, got {type(mesh).__name__}")
         self.device = setup_device(device)
-        serving_mesh(self.device)  # WTPU_SERVE_DP of 2 or more raises (M14)
         if batch_size is None:
             batch_size = serving_batch_buckets(self.device)
         wait_ms, gap_ms = serving_flush_knobs()
-        self.params = params
-        self.config = config
+        self.mesh = mesh
+        self.params, self.config = shard_model(params, config, mesh)
         self.tokenizer = tokenizer
         # each bucket is one batch shape; a flush rides the smallest that
-        # fits its jobs, so a lone short request does not pay the largest
+        # fits its jobs, so a lone short request does not pay the largest;
+        # under a mesh each divides evenly over "dp"
         if isinstance(batch_size, int):
             batch_size = (batch_size,)
-        self.buckets = tuple(sorted(set(batch_size)))
+        self.buckets = tuple(sorted({dp_round(b, mesh) for b in batch_size}))
         self.batch_size = self.buckets[-1]
         self.max_wait_ms = wait_ms if max_wait_ms is None else max_wait_ms
         self.idle_gap_ms = gap_ms if idle_gap_ms is None else idle_gap_ms
@@ -107,6 +126,10 @@ class TranscriptionBatcher:
         self._next_id = 0
         self._worker: asyncio.Task | None = None
         self.stats = {"batches": 0, "windows": 0, "fill_sum": 0.0}
+        # the ranks' collectives run one batch (or the stop) at a time
+        self._ranks = mesh.dp * mesh.tp if mesh is not None else 1
+        self._collective = threading.Lock()
+        self._stopped = False
 
     # -- public API ---------------------------------------------------------
 
@@ -143,9 +166,43 @@ class TranscriptionBatcher:
             del self._requests[req_id]
 
     def shutdown(self) -> None:
+        """Stop the worker; under a mesh of several ranks also release the
+        followers (after the batch in flight, if any)."""
         if self._worker is not None:
             self._worker.cancel()
             self._worker = None
+        if self._ranks > 1 and self.mesh.rank == 0 and not self._stopped:
+            with self._collective, device_context(self.device):
+                self._stopped = True
+                self._send(_STOP)
+
+    def follow(self) -> int:
+        """A follower rank's loop: run each batch rank 0 broadcasts, until
+        its stop. -> the number of batches run."""
+        if self._ranks == 1 or self.mesh.rank == 0:
+            raise RuntimeError("follow(): rank 0 of a mesh of several ranks holds the queue")
+        n = 0
+        with device_context(self.device), torch.inference_mode():
+            while True:
+                header = broadcast(torch.zeros(4, dtype=torch.int64, device=self.device),
+                                   self.mesh)
+                cmd, bucket, frames, mels = header.tolist()
+                if cmd == _STOP:
+                    return n
+                mel = broadcast(torch.empty((bucket, frames, mels), device=self.device),
+                                self.mesh)
+                try:
+                    self._run_slice(mel)
+                except RankFailure:
+                    continue  # rank 0 fails the batch's requests
+                n += 1
+
+    def _send(self, cmd: int, mel: torch.Tensor | None = None) -> None:
+        shape = tuple(mel.shape) if mel is not None else (0, 0, 0)
+        broadcast(torch.tensor([cmd, *shape], dtype=torch.int64, device=self.device),
+                  self.mesh)
+        if mel is not None:
+            broadcast(mel.float().contiguous(), self.mesh)
 
     # -- enqueue ------------------------------------------------------------
 
@@ -167,6 +224,8 @@ class TranscriptionBatcher:
             return mel_all[: n_windows * N_FRAMES].reshape(n_windows, N_FRAMES, -1)
 
     async def _enqueue(self, audio: np.ndarray) -> tuple[int, _Request]:
+        if self._ranks > 1 and self.mesh.rank != 0:
+            raise RuntimeError("a follower rank takes no requests: call follow()")
         self._ensure_worker()
         windows = self._windows(audio)
         req_id = self._next_id
@@ -277,13 +336,46 @@ class TranscriptionBatcher:
             mel = torch.stack([j.mel for j in jobs])
             if real < bucket:
                 mel = F.pad(mel, (0, 0, 0, 0, 0, bucket - real))
-            # a packed tree is dequantized once (cached) by the encoder's
-            # rows, and the decode loop rides the same dense tree
-            params = maybe_dense_decode_params(self.params, rows=bucket * mel.shape[1],
-                                               dtype=self.config.dtype)
-            states = encode(params, mel, self.config)
-            return decode(params, states, self.tokenizer, self.config, self.decoding,
-                          states_precomputed=True)
+            if self._ranks == 1:
+                return self._run_slice(mel)
+            with self._collective:
+                if self._stopped:
+                    raise RuntimeError("the batcher's ranks were stopped")
+                self._send(_BATCH, mel)
+                return self._run_slice(mel)
+
+    def _run_slice(self, mel: torch.Tensor) -> list:
+        """Encode and decode this rank's dp slice of a padded batch -> the
+        whole batch's results, gathered over dp in rank order. Each rank's
+        error, if any, is gathered with them, so that a failure on one rank
+        raises :class:`RankFailure` on all."""
+        if self._ranks == 1:
+            return self._decode_slice(mel)
+        try:
+            out, err = self._decode_slice(mel), None
+        except Exception as exc:  # noqa: BLE001 - reported to every rank below
+            out, err = None, f"{type(exc).__name__}: {exc}"
+        parts = all_gather_objects((err, out), self.mesh, None)
+        failed = [f"rank {r}: {e}" for r, (e, _) in enumerate(parts) if e is not None]
+        if failed:
+            raise RankFailure("the batch failed on " + "; ".join(failed))
+        # ranks in order; one rank of each tp group holds its dp slice's results
+        return [r for _, out in parts[::self.mesh.tp] for r in out]
+
+    def _decode_slice(self, mel: torch.Tensor) -> list:
+        """This rank's dp slice of a padded batch, encoded and decoded."""
+        bucket = mel.shape[0]
+        # a packed tree is dequantized once (cached) by the encoder's
+        # rows, and the decode loop rides the same dense tree
+        params = maybe_dense_decode_params(self.params, rows=bucket * mel.shape[1],
+                                           dtype=self.config.dtype)
+        local = shard_batch(mel, self.mesh)
+        states = encode(params, local, self.config)
+        rows = None
+        if self.mesh is not None:
+            rows = (self.mesh.index("dp") * local.shape[0], bucket)
+        return decode(params, states, self.tokenizer, self.config, self.decoding,
+                      states_precomputed=True, rows=rows)
 
     def _complete(self, jobs: list[_WindowJob], results: list) -> None:
         real = len(jobs)

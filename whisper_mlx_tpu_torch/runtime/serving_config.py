@@ -19,11 +19,15 @@ Environment knobs (same names as the JAX package):
                         CPU); a flush rides the smallest bucket that fits
   SERVE_WAIT_MS         the batcher's hard flush deadline (default 50)
   SERVE_IDLE_GAP_MS     its debounce for a lone request (default 25)
-  WTPU_SERVE_DP         data-parallel width: "auto" (default: every card) or
-                        an int; a width of 2 or more is not ported
-                        (ROADMAP.md M14) and raises (1 serves on one card)
+  WTPU_SERVE_DP         data-parallel width of the daemon's batcher: "auto"
+                        (default: every card of a CUDA host, 1 on the CPU)
+                        or an int; 1 or less serves on one device. On CUDA
+                        a width above the host's cards raises; on the CPU a
+                        width of n runs n processes on the host. The daemon
+                        (serving/server.py) starts the follower ranks
 
-TranscriptionBatcher (runtime/batcher.py) reads the last four by default.
+TranscriptionBatcher (runtime/batcher.py) reads the three before it by
+default.
 
 On CUDA the hand-written kernels are the only attention path, so
 float32, FLASH=0 and a KV width of 0 (fp caches with plain attention)
@@ -73,14 +77,10 @@ def serving_batch_buckets(device: torch.device | str) -> tuple[int, ...]:
     return buckets
 
 
-def serving_mesh(device: torch.device | str) -> None:
-    """The ASR serving mesh: ``None`` while one card serves.
-
-    ``WTPU_SERVE_DP``: "auto" takes every card of a CUDA host (one on the
-    CPU), an int pins the width, 1 or less serves on one card. A width of
-    2 or more needs data parallelism over windows, which is not ported
-    (ROADMAP.md M14), and raises ``NotImplementedError``.
-    """
+def serving_dp(device: torch.device | str) -> int:
+    """The ASR serving's data-parallel width from ``WTPU_SERVE_DP``: "auto"
+    takes every card of a CUDA host (1 on the CPU), an int pins it; 1 or
+    less is 1. On CUDA a width above the host's cards raises ``ValueError``."""
     raw = os.environ.get("WTPU_SERVE_DP", "auto").strip().lower()
     on_cuda = torch.device(device).type == "cuda"
     n = torch.cuda.device_count() if on_cuda else 1
@@ -91,11 +91,24 @@ def serving_mesh(device: torch.device | str) -> None:
             dp = int(raw)
         except ValueError:
             raise ValueError(f"WTPU_SERVE_DP={raw!r}: expected 'auto' or an int") from None
-    if dp <= 1:
+    if on_cuda and dp > n:
+        raise ValueError(f"WTPU_SERVE_DP={dp} exceeds {n} local devices")
+    return max(dp, 1)
+
+
+def serving_mesh(device: torch.device | str) -> Any:
+    """The ASR serving mesh (dp x 1) over the job's ranks, or ``None`` when
+    one device serves. A width of n needs a job of n ranks
+    (``parallel/mesh.py:init_distributed``), which the daemon starts; rank
+    r serves on ``cuda:r`` on a CUDA host."""
+    dp = serving_dp(device)
+    if dp == 1:
         return None
-    raise NotImplementedError(f"WTPU_SERVE_DP={raw or 'auto'} ({dp} cards): data "
-                              "parallelism over windows is not ported (ROADMAP.md M14); "
-                              "WTPU_SERVE_DP=1 serves on one card")
+    from whisper_mlx_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(device).type == "cuda":
+        return make_mesh(dp=dp, tp=1, devices=[f"cuda:{r}" for r in range(dp)])
+    return make_mesh(dp=dp, tp=1, devices=["cpu"] * dp)
 
 
 def apply_asr_serving_config(params: Any, config: Any,

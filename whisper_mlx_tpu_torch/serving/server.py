@@ -18,6 +18,17 @@ reads its own buckets and flush knobs. ``/v1/chat`` runs the chat service
 device. Chats, transcriptions with options and model loads run in worker
 threads, each setting the server's device as its own.
 
+With ``WTPU_SERVE_DP`` of n >= 2 (``runtime/serving_config.py``) the daemon
+is rank 0 of a job of n ranks: at startup it starts the n - 1 follower
+ranks (this module with ``--asr-rank``), each of which loads the same model
+through ``cli.load_model``, applies the serving configuration on its own
+device (``cuda:r``, or the CPU) and runs the batcher's follower loop; the
+batcher then splits each flushed window batch over the ranks
+(``runtime/batcher.py``). Startup waits until every follower has loaded the
+model and fails as soon as one exits; a batch that raises on any rank fails
+its requests and the ranks go on. The followers end when the daemon's
+cleanup stops the batcher.
+
 Endpoint parity (reference :420-975):
     GET  /health                         — model/queue/profile/tool state
     GET  /v1/tools                       — tool specs
@@ -634,6 +645,95 @@ async def transcribe_stream_endpoint(request: web.Request) -> web.StreamResponse
     return resp
 
 
+def _load_asr(whisper_model: str, device: torch.device):
+    """(params, config, tokenizer) in the serving configuration of ``device``."""
+    from whisper_mlx_tpu_torch.cli import load_model
+    from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
+
+    params, config, tokenizer = _on_device(device, load_model, whisper_model, None, device)
+    # loaders return the parity config; serve the device's serving config
+    # (bf16, flash, int4 cross and int8 self caches on CUDA)
+    params, config = apply_asr_serving_config(params, config, device)
+    return params, config, tokenizer
+
+
+def _start_asr_ranks(whisper_model: str, device: torch.device, dp: int):
+    """Rank 0's side of a data-parallel ASR job: start the follower ranks,
+    wait until each has loaded the model (failing as soon as one exits),
+    join the job and build the mesh. -> (mesh, follower processes)."""
+    import tempfile
+    from pathlib import Path
+
+    from whisper_mlx_tpu_torch.parallel.launch import free_port, start, stop
+    from whisper_mlx_tpu_torch.parallel.mesh import init_distributed
+    from whisper_mlx_tpu_torch.runtime.serving_config import serving_mesh
+
+    coordinator = f"127.0.0.1:{free_port()}"
+    logs = Path(tempfile.mkdtemp(prefix="asr-ranks-"))
+    procs = [start(["-m", "whisper_mlx_tpu_torch.serving.server", "--whisper-model",
+                    whisper_model, "--device", device.type, "--asr-rank", str(r),
+                    "--asr-world", str(dp), "--asr-coordinator", coordinator,
+                    "--asr-ready", str(logs / f"rank{r}.ready")],
+                   logs / f"rank{r}.log") for r in range(1, dp)]
+    try:
+        _await_followers(procs, logs)
+        init_distributed(coordinator, dp, 0, device=device)
+        return serving_mesh(device), procs
+    except BaseException:
+        stop(procs, grace_s=0)
+        raise
+
+
+def _await_followers(procs: list, logs) -> None:
+    """Wait until every follower rank (``procs[r - 1]``) has written its
+    ready file, raising ``RuntimeError`` with its log's tail as soon as one
+    exits, or once the collectives' timeout has passed."""
+    from whisper_mlx_tpu_torch.parallel.launch import tail
+    from whisper_mlx_tpu_torch.parallel.mesh import TIMEOUT
+
+    deadline = time.monotonic() + TIMEOUT.total_seconds()
+    waiting = set(range(1, len(procs) + 1))
+    while waiting:
+        for r in sorted(waiting):
+            if procs[r - 1].poll() is not None:
+                raise RuntimeError(f"ASR follower rank {r} exited with code "
+                                   f"{procs[r - 1].returncode} before joining:\n"
+                                   f"{tail(logs / f'rank{r}.log')}")
+            if (logs / f"rank{r}.ready").exists():
+                waiting.discard(r)
+        if waiting and time.monotonic() > deadline:
+            raise RuntimeError(f"ASR follower ranks {sorted(waiting)} not ready after "
+                               f"{TIMEOUT.total_seconds():g} s")
+        time.sleep(0.05)
+
+
+def run_asr_follower(whisper_model: str, device: str, rank: int, world: int,
+                     coordinator: str, ready: str | None = None) -> int:
+    """A follower rank of the daemon's data-parallel ASR job: load the
+    model, write the file ``ready`` (rank 0 waits for it), join the job,
+    then the batcher's follower loop until rank 0 stops it. -> the batches
+    it ran."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from whisper_mlx_tpu_torch.parallel.mesh import init_distributed
+    from whisper_mlx_tpu_torch.runtime.batcher import TranscriptionBatcher
+    from whisper_mlx_tpu_torch.runtime.serving_config import serving_mesh
+
+    dev = setup_device(f"cuda:{rank}" if torch.device(device).type == "cuda" else device)
+    params, config, tokenizer = _load_asr(whisper_model, dev)
+    if ready is not None:
+        Path(ready).touch()
+    init_distributed(coordinator, world, rank, device=dev)
+    try:
+        batcher = TranscriptionBatcher(params, config, tokenizer, device=dev,
+                                       mesh=serving_mesh(dev))
+        return batcher.follow()
+    finally:
+        dist.destroy_process_group()
+
+
 def _on_device(device: torch.device, fn, /, *args, **kwargs):
     """``fn`` (in a worker thread) with the server's device as the thread's."""
     with device_context(device):
@@ -705,20 +805,20 @@ def create_app(preload: bool = False, whisper_model: str | None = None,
                                     "large")
             state.model_loaded = True
         if whisper_model:
-            from whisper_mlx_tpu_torch.cli import load_model
             from whisper_mlx_tpu_torch.runtime.batcher import TranscriptionBatcher
-            from whisper_mlx_tpu_torch.runtime.serving_config import apply_asr_serving_config
+            from whisper_mlx_tpu_torch.runtime.serving_config import serving_dp
 
-            params, config, tokenizer = await asyncio.to_thread(
-                _on_device, state.device, load_model, whisper_model, None, state.device)
-            # loaders return the parity config; serve the device's serving
-            # config (bf16, flash, int4 cross and int8 self caches on CUDA)
-            params, config = apply_asr_serving_config(params, config, state.device)
+            dp = serving_dp(state.device)
+            params, config, tokenizer = await asyncio.to_thread(_load_asr, whisper_model,
+                                                                state.device)
             app["asr"] = (params, config, tokenizer)
-            # the batcher reads its buckets and flush knobs itself, and
-            # raises for WTPU_SERVE_DP >= 2 (ROADMAP.md M14)
+            mesh = None
+            if dp > 1:  # rank 0 of a data-parallel job: start the followers
+                mesh, app["asr_ranks"] = await asyncio.to_thread(
+                    _start_asr_ranks, whisper_model, state.device, dp)
+            # the batcher reads its buckets and flush knobs itself
             app["batcher"] = TranscriptionBatcher(params, config, tokenizer,
-                                                  device=state.device)
+                                                  device=state.device, mesh=mesh)
         try:
             from whisper_mlx_tpu_torch.serving.sync.scheduler import start_scheduler
 
@@ -729,7 +829,14 @@ def create_app(preload: bool = False, whisper_model: str | None = None,
     async def on_cleanup(app: web.Application) -> None:
         batcher = app.get("batcher")
         if batcher is not None:
-            batcher.shutdown()
+            batcher.shutdown()  # under a mesh, also stops the follower ranks
+        if app.get("asr_ranks"):
+            import torch.distributed as dist
+
+            from whisper_mlx_tpu_torch.parallel.launch import stop
+
+            await asyncio.to_thread(stop, app["asr_ranks"], 60.0)
+            dist.destroy_process_group()
         try:
             from whisper_mlx_tpu_torch.serving.sync.scheduler import stop_scheduler
 
@@ -765,7 +872,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="continuous-batching slots for chat generation "
                              "(default 1 = reference single-writer lock; "
                              "env QWEN_BATCH_SLOTS)")
+    parser.add_argument("--asr-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--asr-world", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--asr-coordinator", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--asr-ready", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.asr_rank is not None:  # a follower rank started by the daemon
+        run_asr_follower(args.whisper_model, args.device, args.asr_rank, args.asr_world,
+                         args.asr_coordinator, args.asr_ready)
+        return 0
     try:
         device = setup_device(args.device)
     except (RuntimeError, ValueError) as exc:
