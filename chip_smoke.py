@@ -57,15 +57,20 @@ is non-zero and the result line is not printed:
    plain version within QMM_TOL: the library time of the K5, K5 tiled and
    K6 rows (none where it disagrees or cannot run); then K3's GQA mode
    (the quantized Qwen cache, ROADMAP R2) against its plain version, int8
-   and int4, row by row within ATTN_TOL of each row's max|ref| and
-   bit-equal on a repeat, at one Qwen3-32B layer's decode step (64 query
+   and int4, row by row within ATTN_TOL of each row's max|ref| (fp32
+   outputs within GQA_FP32_TOL) and bit-equal on a repeat, at one Qwen3-32B layer's decode step (64 query
    heads over 8 KV heads of 128; GQA_TIMED: B = 1 at positions 4,095, 226
    and 8,191, 4 slots at 37 / 700 / 2,500 / 4,000, Tq 5 at 4,095) and at
-   the other widths of GQA_CHECKED (hd 64 at rep 7, hd 128 at rep 5), one
+   the other widths and the launch plan's edges of GQA_CHECKED (hd 64 at
+   rep 7, hd 128 at rep 5; 1 to 4,097 live keys across the plan's block
+   counts, Tq 16, rep 7 at Tq 5, a first position past the cache end), one
    device kernel a call and the launcher's host cost; each GQA_TIMED shape
-   timed L2 cold beside its plain version, its bound and two yardsticks at
-   the same lengths, the fp cache's grouped einsum (a kv_bits = 0 step)
-   and scaled_dot_product_attention(enable_gqa) on a bf16 cache;
+   timed L2 cold beside its plain version, its bound (the bytes, or the
+   operations at the bf16 tensor-core rate; the reading with them at the
+   fp32 rate beside it), the first form's time
+   (an earlier run's) and two yardsticks at the same lengths, the fp
+   cache's grouped einsum (a kv_bits = 0 step) and
+   scaled_dot_product_attention(enable_gqa) on a bf16 cache;
 8. tiny Qwen: a tiny mlx-format checkpoint written here, loaded through
    QwenModel on CUDA and on the CPU (plain versions), logits and tokens;
 9. LLM main path: Qwen3-32B at full width with random packed int4 weights
@@ -267,7 +272,18 @@ is non-zero and the result line is not printed:
    steps both runs take on the same tokens). Each rank's lines, launches and
    peak memory, the collectives a step and the phase's wall are printed; a
    failure in any rank fails the phase. K1-K5 and K3's GQA mode must launch
-   over the main-path runs (summed over the ranks).
+   over the main-path runs (summed over the ranks);
+28. gqa_times, run only when named in --only: K3's GQA mode at each
+   GQA_TIMED shape, int8 and int4, L2 cold, beside its bytes bound and bf16
+   scaled_dot_product_attention(enable_gqa) at the same lengths; where the
+   tree has them, the kernel's ptxas lines and the room for its clusters of
+   16 and 8 blocks; for the same use as phases 16-21;
+29. gqa_split, run only when named in --only: K3's GQA mode with fp32
+   outputs at every GQA_TIMED and GQA_CHECKED shape, int8 and int4, beside
+   two copies of the kernel built under build/ from altered sources, one
+   keeping only the hi fp16 part of the query, one of the weights: the
+   kernel's worst row within GQA_FP32_TOL of its max|ref|, each copy's
+   past it somewhere.
 
 Each kernel's launches in the JSON line are counted over its path's run
 (phase 5 for K1-K3, 6 for K3's integer mode, K8 and K9, 9 for K4 and K5,
@@ -298,10 +314,13 @@ two new modes: ``ms_split``, ``plain_split_ms``, ``bound_split_ms``,
 (null), ``max_abs_err_lane`` and ``cases_lane``, at int8 beam-built.
 K3's row also carries its GQA mode's phase-7 readings at
 the first GQA_TIMED shape, int8: ``ms_gqa``, ``plain_gqa_ms``,
-``bound_gqa_ms`` and ``bound_gqa_by``, ``max_abs_err_gqa`` (over every
-checked shape), ``library_gqa_ms`` (null: no single PyTorch call),
-``yardstick_gqa_fp_einsum_ms``, ``yardstick_gqa_sdpa_ms``, ``host_gqa_us``,
-and ``ms_gqa_shapes`` (every timed shape and width). The K5 and K6 rows
+``bound_gqa_ms`` and ``bound_gqa_by`` (bf16 operations or bytes),
+``bound_gqa_fp32_ops_ms`` and ``bound_gqa_fp32_ops_by`` (the operations at
+the fp32 rate),
+``max_abs_err_gqa`` (over every checked shape), ``library_gqa_ms`` (null: no
+single PyTorch call), ``yardstick_gqa_fp_einsum_ms``,
+``yardstick_gqa_sdpa_ms``, ``host_gqa_us``, and ``ms_gqa_shapes`` and
+``bound_gqa_shapes`` (every timed shape and width). The K5 and K6 rows
 also carry their tiled core: ``ms_tiled`` (one Qwen3-32B layer's four
 linears at 384 rows, L2 cold), ``bound_tiled`` and ``bound_tiled_by``,
 ``yardstick_tiled_ms``, ``library_tiled_ms`` (torch._weight_int4pack_mm over the
@@ -322,6 +341,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -394,6 +414,10 @@ from whisper_mlx_tpu_torch.serving.chat import QwenModel, serving_config
 
 MEL_TOL = 2e-4
 ATTN_TOL = 2e-2  # times max(1, |ref|max); K2, K3, K4: times each query row's max|ref|
+# K3's GQA mode with fp32 outputs, times each query row's max|ref|: between
+# the sound kernel's worst row and a copy's that keeps only the hi part of
+# its split query or weights (phase 29 measures both)
+GQA_FP32_TOL = 2e-5
 TINY_LOGIT_TOL = 5e-2  # times max(1, |ref|max)
 # the decode depth of the whisper batches timed whole (phases 3, 4, 15, 22
 # and 24's batcher): cut from 224, a window's whole budget, to keep the
@@ -523,20 +547,24 @@ def _check(name, got, ref, tol):
     return err
 
 
-def _check_rows(name, got, ref):
-    """Hold an attention output row by row: each query row's largest error
-    within ATTN_TOL times that row's largest |ref|. Rows that average many
-    keys have small values, so one limit over the whole output would let
-    them go unchecked; this limit is also within ATTN_TOL * max(1, |ref|).
-    -> the largest error."""
+def _row_err(got, ref) -> tuple[float, float]:
+    """(largest error, worst row's error over that row's max|ref|)."""
     err = (got.float() - ref.float()).abs()
-    row_ref = ref.float().abs().amax(-1)
-    ratio = (err.amax(-1) / row_ref.clamp_min(torch.finfo(torch.float32).tiny)).max().item()
-    top = err.max().item()
+    row_ref = ref.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return err.max().item(), (err.amax(-1) / row_ref).max().item()
+
+
+def _check_rows(name, got, ref, tol: float = ATTN_TOL):
+    """Hold an attention output row by row: each query row's largest error
+    within ``tol`` times that row's largest |ref|. Rows that average many
+    keys have small values, so one limit over the whole output would let
+    them go unchecked; this limit is also within tol * max(1, |ref|).
+    -> the largest error."""
+    top, ratio = _row_err(got, ref)
     print(f"  {name}: max_abs_err {top:.3e}, worst row err / row max|ref| {ratio:.3e} "
-          f"(tol {ATTN_TOL:.0e})")
-    if not ratio <= ATTN_TOL:
-        raise AssertionError(f"{name}: a row's error is {ratio} of its max|ref| > {ATTN_TOL}")
+          f"(tol {tol:.0e})")
+    if not ratio <= tol:
+        raise AssertionError(f"{name}: a row's error is {ratio} of its max|ref| > {tol}")
     return top
 
 
@@ -1793,10 +1821,30 @@ GQA_TIMED = (("B 1, pos 4,095", [4095], 1, 4096), ("B 1, pos 226", [226], 1, 409
              ("4 slots, pos 37 / 700 / 2,500 / 4,000", [37, 700, 2500, 4000], 1, 4096),
              ("Tq 5, pos 4,095", [4095], 5, 8192))
 # the port's other widths, checked only: hd 64 at rep 7 (Qwen2.5-0.5B's 14
-# over 2), hd 128 at rep 5 (Qwen2.5-14B's 40 over 8): (KV heads, rep, hd,
-# first positions, Tq, cache length)
+# over 2), hd 128 at rep 5 (Qwen2.5-14B's 40 over 8); then the edges of the
+# launch plan (ops/gqa_decode_attention.py:gqa_plan): 1 live key, 64 / 65 (1
+# block a head to 2), 255 / 256 / 257, 960 / 961 at 2 KV heads (a held
+# cluster of 8 to 16), 2,047 / 2,048 / 2,049, 3,840 / 3,841, 4,095 and
+# 4,097 live keys, Tq 16 at rep 8 (16 passes of 8 rows), rep 7 at Tq 5 (35
+# rows in 5 passes), a first position past the cache end (every key read):
+# (KV heads, rep, hd, first positions, Tq, cache length)
 GQA_CHECKED = ((2, 7, 64, [600, 1023], 1, 1024), (8, 5, 128, [1500], 5, 2048),
-               (2, 7, 64, [300], 5, 1024))
+               (2, 7, 64, [300], 5, 1024),
+               (2, 8, 128, [0], 1, 512), (2, 8, 128, [254], 1, 512), (2, 8, 64, [255], 1, 512),
+               (2, 8, 128, [256], 1, 512), (2, 8, 128, [2046], 1, 4096),
+               (2, 8, 64, [2047], 1, 4096), (2, 8, 128, [2048], 1, 4096),
+               (2, 8, 128, [3839], 1, 4096), (2, 8, 128, [3840], 1, 4096),
+               (8, 8, 128, [4094], 1, 4096), (8, 8, 128, [4096], 1, 8192),
+               (2, 8, 128, [3000], 16, 4096), (2, 7, 128, [1999], 5, 2048),
+               (2, 8, 128, [700, 599], 1, 600), (2, 8, 128, [63], 1, 512),
+               (2, 8, 128, [64], 1, 512), (2, 8, 128, [959], 1, 1024),
+               (2, 8, 128, [960], 1, 1024))
+# K3 GQA's times before its Hopper redesign (the first form: fp32 SIMT
+# products, 1-8 blocks a head) at each GQA_TIMED shape, int8 and int4: the
+# readings of an earlier run of this script on an H100 80GB HBM3 at 700 W,
+# not of this run
+GQA_FIRST_FORM_MS = {8: (0.0271, 0.0153, 0.0472, 0.0392, 0.1198),
+                     4: (0.0268, 0.0155, 0.0468, 0.0383, 0.1258)}
 
 
 def _gqa_inputs(gen, n_kv, rep, hd, pos, tq, t, bits):
@@ -1823,16 +1871,46 @@ def _gqa_fp_attention(q, p, live):
     return layer
 
 
+def _gqa_timed(gen, q, cache, p, kw, yardsticks: bool, fp_einsum: bool = False) -> dict:
+    """One shape of K3's GQA mode timed L2 cold over copies of the layer's
+    cache, bf16 outputs; with ``yardsticks`` also bf16
+    scaled_dot_product_attention(enable_gqa) at the same lengths and, with
+    ``fp_einsum``, the fp cache's grouped einsum (what a kv_bits = 0 step
+    runs), each over copies of a bf16 cache. -> ms by name."""
+    copies = _layer_copies(lambda: tuple(x.clone() for x in cache), _nbytes(*cache))
+    out = {"ms": _cold_ms(lambda c: gq.gqa_decode_attention(
+        q, *c, p, out_dtype=torch.bfloat16, **kw), copies)}
+    del copies
+    if yardsticks:
+        b, n_kv, t = cache[0].shape[:3]
+        hd, tq, live = q.shape[-1], q.shape[2], kw["live"]
+        kc = torch.randn((b, n_kv, t, hd), generator=gen, device=gen.device).to(torch.bfloat16)
+        vc = torch.randn_like(kc)
+        qb = q.to(torch.bfloat16)
+        positions = p[:, None].long() + torch.arange(tq, device=p.device)
+        mask = (torch.arange(live, device=p.device) <= positions[..., None])[:, None]
+        copies = _layer_copies(lambda: (kc.clone(), vc.clone()), _nbytes(kc, vc))
+        if fp_einsum:
+            fp_layer = _gqa_fp_attention(q, p, live)
+            out["fp_einsum_ms"] = _cold_ms(lambda c: fp_layer(*c), copies, reps=8)
+        out["sdpa_ms"] = _cold_ms(lambda c: F.scaled_dot_product_attention(
+            qb, c[0][:, :, :live], c[1][:, :, :live], attn_mask=mask, scale=hd ** -0.5,
+            enable_gqa=True), copies)
+        del copies, kc, vc
+    return out
+
+
 def _gqa_kernels(gen) -> dict:
     """K3's GQA mode against its plain version at GQA_TIMED and GQA_CHECKED,
-    both code widths: each query row within ATTN_TOL of its own max|ref|,
-    bit-equal on a repeat, one device kernel a call; then timed L2 cold over
-    copies of the layer's cache beside its plain version, the bound (the
-    live codes and scales, q in and the bf16 output once), and two
-    yardsticks at the same lengths: the fp cache's grouped einsum (what a
-    kv_bits = 0 step runs) and scaled_dot_product_attention(enable_gqa) on
-    a bf16 cache. No single PyTorch call attends over int codes with
-    per-position scales: library none. -> K3's GQA fields for the JSON."""
+    both code widths: each query row of a bf16 output within ATTN_TOL of its
+    own max|ref|, of an fp32 output within GQA_FP32_TOL, bit-equal on a
+    repeat, one device kernel a call; then timed L2 cold over copies of the
+    layer's cache beside its plain version, the bound (the live codes and
+    scales, q in and the bf16 output once), and two yardsticks at the same
+    lengths: the fp cache's grouped einsum (what a kv_bits = 0 step runs)
+    and scaled_dot_product_attention(enable_gqa) on a bf16 cache. No single
+    PyTorch call attends over int codes with per-position scales: library
+    none. -> K3's GQA fields for the JSON."""
     errs, times = [], {}
     cases = [(8, 8, 128, pos, tq, t, label) for label, pos, tq, t in GQA_TIMED]
     cases += [(n_kv, rep, hd, pos, tq, t, None) for n_kv, rep, hd, pos, tq, t in GQA_CHECKED]
@@ -1845,9 +1923,12 @@ def _gqa_kernels(gen) -> dict:
 
             name = (f"gqa int{bits} KV={n_kv} rep={rep} hd={hd} pos={pos} Tq={tq} T={t}")
             got = call()
-            errs.append(_check_rows(name, got, gq.gqa_decode_attention_plain(q, *cache, p, **kw)))
+            ref = gq.gqa_decode_attention_plain(q, *cache, p, **kw)
+            errs.append(_check_rows(name, got, ref))
             if not torch.equal(got, call()):
                 raise AssertionError(f"{name}: a repeat is not bit-equal")
+            _check_rows(name + " fp32", gq.gqa_decode_attention(q, *cache, p, **kw), ref,
+                        GQA_FP32_TOL)
             if label is None:
                 continue
             if label == GQA_TIMED[0][0]:
@@ -1858,36 +1939,26 @@ def _gqa_kernels(gen) -> dict:
                 if names != 1 or events > 1:
                     raise AssertionError(f"{name}: {names} device kernels by name, {events} "
                                          "events a call; one kernel a call expected")
-            copies = _layer_copies(lambda: tuple(x.clone() for x in cache), _nbytes(*cache))
-            ms = _cold_ms(lambda c: call(c), copies)
-            del copies
-            plain = _device_ms(lambda: gq.gqa_decode_attention_plain(q, *cache, p, **kw),
-                               reps=3, warmup=1)
-            live_rows = [min(t, x + tq) for x in pos]
-            per_key = 2 * (hd * bits // 8 + 2)  # K and V codes and their bf16 scales
-            bound = _bound(sum(n_kv * x * per_key for x in live_rows) + _nbytes(q)
-                           + q.numel() * 2,
-                           sum(2 * 2 * n_kv * rep * tq * hd * x for x in live_rows), "fp32")
-            entry = dict(ms=ms, plain_ms=plain, **bound)
-            if bits == 8:  # the yardsticks, once a shape: bf16 caches of the same lengths
-                kc = torch.randn((len(pos), n_kv, t, hd), generator=gen, device=gen.device
-                                 ).to(torch.bfloat16)
-                vc = torch.randn_like(kc)
-                fp_layer = _gqa_fp_attention(q, p, kw["live"])
-                qb = q.to(torch.bfloat16)
-                positions = p[:, None].long() + torch.arange(tq, device=p.device)
-                sdpa_mask = (torch.arange(kw["live"], device=p.device)
-                             <= positions[..., None])[:, None]
-                copies = _layer_copies(lambda: (kc.clone(), vc.clone()), _nbytes(kc, vc))
-                entry["fp_einsum_ms"] = _cold_ms(lambda c: fp_layer(*c), copies, reps=8)
-                entry["sdpa_ms"] = _cold_ms(lambda c: F.scaled_dot_product_attention(
-                    qb, c[0][:, :, :kw["live"]], c[1][:, :, :kw["live"]], attn_mask=sdpa_mask,
-                    scale=hd ** -0.5, enable_gqa=True), copies)
-                del copies, kc, vc, fp_layer
+            entry = _gqa_timed(gen, q, cache, p, kw, yardsticks=bits == 8, fp_einsum=True)
+            ms = entry["ms"]
+            entry["plain_ms"] = _device_ms(
+                lambda: gq.gqa_decode_attention_plain(q, *cache, p, **kw), reps=3, warmup=1)
+            nbytes, ops = _gqa_work(q, n_kv, rep, pos, tq, t, hd, bits)
+            # the bound: the bytes or the operations at the tensor cores'
+            # bf16 rate, where the products run (the bytes at every timed
+            # shape); beside it the first form's reading, fp32 operations
+            bound = _bound(nbytes, ops, "bf16")
+            fp32 = _bound(nbytes, ops, "fp32")
+            entry.update(**bound, fp32_ops_bound_ms=fp32["bound_ms"],
+                         fp32_ops_bound_by=fp32["bound_by"])
+            first = GQA_FIRST_FORM_MS[bits][[x[0] for x in GQA_TIMED].index(label)]
             times[(label, bits)] = entry
-            print(f"    {label} int{bits}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
-                  f"{bound['bound_ms'] / ms:.1%} of it"
+            print(f"    {label} int{bits}: kernel {ms:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{bound['bound_ms'] / ms:.1%} of it "
+                  f"(with the operations at the fp32 rate {fp32['bound_ms']:.4f} ms, "
+                  f"{fp32['bound_by']}); first form {first:.4f} ms in an earlier run, not "
+                  "this one"
                   + (f"; fp cache grouped einsum {entry['fp_einsum_ms']:.4f} ms, "
                      f"scaled_dot_product_attention(enable_gqa) on bf16 "
                      f"{entry['sdpa_ms']:.4f} ms" if bits == 8 else ""))
@@ -1896,9 +1967,23 @@ def _gqa_kernels(gen) -> dict:
     head = times[(GQA_TIMED[0][0], 8)]
     return dict(max_abs_err_gqa=max(errs), ms_gqa=head["ms"], plain_gqa_ms=head["plain_ms"],
                 bound_gqa_ms=head["bound_ms"], bound_gqa_by=head["bound_by"],
+                bound_gqa_fp32_ops_ms=head["fp32_ops_bound_ms"],
+                bound_gqa_fp32_ops_by=head["fp32_ops_bound_by"],
                 library_gqa_ms=None, yardstick_gqa_fp_einsum_ms=head["fp_einsum_ms"],
                 yardstick_gqa_sdpa_ms=head["sdpa_ms"], host_gqa_us=host,
-                ms_gqa_shapes={f"{label} int{bits}": e["ms"] for (label, bits), e in times.items()})
+                ms_gqa_shapes={f"{label} int{bits}": e["ms"] for (label, bits), e in times.items()},
+                bound_gqa_shapes={f"{label} int{bits}": e["bound_ms"]
+                                  for (label, bits), e in times.items()})
+
+
+def _gqa_work(q, n_kv, rep, pos, tq, t, hd, bits) -> tuple[int, int]:
+    """K3 GQA's bytes (each row's live codes and scales, q in and the bf16
+    output once) and its operations (QK and PV over each row's live keys)
+    -> (bytes, operations)."""
+    live_rows = [min(t, x + tq) for x in pos]
+    per_key = 2 * (hd * bits // 8 + 2)  # K and V codes and their bf16 scales
+    return (sum(n_kv * x * per_key for x in live_rows) + _nbytes(q) + q.numel() * 2,
+            sum(2 * 2 * n_kv * rep * tq * hd * x for x in live_rows))
 
 
 def _tiled_keys(tiled: dict) -> dict:
@@ -2656,6 +2741,118 @@ def phase_a8_times() -> None:
     finally:
         for name in ("WTPU_QWEN_A8", "WTPU_A8_FREE_SRC"):
             os.environ.pop(name, None)
+
+
+def phase_gqa_times() -> None:
+    """Phase 28, run only when named: K3's GQA mode at each GQA_TIMED shape,
+    int8 and int4, L2 cold, beside its bound (bytes) and bf16
+    scaled_dot_product_attention(enable_gqa) at the same lengths. Where the
+    tree has them: the kernel's ptxas lines and the room for its clusters of
+    16 and 8 blocks. Public calls only otherwise and no check of one tree's
+    design, so that two trees run it in turn in one call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lines = str(_build.BUILD_LOG.get("stderr", "")).splitlines()
+    for i, line in enumerate(lines):
+        if "gqa_attn_kernel" in line and "Compiling entry" in line:
+            print("  ptxas: " + line.split("'")[1][:64] + ": " + " / ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
+    if hasattr(gq, "gqa_cluster_room"):
+        for hd, bits in ((128, 8), (128, 4), (64, 8), (64, 4)):
+            print(f"  clusters held at once, hd {hd} int{bits}: "
+                  + ", ".join(f"{c} blocks {gq.gqa_cluster_room(dev, hd, bits, c)}"
+                              for c in (16, 8)))
+    for bits in (8, 4):
+        for label, pos, tq, t in GQA_TIMED:
+            q, cache, p, kw = _gqa_inputs(gen, 8, 8, 128, pos, tq, t, bits)
+            got = _gqa_timed(gen, q, cache, p, kw, yardsticks=bits == 8)
+            bound = _bound(*_gqa_work(q, 8, 8, pos, tq, t, 128, bits), "bf16")
+            print(f"  gqa_times {label} int{bits}: kernel {got['ms']:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{bound['bound_ms'] / got['ms']:.1%} of it"
+                  + (f"; scaled_dot_product_attention(enable_gqa) on bf16 "
+                     f"{got['sdpa_ms']:.4f} ms" if bits == 8 else ""))
+            del cache, q
+            torch.cuda.empty_cache()
+
+
+# the copies of K3's GQA kernel that phase 29 builds: each keeps only the hi
+# fp16 part of one split operand
+GQA_ONE_PART = {"query hi only": ("constexpr int QP = 2;", "constexpr int QP = 1;"),
+                "weights hi only": ("constexpr int WP = 2;", "constexpr int WP = 1;")}
+
+
+def _gqa_one_part_libs() -> dict:
+    """Build each copy of GQA_ONE_PART from csrc/gqa_decode_attention.cu
+    altered under build/gqa_split/ (never in csrc/), one nvcc each, all at
+    once -> name -> its library, bound like _build's."""
+    src = _build.CSRC / "gqa_decode_attention.cu"
+    text = src.read_text()
+    root = _build.BUILD_DIR.parent / "gqa_split"
+    builds = {}
+    for name, (old, new) in GQA_ONE_PART.items():
+        if text.count(old) != 1:
+            raise AssertionError(f"{src.name}: '{old}' not found once")
+        d = root / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for header in _build.CSRC.glob("*.cuh"):
+            shutil.copy(header, d)
+        (d / src.name).write_text(text.replace(old, new))
+        so = d / "libgqa_one_part.so"
+        builds[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(d / src.name)],
+            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in builds.items():
+        err = proc.communicate(timeout=600)[1]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {name} copy:\n{err}")
+        lib = ctypes.CDLL(str(so))
+        for fn in ("wmt_gqa_decode_attention", "wmt_gqa_cluster_room"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def phase_gqa_split() -> None:
+    """Phase 29, run only when named: what K3 GQA's split operands buy, and
+    the proof that GQA_FP32_TOL tells a sound kernel from one that lost a
+    split. At every GQA_TIMED and GQA_CHECKED shape, int8 and int4, fp32
+    outputs against the plain version: the kernel's worst row error over
+    its max|ref|, and that of each copy of GQA_ONE_PART (the query's or the
+    weights' lo part dropped). The kernel must stay within GQA_FP32_TOL at
+    every shape, and each copy must pass it at some shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    libs = _gqa_one_part_libs()
+    real = _build.lib()
+    worst = dict.fromkeys(["kernel", *libs], 0.0)
+    cases = [(8, 8, 128, pos, tq, t) for _, pos, tq, t in GQA_TIMED] + list(GQA_CHECKED)
+    for bits in (8, 4):
+        for n_kv, rep, hd, pos, tq, t in cases:
+            q, cache, p, kw = _gqa_inputs(gen, n_kv, rep, hd, pos, tq, t, bits)
+            ref = gq.gqa_decode_attention_plain(q, *cache, p, **kw)
+            line = f"  gqa_split int{bits} KV={n_kv} rep={rep} hd={hd} pos={pos} Tq={tq} T={t}:"
+            for name, lib in [("kernel", real), *libs.items()]:
+                _build._lib = lib
+                try:
+                    err = _row_err(gq.gqa_decode_attention(q, *cache, p, **kw), ref)[1]
+                finally:
+                    _build._lib = real
+                worst[name] = max(worst[name], err)
+                line += f" {name} {err:.3e}"
+            print(line)
+            del cache, q
+    print("  gqa_split worst row err / row max|ref| over the shapes: "
+          + ", ".join(f"{name} {err:.3e}" for name, err in worst.items())
+          + f" (GQA_FP32_TOL {GQA_FP32_TOL:.0e})")
+    if not worst["kernel"] <= GQA_FP32_TOL:
+        raise AssertionError(f"the kernel's worst row {worst['kernel']} > {GQA_FP32_TOL}")
+    for name in libs:
+        if not worst[name] > GQA_FP32_TOL:
+            raise AssertionError(f"{name}: worst row {worst[name]} within {GQA_FP32_TOL}: the "
+                                 "limit does not see the lost part")
 
 
 # ---------------------------------------------------------------------------
@@ -5887,7 +6084,8 @@ def main(argv: list[str] | None = None) -> int:
                         "quant_main, serve, spec, daemon, llm_kv, m15, m14, and batches, "
                         "residency_times, "
                         "beam_times, "
-                        "beam_batches, tiled_times and a8_times, which run only when named")
+                        "beam_batches, tiled_times, a8_times and gqa_times, which run only "
+                        "when named")
     only = [name for name in parser.parse_args(argv).only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5930,9 +6128,11 @@ def main(argv: list[str] | None = None) -> int:
         "beam_batches": ("beam batches", phase_beam_batches, None),
         "tiled_times": ("tiled times", phase_tiled_times, None),
         "a8_times": ("a8 and mel times", phase_a8_times, None),
+        "gqa_times": ("gqa times", phase_gqa_times, None),
+        "gqa_split": ("gqa split", phase_gqa_split, None),
     }
     only_named = ("batches", "residency_times", "beam_times", "beam_batches", "tiled_times",
-                  "a8_times")
+                  "a8_times", "gqa_times", "gqa_split")
     unknown = [name for name in only if name not in phases]
     if unknown:
         parser.error(f"unknown phases {unknown}")

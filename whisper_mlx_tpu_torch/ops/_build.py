@@ -43,8 +43,10 @@ SIGNATURES: dict[str, list] = {
     "wmt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _P],
     # q, k, ks, v, vs, pos, out, b, n_kv, rep, tq, hd, t_alloc, live, bits,
-    # scale, out_bf16, stream
-    "wmt_gqa_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    # scale, out_bf16, blocks, rows, stages, stream
+    "wmt_gqa_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # hd, bits, blocks, stages -> active clusters, or minus the CUDA error
+    "wmt_gqa_cluster_room": [_I] * 4,
     # q, k, ks, v, vs, ancestry, out, nb, h, rows, t_anc, group, limit,
     # bits, int_dot, cluster, cap, stream
     "wmt_beamflat_attention": [_P] * 9 + [_I] * 11 + [_P],

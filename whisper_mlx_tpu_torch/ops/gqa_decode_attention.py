@@ -25,14 +25,17 @@ Layouts (position-major, as ``models/qwen.py`` keeps the cache):
   its own live prefix).
 
 On a CUDA tensor :func:`gqa_decode_attention` launches
-``csrc/gqa_decode_attention.cu`` (hd 64 or 128, Tq <= 16, T <= 32,768);
-on a CPU tensor it runs :func:`gqa_decode_attention_plain`; on any other
-device it raises. The plain version runs on any device; the model never
-calls it on the card.
+``csrc/gqa_decode_attention.cu`` (hd 64 or 128, Tq <= 16, T <= 32,768) on
+the plan :func:`gqa_plan` makes from the shapes and the card's room for
+clusters; on a CPU tensor it
+runs :func:`gqa_decode_attention_plain`; on any other device it raises. The
+plain version runs on any device; the model never calls it on the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -44,6 +47,131 @@ LAUNCHES = 0
 HEAD_DIMS = (64, 128)
 MAX_TQ = 16  # the verify of k + 1 <= 16 positions
 MAX_T = 32_768  # max_position_embeddings of every Qwen config
+# the kernel's launch plan (mirrored in csrc/gqa_decode_attention.cu, which
+# checks it at launch)
+ROWS = 8  # query rows a pass: the mma's n
+SPLIT = 64  # the fewest live keys a block of the cluster takes
+MAX_BLOCKS = 16  # blocks a cluster (past the portable 8: a non-portable cluster)
+WIDE_BLOCKS = (16, 8, 4)  # cluster sizes a launch held at once may take
+CONSUMERS = 8  # consumer warps, a 16-key tile each a ring slot
+STAGE_KEYS = 16 * CONSUMERS  # keys a ring slot
+SCALE_SLOT = (STAGE_KEYS + 8) * 2  # a slot's scales from a 16-byte-aligned start
+MAX_STAGES = 8
+RING_ONE = 200_000  # the ring's room at one block an SM: 6 slots of int8 hd 128
+RING_TWO = 100_000  # at two blocks an SM: 3 slots
+
+
+@dataclasses.dataclass(frozen=True)
+class GqaPlan:
+    """K3's GQA launch: ``blocks`` a (batch row, KV head, pass), one
+    thread-block cluster ``cluster``; ``rows`` query rows a pass of the
+    ``rep * tq`` a KV head has, ``passes`` of them; a ring of ``stages``
+    slots of ``STAGE_KEYS`` keys; ``smem`` bytes of shared memory a block;
+    the launch's ``grid``; ``held``: every cluster of the launch on the card
+    at once, one block an SM (the wide ring), else two blocks an SM."""
+
+    blocks: int
+    rows: int
+    passes: int
+    stages: int
+    smem: int
+    grid: tuple[int, int, int]
+    held: bool
+
+    @property
+    def cluster(self) -> tuple[int, int, int]:
+        return (self.blocks, 1, 1)
+
+
+def gqa_stage_bytes(hd: int, bits: int) -> int:
+    """A ring slot: its keys' K and V codes and their scales' windows."""
+    return 2 * STAGE_KEYS * hd * bits // 8 + 2 * SCALE_SLOT
+
+
+def gqa_ring_slots(hd: int, bits: int, held: bool) -> int:
+    """The most ring slots a block takes: at one block an SM (``held``) or
+    two."""
+    return min(MAX_STAGES, (RING_ONE if held else RING_TWO) // gqa_stage_bytes(hd, bits))
+
+
+def gqa_smem(hd: int, bits: int, stages: int) -> int:
+    """A block's shared memory (the kernel's ``layout``): the ring, which
+    the warps' outputs (rows of ``hd + 1``) take over after the key loop;
+    the pass's query rows in 2 fp16 parts and their scales, the warps'
+    row statistics, the statistics the cluster's blocks push and their
+    factors, the outputs pushed, the ring's barriers."""
+    red = (CONSUMERS * ROWS * (hd + 1) * 4 + 15) // 16 * 16
+    return (max(stages * gqa_stage_bytes(hd, bits), red) + 2 * ROWS * hd * 2 + ROWS * 4
+            + CONSUMERS * ROWS * 2 * 4 + MAX_BLOCKS * ROWS * 2 * 4 + MAX_BLOCKS * ROWS * 4
+            + (ROWS * hd + MAX_BLOCKS) * 4 + 2 * MAX_STAGES * 8)
+
+
+def gqa_plan(b: int, n_kv: int, rep: int, tq: int, hd: int, bits: int, live: int, *,
+             room: dict | None = None, sms: int = 132) -> GqaPlan:
+    """The launch from shapes and two facts of the card: ``room``, the
+    clusters of 16, 8 and 4 blocks it holds at once at one block an SM
+    (``cudaOccupancyMaxActiveClusters`` at the wide ring; none: no cluster
+    is taken as held), and its ``sms``.
+
+    The ``rep * tq`` query rows of a KV head go in passes of ``ROWS`` (one
+    n8 tile: a decode step's 8 rows at rep 8 in one, Tq 5's 40 in five, rep
+    7 padded to 8), a (batch row, KV head, pass) to a cluster. A cluster
+    takes a block a ``SPLIT`` live keys of the longest row, at most
+    ``MAX_BLOCKS``, and then as measured on the H100 (``PERF.md`` §6): the
+    largest size of ``WIDE_BLOCKS`` whose clusters the card holds
+    all at once, one block an SM, with a wide ring; where none is held (many
+    rows or passes), about ``4 sms / 3`` blocks in all at two an SM (packing
+    two blocks of a cluster onto an SM, or clusters in waves, cost 5-45 %).
+    The ring takes as many slots as the longest block's keys need, at most
+    its room (longer slices stream through it)."""
+    if not (1 <= b <= 65535 and n_kv >= 1 and rep >= 1 and 1 <= tq <= MAX_TQ
+            and hd in HEAD_DIMS and bits in (4, 8) and 1 <= live <= MAX_T and sms >= 1):
+        raise ValueError(f"gqa_plan: b {b}, n_kv {n_kv}, rep {rep}, tq {tq}, hd {hd}, "
+                         f"bits {bits}, live {live}, sms {sms}")
+    passes = -(-rep * tq // ROWS)
+    if n_kv * passes > 65535:
+        raise ValueError(f"gqa_plan: {n_kv} KV heads x {passes} passes past the grid")
+    clusters = b * n_kv * passes
+    most_blocks = min(MAX_BLOCKS, -(-live // SPLIT))
+    held = [c for c in WIDE_BLOCKS if c <= most_blocks and clusters <= (room or {}).get(c, 0)]
+    blocks = held[0] if held else max(1, min(most_blocks, round(sms * 4 / 3 / clusters)))
+    most = -(-live // blocks)  # the longest block's keys
+    stages = min(gqa_ring_slots(hd, bits, bool(held)), -(-most // STAGE_KEYS))
+    return GqaPlan(blocks, ROWS, passes, stages, gqa_smem(hd, bits, stages),
+                   (blocks, n_kv * passes, b), bool(held))
+
+
+_CARD: dict = {}
+
+
+def gqa_cluster_room(device: torch.device, hd: int, bits: int, blocks: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the kernel's clusters of
+    ``blocks`` at its wide ring (one block an SM): how many the card holds
+    at once."""
+    with torch.cuda.device(device):
+        room = _build.lib().wmt_gqa_cluster_room(hd, bits, blocks,
+                                                 gqa_ring_slots(hd, bits, True))
+    if room < 0:
+        _build.check(-room, "wmt_gqa_cluster_room")
+    return room
+
+
+def _card(device: torch.device, hd: int, bits: int) -> tuple[dict, int]:
+    """The plan's facts of the card (the room for each size of
+    ``WIDE_BLOCKS``, the SM count), asked once a device and width."""
+    key = (device.index, hd, bits)
+    if key not in _CARD:
+        _CARD[key] = ({c: gqa_cluster_room(device, hd, bits, c) for c in WIDE_BLOCKS},
+                      torch.cuda.get_device_properties(device).multi_processor_count)
+    return _CARD[key]
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_plan(index: int, b: int, n_kv: int, rep: int, tq: int, hd: int, bits: int,
+                 live: int) -> GqaPlan:
+    """The plan on CUDA device ``index``: a decode step's layers share one."""
+    room, sms = _card(torch.device("cuda", index), hd, bits)
+    return gqa_plan(b, n_kv, rep, tq, hd, bits, live, room=room, sms=sms)
 
 
 def causal_mask(pos: torch.Tensor, tq: int, live: int) -> torch.Tensor:
@@ -148,11 +276,13 @@ def gqa_decode_attention(q, k, ks, v, vs, pos, *, scale: float, live: int,
                          "boundaries")
     if not math.isfinite(scale):
         raise ValueError(f"gqa_decode_attention: scale {scale}")
+    plan = _device_plan(q.device.index, b, n_kv, h // n_kv, tq, hd, bits, int(live))
     out = torch.empty((b, h, tq, hd), dtype=out_dtype, device=q.device)
     rc = _build.lib().wmt_gqa_decode_attention(
         q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(), pos.data_ptr(),
         out.data_ptr(), b, n_kv, h // n_kv, tq, hd, t_alloc, int(live), bits, float(scale),
-        int(out_dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+        int(out_dtype == torch.bfloat16), plan.blocks, plan.rows, plan.stages,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "wmt_gqa_decode_attention")
     global LAUNCHES
     LAUNCHES += 1
