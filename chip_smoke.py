@@ -122,9 +122,11 @@ is non-zero and the result line is not printed:
    step's leaves at 8 rows, with no check of either tree's design, for the
    same use;
 18. beam_times, run only when named in --only: K8 in both modes and widths
-   over beam-built and all-distinct ancestries, K9's move at 8 and 32 of 40
-   lanes (int32 and int64 maps), its permute and index_select, L2 cold, for
-   the same use;
+   over beam-built and all-distinct ancestries, its split mode at every
+   M15_FILLS value in both modes beside the flat mode at the same ancestry,
+   its per-lane layout (int8 and int4, beam-built and all-distinct), K9's
+   move at 8 and 32 of 40 lanes (int32 and int64 maps), its permute and
+   index_select, L2 cold, for the same use;
 19. beam_batches, run only when named in --only: phase 6's dense 8-window x
    beam 5 batch, its tokens at 64 steps beside those of the same batch with
    K8's plain version, and its per-step breakdown (device ms and K8's ms a step, K8's
@@ -213,9 +215,14 @@ is non-zero and the result line is not printed:
 26. m15, run in every whole run after phase 25: the reference's last
    opt-ins (ROADMAP M15) and fault F9. K8's split mode (the shared-prefix
    beam scheme, int8) at the beam timing shape with s_fill 0, 100, 200 and
-   226, both modes, and in clusters of 2 and 8 blocks, and its per-lane
-   layout (decode_step(beam_ancestry=) over a per-lane cache, 40 lanes, T
-   256, int8 and int4, beam-built and all-distinct ancestries), each row by
+   226, at 1, 15, 16 and 17 (a 16-row tile's edges), on lanes that disagree
+   below s_fill (block S reads the window's first lane's rows), both modes,
+   and in clusters of 2, 3 and 8 blocks (s_fill inside a block, at 255 and
+   256, at a block's edge), and its per-lane layout (decode_step(
+   beam_ancestry=) over a per-lane cache, 40 lanes, T 256, int8 and int4,
+   beam-built and all-distinct ancestries, agreed runs of 0, 1, 16, 17, pos
+   and pos + 1 positions, lanes agreeing again after parting, runs ending
+   in a cluster's later block; the flat mode on such runs too), each row by
    row within ATTN_TOL of its plain version, bit-equal on a repeat, one
    device kernel a call, the split with its overflow flag set bit-equal to
    the flat mode; each timed L2 cold beside its plain version, its bound
@@ -3463,10 +3470,13 @@ def phase_batches() -> None:
 
 def phase_beam_times() -> None:
     """Phase 18: the beam kernels' times alone (K8 in every mode, width and
-    ancestry; K9's move at 8 and 32 lanes, its permute and index_select),
-    through the wrappers' public calls and with no check of either tree's
-    design, to set two trees side by side in one call (run in turn)."""
+    ancestry, its split at every M15_FILLS value in both modes beside the
+    flat mode at the same ancestry and its per-lane layout's four cases;
+    K9's move at 8 and 32 lanes, its permute and index_select), through the
+    wrappers' public calls and with no check of either tree's design, to
+    set two trees side by side in one call (run in turn)."""
     times = _beam_kernel_times(_beam_timing_inputs())
+    times.update(_m15_times(_m15_timing_inputs()))
     for label, ms in times.items():
         print(f"  beam kernel time {label}: {ms:.4f} ms")
 
@@ -5005,102 +5015,204 @@ M15_WINDOWS = (64, 8)  # the shared scheme's read windows: roomy, and one the ov
 TRACE_EXTRA = 64  # candidates recorded past the beam's 2B, to find a parting's other one
 
 
-def _split_ancestry(gen, s_fill: int):
-    """A beam-built ancestry at the timed shape whose lanes agree below
-    ``s_fill``, as the shared scheme's commits keep them."""
-    anc = _beam_ancestry(gen, BEAM_N, BEAM_G, BEAM_T).reshape(BEAM_N, BEAM_G, BEAM_T)
+def _split_ancestry(gen, s_fill: int, n: int = BEAM_N, g: int = BEAM_G, t_pos: int = BEAM_T):
+    """A beam-built ancestry whose lanes agree below ``s_fill``, as the
+    shared scheme's commits keep them."""
+    anc = _beam_ancestry(gen, n, g, t_pos).reshape(n, g, t_pos)
     anc[:, :, :s_fill] = anc[:, :1, :s_fill]
-    return anc.reshape(BEAM_N * BEAM_G, BEAM_T).contiguous()
+    return anc.reshape(n * g, t_pos).contiguous()
+
+
+def _run_ancestry(gen, n, g, t_pos, start: int, rejoin: bool = False):
+    """One random history for all lanes of a window but at ``start`` and on
+    (rejoin: at start, start + 1 and start + 2 only), where every lane's row
+    is its own: K8's agreed run is ``start`` positions long."""
+    anc = torch.randint(0, g, (n, 1, t_pos), generator=gen, device=gen.device,
+                        dtype=torch.int32).repeat(1, g, 1)
+    t = torch.arange(t_pos, device=gen.device)
+    apart = (t >= start) & ((t < start + 3) if rejoin else True)
+    own = torch.arange(g, dtype=torch.int32, device=gen.device)[None, :, None]
+    return torch.where(apart[None, None], own, anc).reshape(n * g, t_pos).contiguous()
+
+
+def _m15_timing_inputs() -> dict:
+    """The timed split and per-lane cases' inputs, the same in any tree from
+    the same seeds: queries at the beam timing shape, an int8 flat cache, a
+    split ancestry a value of M15_FILLS, the per-lane caches (int8, int4) of
+    one layer of 40 lanes and their beam-built and all-distinct
+    ancestries."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rng = np.random.default_rng(18)
+    n, g, h = BEAM_N, BEAM_G, BEAM_H
+    q = torch.from_numpy(rng.standard_normal((n * g, h, 1, 64)).astype(np.float32) * 0.35).to(
+        dev, torch.bfloat16)
+    return dict(q=q, cache=_quant_cache(rng, n, h, BEAM_T * g, 8),
+                split={fill: (_split_ancestry(gen, fill),
+                              torch.full((n,), fill, dtype=torch.int32, device=dev))
+                       for fill in M15_FILLS},
+                lane={bits: _quant_cache(rng, n * g, h, M15_LANE_T, bits) for bits in (8, 4)},
+                lane_anc={kind: _k8_ancestry(kind, gen, n, g, M15_LANE_T)
+                          for kind in ("beam", "distinct")})
+
+
+def _m15_times(inp) -> dict:
+    """K8's split (both modes, every M15_FILLS value, beside the flat mode
+    at the same ancestry) and per-lane layout (int8 and int4, beam-built
+    and all-distinct) at pos 226, device ms a call, L2 cold over copies of
+    one layer's cache. Only the wrappers' public calls: any tree's K8 can
+    be timed."""
+    q, g, pos = inp["q"], BEAM_G, BEAM_POS
+    off = torch.zeros((), dtype=torch.bool, device="cuda")
+    times = {}
+    layers = _copies(inp["cache"])
+    for fill, (anc, s_fill) in inp["split"].items():
+        for int_dot in (True, False):
+            mode = "int_dot" if int_dot else "fp"
+            times[f"split int8 {mode} s_fill {fill}"] = _cold_ms(lambda c: bf.beamflat_attention(
+                q, *c, anc, pos, g, int_dot=int_dot, s_fill=s_fill, overflow=off), layers)
+            times[f"flat int8 {mode} s_fill {fill} ancestry"] = _cold_ms(
+                lambda c: bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot), layers)
+    del layers
+    for bits in (8, 4):
+        copies = _copies(inp["lane"][bits])
+        for kind, anc in inp["lane_anc"].items():
+            times[f"per-lane int{bits} {kind}"] = _cold_ms(
+                lambda c: bf.ancestry_attention(q, *c, anc, pos, g), copies)
+        del copies
+    return times
 
 
 def _m15_kernels() -> dict:
     """K8's split and per-lane modes alone: each held row by row against its
     plain version on the card (both modes of the split at every s_fill of
-    M15_FILLS and in clusters past 256 positions; the per-lane layout int8
-    and int4 on beam-built and all-distinct ancestries), bit-equal on a
-    repeat, one device kernel a call; the split with its overflow flag set
-    bit-equal to the flat mode; then each timed L2 cold beside its plain
-    version, its bound (the distinct rows' bytes, as K8's row) and K8 flat
-    at the same ancestry. -> the readings for K8's JSON row."""
+    M15_FILLS, at a 16-row tile's edges, on lanes that disagree below
+    s_fill, and in clusters past 256 positions with s_fill at 255, 256 and
+    a block's edge; the per-lane layout int8 and int4 on beam-built and
+    all-distinct ancestries and on agreed runs of 0, 1, 16, 17, pos and pos
+    + 1 positions and lanes agreeing again after parting, and the flat
+    mode on such runs), bit-equal on a repeat, one device kernel a call;
+    the split with its overflow flag set bit-equal to the flat mode; then
+    each timed L2 cold (_m15_times) beside its plain version, its bound (the
+    distinct rows' bytes, as K8's row) and K8 flat at the same ancestry.
+    -> the readings for K8's JSON row."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(26)
     rng = np.random.default_rng(26)
     n, g, h, pos = BEAM_N, BEAM_G, BEAM_H, BEAM_POS
-    q = torch.from_numpy(rng.standard_normal((n * g, h, 1, 64)).astype(np.float32) * 0.35).to(
-        dev, torch.bfloat16)
-    cache = _quant_cache(rng, n, h, BEAM_T * g, 8)
+    inp = _m15_timing_inputs()  # checked here, then timed
+    q, cache = inp["q"], inp["cache"]
     errs, out = [], {}
     off = torch.zeros((), dtype=torch.bool, device=dev)
     on = torch.ones((), dtype=torch.bool, device=dev)
-    for fill in M15_FILLS:
-        anc = _split_ancestry(gen, fill)
-        s_fill = torch.full((n,), fill, dtype=torch.int32, device=dev)
+
+    def check_split(label, qq, c, anc, p, s_fill, gg=g):
         for int_dot in (False, True):
-            got = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot, s_fill=s_fill,
+            name = f"beamflat split {label} {'int_dot' if int_dot else 'fp'}"
+            got = bf.beamflat_attention(qq, *c, anc, p, gg, int_dot=int_dot, s_fill=s_fill,
                                         overflow=off)
-            ref = bf.beamflat_attention_plain(q, *cache, anc, pos, g, int_dot, s_fill)
-            errs.append(_check_rows(f"beamflat split s_fill={fill} int8 "
-                                    f"{'int_dot' if int_dot else 'fp'}", got, ref))
-            again = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot,
-                                          s_fill=s_fill, overflow=off)
-            flat = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot)
-            over = bf.beamflat_attention(q, *cache, anc, pos, g, int_dot=int_dot, s_fill=s_fill,
-                                         overflow=on)
-            if not (torch.equal(got, again) and torch.equal(over, flat)):
-                raise AssertionError(f"beamflat split s_fill={fill} int_dot={int_dot}: a repeat "
-                                     "differs, or the overflow flag does not give the flat mode")
-    # the split in clusters of 2 and 8 blocks (a block holding both sides)
-    for t_pos, p, fill in ((448, 300, 150), (2048, 2047, 1000)):
-        anc = _beam_ancestry(gen, 1, g, t_pos).reshape(1, g, t_pos)
-        anc[:, :, :fill] = anc[:, :1, :fill]
-        anc = anc.reshape(g, t_pos).contiguous()
-        c = _quant_cache(rng, 1, h, t_pos * g, 8)
-        qq = q[:g]
-        s_fill = torch.tensor([fill], dtype=torch.int32, device=dev)
-        for int_dot in (False, True):
-            errs.append(_check_rows(
-                f"beamflat split pos={p} s_fill={fill} (cluster {bf.beamflat_plan(p + 1, g)[0]}) "
-                f"{'int_dot' if int_dot else 'fp'}",
-                bf.beamflat_attention(qq, *c, anc, p, g, int_dot=int_dot, s_fill=s_fill),
-                bf.beamflat_attention_plain(qq, *c, anc, p, g, int_dot, s_fill)))
+            errs.append(_check_rows(name, got, bf.beamflat_attention_plain(
+                qq, *c, anc, p, gg, int_dot, s_fill)))
+            if not torch.equal(got, bf.beamflat_attention(qq, *c, anc, p, gg, int_dot=int_dot,
+                                                          s_fill=s_fill, overflow=off)):
+                raise AssertionError(f"{name}: a repeat differs")
+            if not torch.equal(
+                    bf.beamflat_attention(qq, *c, anc, p, gg, int_dot=int_dot, s_fill=s_fill,
+                                          overflow=on),
+                    bf.beamflat_attention(qq, *c, anc, p, gg, int_dot=int_dot)):
+                raise AssertionError(f"{name}: the overflow flag does not give the flat mode")
+
+    for fill, (anc, s_fill) in inp["split"].items():
+        check_split(f"s_fill={fill} int8", q, cache, anc, pos, s_fill)
+    # s_fill at a 16-row tile's edges, one a window
+    edges = (1, 15, 16, 17, 1, 15, 16, 17)
+    check_split(f"s_fill={edges} int8", q, cache,
+                torch.cat([_split_ancestry(gen, fill, 1) for fill in edges]), pos,
+                torch.tensor(edges, dtype=torch.int32, device=dev))
+    # lanes that disagree below s_fill: block S reads the first lane's rows
+    check_split("disagreeing lanes s_fill=(0, 100, 200, 226, 1, 17, 50, 226) int8", q, cache,
+                _k8_ancestry("distinct", gen, n, g, BEAM_T), pos,
+                torch.tensor((0, 100, 200, 226, 1, 17, 50, 226), dtype=torch.int32, device=dev))
+    # W's agreed run past s_fill (to position 40 or 200), ending at and
+    # inside a tile, and lanes agreeing again after parting at 50
+    for start, rejoin, fills in ((40, False, (0, 17, 39, 40, 41, 100, 226, 16)),
+                                 (200, False, (100, 190, 199, 200, 201, 0, 17, 226)),
+                                 (50, True, (0, 49, 50, 51, 52, 53, 60, 226))):
+        check_split(f"{'rejoin' if rejoin else 'run'} {start} s_fill={fills} int8", q, cache,
+                    _run_ancestry(gen, n, g, BEAM_T, start, rejoin), pos,
+                    torch.tensor(fills, dtype=torch.int32, device=dev))
+    # clusters of 2, 3 and 8 blocks: s_fill inside a block, at 255 and 256,
+    # at a block's edge (224 of 448, 256 of 2048)
+    for t_pos, p, gg, fills in ((448, 300, g, (150,)), (448, 447, g, (255, 256)),
+                                (448, 447, g, (224, 223)), (600, 599, 11, (255,)),
+                                (2048, 2047, g, (1000,)), (2048, 2047, g, (256,))):
+        nn = len(fills)
+        qq = torch.from_numpy(rng.standard_normal((nn * gg, h, 1, 64)).astype(np.float32)
+                              * 0.35).to(dev, torch.bfloat16)
+        check_split(f"pos={p} g={gg} s_fill={fills} (cluster {bf.beamflat_plan(p + 1, gg)[0]})",
+                    qq, _quant_cache(rng, nn, h, t_pos * gg, 8),
+                    torch.cat([_split_ancestry(gen, fill, 1, gg, t_pos) for fill in fills]), p,
+                    torch.tensor(fills, dtype=torch.int32, device=dev), gg)
     out["max_abs_err_split"] = max(errs)
-    s100 = torch.full((n,), 100, dtype=torch.int32, device=dev)
-    anc100 = _split_ancestry(gen, 100)
+    anc100, s100 = inp["split"][100]
     for int_dot in (False, True):
         _one_kernel(f"beamflat split int_dot={int_dot}", lambda: bf.beamflat_attention(
             q, *cache, anc100, pos, g, int_dot=int_dot, s_fill=s100, overflow=off))
 
-    # the per-lane layout: one layer's per-lane cache of 40 lanes
-    lane_errs, lane_caches = [], {}
+    # the per-lane layout: one layer's per-lane cache of 40 lanes; agreed
+    # runs (kind, start) of every edge length, also ending in a cluster's
+    # later block, and the flat mode on such runs
+    runs = [(f"run {start}", start, False) for start in (0, 1, 16, 17, pos, pos + 1)]
+    runs.append(("rejoin 40", 40, True))
+    lane_errs, lane_caches = [], inp["lane"]
     for bits in (8, 4):
-        lane_caches[bits] = _quant_cache(rng, n * g, h, M15_LANE_T, bits)
-        for kind in ("beam", "distinct"):
-            anc = _k8_ancestry(kind, gen, n, g, M15_LANE_T)
-            for p in (pos, 255):
+        cases = [(kind, anc, (pos, 255)) for kind, anc in inp["lane_anc"].items()]
+        cases += [(kind, _run_ancestry(gen, n, g, M15_LANE_T, start, rejoin), (pos,))
+                  for kind, start, rejoin in runs]
+        for kind, anc, ps in cases:
+            for p in ps:
                 got = bf.ancestry_attention(q, *lane_caches[bits], anc, p, g)
                 ref = bf.attention_int8_ancestry_plain(q, *lane_caches[bits], anc, p, g)
                 lane_errs.append(_check_rows(f"beamflat per-lane int{bits} {kind} pos={p}",
                                              got, ref))
                 if not torch.equal(got, bf.ancestry_attention(q, *lane_caches[bits], anc, p, g)):
                     raise AssertionError(f"beamflat per-lane int{bits} {kind}: a repeat differs")
+        for t_pos, p, start, rejoin in ((448, 447, 230, False), (448, 447, 100, True)):
+            anc = _run_ancestry(gen, 2, g, t_pos, start, rejoin)
+            c = _quant_cache(rng, 2 * g, h, t_pos, bits)
+            lane_errs.append(_check_rows(
+                f"beamflat per-lane int{bits} {'rejoin' if rejoin else 'run'} {start} pos={p} "
+                f"(cluster {bf.beamflat_plan(p + 1, g)[0]})",
+                bf.ancestry_attention(q[:2 * g], *c, anc, p, g),
+                bf.attention_int8_ancestry_plain(q[:2 * g], *c, anc, p, g)))
+        # the flat mode takes the same run route
+        c = _quant_cache(rng, n, h, BEAM_T * g, bits)
+        for kind, start, rejoin in runs[2:4] + runs[-1:]:
+            anc = _run_ancestry(gen, n, g, BEAM_T, start, rejoin)
+            for int_dot in (False, True):
+                lane_errs.append(_check_rows(
+                    f"beamflat flat int{bits} {'int_dot' if int_dot else 'fp'} {kind}",
+                    bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot),
+                    bf.beamflat_attention_plain(q, *c, anc, pos, g, int_dot=int_dot)))
+        del c
     out["max_abs_err_lane"] = max(lane_errs)
-    anc_beam = _k8_ancestry("beam", gen, n, g, M15_LANE_T)
+    anc_beam = inp["lane_anc"]["beam"]
+    runs_beam = bf.beamflat_agreed_runs(anc_beam, g, pos, 1)
+    print(f"  beamflat per-lane beam-built ancestry at pos {pos}: agreed runs of "
+          f"{runs_beam.min().item()}-{runs_beam.max().item()} of {pos + 1} positions a window "
+          f"(mean {runs_beam.float().mean().item():.1f})")
     _one_kernel("beamflat per-lane int8", lambda: bf.ancestry_attention(
         q, *lane_caches[8], anc_beam, pos, g))
 
     # times, L2 cold over copies of one layer's cache
-    layers = _copies(cache)
+    times = _m15_times(inp)
     split_cases = {}
-    for fill in M15_FILLS:
-        anc = _split_ancestry(gen, fill)
-        s_fill = torch.full((n,), fill, dtype=torch.int32, device=dev)
-        needed = int(bf.beamflat_rows_needed(anc, g, pos).sum())
+    for fill, (anc, s_fill) in inp["split"].items():
+        needed = int(bf.beamflat_rows_needed(anc, g, pos, s_fill).sum())
         for int_dot in (True, False):
-            label = f"int8 {'int_dot' if int_dot else 'fp'} s_fill {fill}"
-            ms = _cold_ms(lambda c: bf.beamflat_attention(
-                q, *c, anc, pos, g, int_dot=int_dot, s_fill=s_fill, overflow=off), layers)
-            flat = _cold_ms(lambda c: bf.beamflat_attention(q, *c, anc, pos, g, int_dot=int_dot),
-                            layers)
+            mode = "int_dot" if int_dot else "fp"
+            label = f"int8 {mode} s_fill {fill}"
+            ms, flat = times[f"split {label}"], times[f"flat int8 {mode} s_fill {fill} ancestry"]
             bound = _bound(needed * h * (2 * 64 + 4) + n * g * (pos + 1) * 4 + 2 * _nbytes(q),
                            n * g * h * (pos + 1) * 2 * 2 * 64, "int8" if int_dot else "bf16")
             split_cases[label] = dict(ms=ms, flat_ms=flat, distinct_rows=needed, **bound)
@@ -5108,26 +5220,23 @@ def _m15_kernels() -> dict:
                   f"{flat:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, {needed} "
                   f"distinct rows), {bound['bound_ms'] / ms:.1%} of it")
     main = split_cases[f"int8 int_dot s_fill {M15_FILLS[1]}"]
+    anc100, s100 = inp["split"][100]
     out.update(ms_split=main["ms"], bound_split_ms=main["bound_ms"],
                bound_split_by=main["bound_by"], flat_ms_split_shape=main["flat_ms"],
                cases_split=split_cases, plain_split_ms=_cold_ms(
                    lambda c: bf.beamflat_attention_plain(q, *c, anc100, pos, g, True, s100),
                    _copies(cache, 2), reps=8), library_split_ms=None)
-    del layers
     lane_cases = {}
     for bits in (8, 4):
-        copies = _copies(lane_caches[bits])
-        for kind in ("beam", "distinct"):
-            anc = _k8_ancestry(kind, gen, n, g, M15_LANE_T)
+        for kind, anc in inp["lane_anc"].items():
             needed = int(bf.beamflat_rows_needed(anc, g, pos).sum())
-            ms = _cold_ms(lambda c: bf.ancestry_attention(q, *c, anc, pos, g), copies)
+            ms = times[f"per-lane int{bits} {kind}"]
             bound = _bound(needed * h * (2 * bits * 64 // 8 + 4) + n * g * (pos + 1) * 4
                            + 2 * _nbytes(q), n * g * h * (pos + 1) * 2 * 2 * 64, "bf16")
             lane_cases[f"int{bits} {kind}"] = dict(ms=ms, distinct_rows=needed, **bound)
             print(f"  beamflat per-lane int{bits} {kind} pos {pos}: kernel {ms:.4f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {needed} distinct rows), "
                   f"{bound['bound_ms'] / ms:.1%} of it")
-        del copies
     main = lane_cases["int8 beam"]
     out.update(ms_lane=main["ms"], bound_lane_ms=main["bound_ms"],
                bound_lane_by=main["bound_by"], cases_lane=lane_cases, plain_lane_ms=_cold_ms(

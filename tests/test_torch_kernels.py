@@ -1141,9 +1141,22 @@ def _beam_ancestry(gen, n, g, t_pos, device):
 def _ancestry(kind, gen, n, g, t_pos, device):
     """K8's ancestry: as a beam builds it ("beam": lanes share most of their
     history), every lane's history its own ("distinct": g rows a
-    position), or one history for all ("shared": one row a position)."""
+    position), one history for all ("shared": one row a position), or one
+    random history for all up to position N and every lane's own from N
+    ("runN": an agreed run of N positions; "rejoinN": the lanes apart at N,
+    N + 1 and N + 2 only, agreeing again after)."""
     if kind == "beam":
         return _beam_ancestry(gen, n, g, t_pos, device)
+    rejoin = kind.startswith("rejoin")
+    if rejoin or kind.startswith("run"):
+        start = int(kind.removeprefix("rejoin" if rejoin else "run"))
+        anc = torch.randint(0, g, (n, 1, t_pos), generator=gen, device=device,
+                            dtype=torch.int32).repeat(1, g, 1)
+        t = torch.arange(t_pos, device=device)
+        apart = (t >= start) & ((t < start + 3) if rejoin else True)
+        own = torch.arange(g, dtype=torch.int32, device=device)[None, :, None]
+        anc = torch.where(apart[None, None], own, anc)
+        return anc.reshape(n * g, t_pos).contiguous()
     lanes = torch.arange(n * g, dtype=torch.int32, device=device) % g
     if kind == "shared":
         lanes = torch.zeros_like(lanes)
@@ -1170,14 +1183,17 @@ def _beamflat_case(cuda, bits, n, g, t_pos, kind, seed):
     (2, 8, 128, 127, "beam"), (2, 8, 128, 100, "distinct"), (1, 11, 96, 95, "beam"),
     (1, 11, 96, 95, "distinct"), (2, 5, 448, 255, "beam"), (2, 5, 448, 256, "distinct"),
     (1, 5, 448, 447, "beam"), (1, 5, 2048, 2047, "beam"), (1, 11, 448, 300, "beam"),
-    (1, 11, 448, 300, "distinct")])
+    (1, 11, 448, 300, "distinct"), (8, 5, 256, 226, "run0"), (8, 5, 256, 226, "run17"),
+    (2, 5, 448, 447, "rejoin230"), (1, 11, 448, 300, "run160")])
 def test_beamflat_kernel_matches_plain(cuda, bits, int_dot, n, g, t_pos, pos, kind):
     """K8 against its plain version, query row by query row: beam-built,
     all-distinct and shared ancestries; g 1, 8 (one full mma tile of lanes)
     and 11 (two passes, also in a cluster of two); pos 0, at the plan's span
     edges (255: one block a cluster, 256: two), at T - 1 (447: two blocks;
     2047: eight of 256 positions); more distinct rows than a chunk holds
-    (distinct)."""
+    (distinct); agreed runs (the flat mode's run route) of 0 and 17
+    positions, ending inside the second block of a cluster, and lanes
+    agreeing again after parting."""
     q, k8, ks, v8, vs, anc = _beamflat_case(cuda, bits, n, g, t_pos, kind, pos + g)
     before = bf.LAUNCHES
     got = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot)
@@ -1207,13 +1223,19 @@ def _split_case(cuda, n, g, t_pos, pos, fills, seed):
     # s_fill 0, mid (-1: pos // 2 + window), pos; one block, then clusters
     (8, 5, 256, 226, (0, -1, 226, 100, 200, 0, -1, 226)), (2, 3, 128, 0, (0, 0)),
     (2, 5, 448, 255, (0, -1)), (2, 5, 448, 256, (256, -1)), (1, 5, 448, 447, (300,)),
-    (1, 11, 448, 300, (-1,)), (1, 5, 2048, 2047, (1000,)), (2, 8, 128, 127, (127, 3))])
+    (1, 11, 448, 300, (-1,)), (1, 5, 2048, 2047, (1000,)), (2, 8, 128, 127, (127, 3)),
+    # s_fill at a 16-row tile's edges, and at 255 and 256 and a block's
+    # edge (224 of 448, 256 of 2048) in clusters
+    (8, 5, 256, 226, (1, 15, 16, 17, 1, 15, 16, 17)), (2, 5, 448, 447, (255, 256)),
+    (2, 5, 448, 447, (224, 223)), (1, 5, 2048, 2047, (256,)), (1, 11, 600, 599, (255,))])
 def test_beamflat_split_matches_plain(cuda, int_dot, n, g, t_pos, pos, fills):
     """K8's split mode (the shared-prefix scheme, int8) against its plain
-    version query row by query row, at s_fill 0, mid and pos, in one block
-    and in clusters of 2 to 8 (a block holding positions on both sides of
-    the split); a repeat bit-equal; with the overflow flag set it equals
-    the flat mode bit for bit; one launch a call, counted as a split."""
+    version query row by query row, at s_fill 0, mid and pos, at a 16-row
+    tile's edges (1, 15, 16, 17), in one block and in clusters of 2 to 8 (a
+    block holding positions on both sides of the split, s_fill at 255, 256
+    and a block's edge); a repeat bit-equal; with the overflow flag set it
+    equals the flat mode bit for bit; one launch a call, counted as a
+    split."""
     q, k8, ks, v8, vs, anc, s_fill = _split_case(cuda, n, g, t_pos, pos, fills, pos + g)
     before = (bf.LAUNCHES, bf.SPLIT_LAUNCHES)
     off = torch.zeros((), dtype=torch.bool, device=cuda)
@@ -1229,6 +1251,40 @@ def test_beamflat_split_matches_plain(cuda, int_dot, n, g, t_pos, pos, fills):
     over = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot,
                                  s_fill=s_fill, overflow=torch.ones_like(off))
     assert torch.equal(over, flat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dot", [False, True])
+@pytest.mark.parametrize("n,g,t_pos,pos,kind,fills", [
+    (8, 5, 256, 226, "distinct", (0, 100, 200, 226, 1, 17, 50, 226)),
+    (1, 5, 448, 447, "distinct", (300,)), (1, 11, 448, 300, "distinct", (200,)),
+    # W's agreed run goes on past s_fill (to 40, 200, 300), ending at and
+    # inside a 16-row tile, in a cluster's later block; lanes agreeing again
+    # after parting at 50
+    (8, 5, 256, 226, "run40", (0, 17, 39, 40, 41, 100, 226, 16)),
+    (8, 5, 256, 226, "run200", (100, 190, 199, 200, 201, 0, 17, 226)),
+    (8, 5, 256, 226, "rejoin50", (0, 49, 50, 51, 52, 53, 60, 226)),
+    (2, 5, 448, 447, "run300", (100, 250)), (1, 11, 448, 300, "run200", (150,))])
+def test_beamflat_split_reads_the_first_lane_below_s_fill(cuda, int_dot, n, g, t_pos, pos, kind,
+                                                         fills):
+    """Lanes that disagree below s_fill (every lane's history its own, or
+    its own from the end of an agreed run on): block S reads the window's
+    first lane's row for every lane, as the reference's single copy S
+    holds it, and block W's agreed run may go on past s_fill. Row by row
+    against the plain version, in one block and in clusters; a repeat
+    bit-equal; the overflow flag gives the flat mode bit for bit."""
+    q, k8, ks, v8, vs, anc = _beamflat_case(cuda, 8, n, g, t_pos, kind, pos + 1)
+    s_fill = torch.tensor([min(f, pos) for f in fills], dtype=torch.int32, device=cuda)
+    got = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot, s_fill=s_fill)
+    torch.cuda.synchronize()
+    _assert_rows_close(got, bf.beamflat_attention_plain(q, k8, ks, v8, vs, anc, pos, g, int_dot,
+                                                        s_fill))
+    assert torch.equal(got, bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g,
+                                                  int_dot=int_dot, s_fill=s_fill))
+    over = bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g, int_dot=int_dot, s_fill=s_fill,
+                                 overflow=torch.ones((), dtype=torch.bool, device=cuda))
+    assert torch.equal(over, bf.beamflat_attention(q, k8, ks, v8, vs, anc, pos, g,
+                                                   int_dot=int_dot))
 
 
 @pytest.mark.cuda
@@ -1256,13 +1312,20 @@ def test_beamflat_split_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("n,g,t_pos,pos,kind", [
     (8, 5, 256, 226, "beam"), (8, 5, 256, 226, "distinct"), (2, 3, 128, 0, "beam"),
     (2, 8, 128, 127, "distinct"), (1, 11, 96, 95, "beam"), (2, 5, 448, 256, "beam"),
-    (1, 5, 448, 447, "distinct"), (1, 11, 448, 300, "beam")])
+    (1, 5, 448, 447, "distinct"), (1, 11, 448, 300, "beam"),
+    # agreed runs of 0, 1, 16, 17, pos and pos + 1 positions, agreement
+    # returning after the lanes part, runs ending in a cluster's later block
+    (8, 5, 256, 226, "run0"), (8, 5, 256, 226, "run1"), (8, 5, 256, 226, "run16"),
+    (8, 5, 256, 226, "run17"), (8, 5, 256, 226, "run226"), (8, 5, 256, 226, "run227"),
+    (8, 5, 256, 226, "rejoin40"), (2, 5, 448, 447, "run230"), (2, 5, 448, 447, "rejoin100"),
+    (1, 11, 448, 300, "run150")])
 def test_beamflat_lane_layout_matches_plain(cuda, bits, n, g, t_pos, pos, kind):
     """K8's per-lane layout (``decode_step(beam_ancestry=)`` over a
     per-lane cache, fp mode) against ``attention_int8_ancestry``'s plain
     version query row by query row, on beam-built and all-distinct
-    ancestries, one block and clusters; a repeat bit-equal; one launch a
-    call, counted as a per-lane one."""
+    ancestries and agreed runs of every edge length, one block and
+    clusters; a repeat bit-equal; one launch a call, counted as a per-lane
+    one."""
     gen = torch.Generator(device=cuda).manual_seed(pos + g)
     kx, vx = (torch.randn((n * g, 20, t_pos, 64), generator=gen, device=cuda)
               for _ in range(2))

@@ -169,20 +169,135 @@ def test_split_fp_cache_matches_attention_fp_shared(window, pos, fills):
     assert torch.equal(over, bf.attention_fp_beamflat(_t(q), _t(kf), _t(vf), _t(anc), pos, g))
 
 
+def _disagreeing_ancestry(rng, n, g, t_pos, fills):
+    """Random lanes that disagree below s_fill (each window's lanes own
+    different rows at some position under it)."""
+    anc = rng.integers(0, g, (n, g, t_pos)).astype(np.int32)
+    for w, f in enumerate(fills):
+        if f:
+            anc[w, 0, 0], anc[w, 1, 0] = 0, 1
+    return anc.reshape(n * g, t_pos)
+
+
+# SPLIT_CASES with an S block in some window
+DISAGREE_CASES = [c for c in SPLIT_CASES if max(c[2]) > 0]
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("window,pos,fills", DISAGREE_CASES)
+def test_split_plain_reads_the_first_lane_below_s_fill(mxu, window, pos, fills):
+    """Lanes that disagree below s_fill: block S reads the window's first
+    lane's rows for every lane, as the reference's S buffer holds them
+    (built from lane 0 by ``beam.py:_build_S``, here ``_s_buffer``)."""
+    rng = np.random.default_rng(pos + window + 1)
+    n, g, h, t_pos, d = 2, 3, 4, 40, 64
+    kx = rng.standard_normal((n, h, t_pos * g, d)).astype(np.float32) * 0.35
+    vx = rng.standard_normal((n, h, t_pos * g, d)).astype(np.float32)
+    q = rng.standard_normal((n * g, h, 1, d)).astype(np.float32) * 0.35
+    anc = _disagreeing_ancestry(rng, n, g, t_pos, fills)
+    k8, ks, tk, tks = _codes(kx, 8)
+    v8, vs, tv, tvs = _codes(vx, 8)
+    k8t, v8t = jnp.swapaxes(k8, 2, 3), jnp.swapaxes(v8, 2, 3)
+    s_fill = np.array(fills, np.int32)
+    ref = jkv.attention_int8_shared(
+        jnp.asarray(q), _s_buffer(k8t, anc, n, g, t_pos, 3), _s_buffer(ks, anc, n, g, t_pos, 2),
+        _s_buffer(v8t, anc, n, g, t_pos, 3), _s_buffer(vs, anc, n, g, t_pos, 2), k8t, ks, v8t,
+        vs, jnp.asarray(anc), jnp.asarray(s_fill), pos, g, window, mxu=mxu)
+    got = bf.beamflat_attention(_t(q), tk, tks, tv, tvs, _t(anc), pos, g, int_dot=mxu,
+                                s_fill=_t(s_fill))
+    _close(got, ref)
+    # the lanes' own rows (the flat function) give another answer here
+    flat = bf.beamflat_attention(_t(q), tk, tks, tv, tvs, _t(anc), pos, g, int_dot=mxu)
+    assert float((flat - got).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("window,pos,fills", DISAGREE_CASES[:2] + DISAGREE_CASES[3:4])
+def test_split_fp_cache_reads_the_first_lane_below_s_fill(window, pos, fills):
+    """``attention_fp_shared`` on lanes that disagree below s_fill, S built
+    from lane 0 as the reference builds it."""
+    rng = np.random.default_rng(pos + 1)
+    n, g, h, t_pos, d = 2, 3, 4, 40, 64
+    kf = rng.standard_normal((n, h, t_pos * g, d)).astype(np.float32)
+    vf = rng.standard_normal((n, h, t_pos * g, d)).astype(np.float32)
+    q = rng.standard_normal((n * g, h, 1, d)).astype(np.float32)
+    anc = _disagreeing_ancestry(rng, n, g, t_pos, fills)
+    s_fill = np.array(fills, np.int32)
+    ref = jkv.attention_fp_shared(
+        jnp.asarray(q), _s_buffer(jnp.asarray(kf), anc, n, g, t_pos, 2),
+        _s_buffer(jnp.asarray(vf), anc, n, g, t_pos, 2), jnp.asarray(kf), jnp.asarray(vf),
+        jnp.asarray(anc), jnp.asarray(s_fill), pos, g, window)
+    _close(bf.attention_fp_shared(_t(q), _t(kf), _t(vf), _t(anc), _t(s_fill), pos, g), ref)
+
+
 def test_split_masks_partition_the_flat_mask():
-    """The port of ``_shared_masks`` over the flat cache: blocks S and W are
-    disjoint and together the flat mask; S holds exactly the positions
-    below each window's s_fill."""
+    """The port of ``_shared_masks`` over the flat cache: on lanes that
+    agree below s_fill (the shared scheme's commits keep them so), blocks S
+    and W are disjoint and together the flat mask, S holding exactly the
+    positions below each window's s_fill; where the lanes disagree, S names
+    the window's first lane's row at each of those positions, for every
+    lane."""
     rng = np.random.default_rng(0)
     n, g, t_pos, pos = 3, 4, 20, 14
-    anc = _t(rng.integers(0, g, (n * g, t_pos)).astype(np.int32))
-    s_fill = torch.tensor([0, 7, 15], dtype=torch.int32)
+    fills = (0, 7, 15)
+    s_fill = torch.tensor(fills, dtype=torch.int32)
+    anc = _t(_agreed_ancestry(rng, n, g, t_pos, fills))
     mask_s, mask_w = bf.split_masks(anc, s_fill, g, t_pos * g, pos)
     flat = bf.beamflat_mask(anc, g, t_pos * g, pos)
     assert not (mask_s & mask_w).any() and torch.equal(mask_s | mask_w, flat)
     t_idx = torch.arange(t_pos * g) // g
     for w in range(n):
         assert torch.equal(mask_s[w], flat[w] & (t_idx < min(int(s_fill[w]), pos + 1)))
+    # lanes that disagree below s_fill
+    anc = _t(rng.integers(0, g, (n * g, t_pos)).astype(np.int32))
+    mask_s, mask_w = bf.split_masks(anc, s_fill, g, t_pos * g, pos)
+    flat = bf.beamflat_mask(anc, g, t_pos * g, pos)
+    for w in range(n):
+        below = t_idx < min(int(s_fill[w]), pos + 1)
+        lane0 = flat[w, 0] & below
+        assert all(torch.equal(mask_s[w, b], lane0) for b in range(g))
+        assert torch.equal(mask_w[w], flat[w] & ~below)
+        if fills[w]:  # some lane's own rows differ from lane 0's there
+            assert not torch.equal(mask_s[w], flat[w] & below)
+
+
+def test_split_rows_needed_count_the_first_lane_below_s_fill():
+    """K8's bound for the split: below s_fill the window's first lane's row
+    once a position, above it every lane's distinct rows, as a loop
+    counts them."""
+    rng = np.random.default_rng(3)
+    n, g, t_pos, pos = 3, 5, 40, 33
+    anc = rng.integers(0, g, (n * g, t_pos)).astype(np.int32)
+    fills = (0, 12, 34)
+    got = bf.beamflat_rows_needed(_t(anc), g, pos, torch.tensor(fills, dtype=torch.int32))
+    for w, fill in enumerate(fills):
+        lanes = anc.reshape(n, g, t_pos)[w]
+        want = sum(1 if t < fill else len(set(lanes[:, t])) for t in range(pos + 1))
+        assert int(got[w]) == want
+    assert torch.equal(bf.beamflat_rows_needed(_t(anc), g, pos, torch.zeros(n, dtype=torch.int32)),
+                       bf.beamflat_rows_needed(_t(anc), g, pos))
+
+
+@pytest.mark.parametrize("g,pos,cluster", [(5, 30, 1), (5, 226, 1), (11, 300, 2), (1, 40, 3),
+                                           (8, 447, 2), (3, 2047, 8)])
+def test_agreed_runs_match_a_numpy_loop(g, pos, cluster):
+    """``beamflat_agreed_runs`` (the positions K8's flat mode and per-lane
+    layout read through the agreed-run route) against a loop: each block's
+    leading positions at which every lane of a pass names one lane."""
+    rng = np.random.default_rng(pos + g)
+    n, t_pos = 3, pos + 5
+    anc = rng.integers(0, 2, (n, g, t_pos)).astype(np.int32)
+    for w, run in enumerate((0, pos // 3, pos + 1)):  # agreement, then random
+        anc[w, :, :run] = anc[w, :1, :run]
+    got = bf.beamflat_agreed_runs(_t(anc.reshape(n * g, t_pos)), g, pos, cluster).numpy()
+    live = pos + 1
+    for w in range(n):
+        for p, r0 in enumerate(range(0, g, 8)):
+            lanes = anc[w, r0:r0 + 8]
+            for r in range(cluster):
+                t, want = r * live // cluster, 0
+                while t < (r + 1) * live // cluster and (lanes[:, t] == lanes[0, t]).all():
+                    t, want = t + 1, want + 1
+                assert got[w, p, r] == want, (w, p, r)
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -32,12 +32,16 @@
 //              dot; w = softmax(s); wv = w * vs re-quantized over the row's
 //              keys the same way; out = (sum w8 v, exact) * ws
 //   split:     a per-window s_fill (device int32) splits the positions into
-//              block S (t < s_fill) and block W (t >= s_fill). Each block
-//              has its own max m and sum l of e = exp(s - m) and, in the int
-//              mode, its own code scale of e * vs over its positions; out =
-//              (oS cS + oW cW) / (lS cS + lW cW) with cX = exp(mX - max(mS,
-//              mW)), an empty block at m = -1e30 (kv_quant.py:588-603). When
-//              the device overflow flag is set, the launch computes the flat
+//              block S (t < s_fill) and block W (t >= s_fill). Block S is
+//              the reference's single copy S (decoding/beam.py:_build_S and
+//              its commits, which take the window's first lane): position t
+//              reads row (t, ancestry[w g, t]) for every lane of window w.
+//              Block W reads each lane's own rows. Each block has its own
+//              max m and sum l of e = exp(s - m) and, in the int mode, its
+//              own code scale of e * vs over its positions; out = (oS cS +
+//              oW cW) / (lS cS + lW cW) with cX = exp(mX - max(mS, mW)), an
+//              empty block at m = -1e30 (kv_quant.py:588-603). When the
+//              device overflow flag is set, the launch computes the flat
 //              function instead, through the flat mode's code.
 //
 // What bounds it on the H100: device-memory bytes, the distinct rows a
@@ -47,26 +51,38 @@
 // about 5 MB, 1.5 us at 3.35 TB/s; with every history distinct, g rows a
 // position. The dots are 2 operations per code. At a beam step's sizes the
 // time is a chain of dependent steps instead (launch, ancestry, rows, QK,
-// softmax, PV), each one or two device-memory round trips or block barriers.
-// The split mode reads the same rows: the reference's single copy S of the
-// agreed prefix holds the very rows every lane's ancestry names there, which
-// this kernel already reads once a (window, head).
+// softmax, PV), each one or two device-memory round trips or block barriers,
+// and the instructions each step issues for every position and lane.
 //
 // Design: one block per (window, head) up to 256 live positions, a cluster
 // of C blocks beyond (the plan, ops/beamflat_attention.py:beamflat_plan),
 // block r taking positions [r * L / C, (r + 1) * L / C) of the L = pos + 1
-// live ones: on the H100 a cluster's two exchanges cost more than splitting
-// 256 positions saves. A pass serves up to 8 of the window's lanes (the
-// mma's n), a warp each in the softmax: each block loads those lanes'
-// ancestry over its span and, per position, finds the distinct rows they use
-// (a row and the set of lanes that use it), in position order through a
-// block scan: its slots. It copies only the slots' K and V codes (cp.async,
-// 16 B a piece) and their scales (4-byte pairs) into shared memory, up to
-// CAP rows a chunk; the V copies stay in flight while QK and the softmax
-// run.
+// live ones, a thread a position: on the H100 a cluster's two exchanges
+// cost more than splitting 256 positions saves. A pass serves up to 8 of the
+// window's lanes (the mma's n), a warp each in the softmax. A block's span
+// starts with its agreed run: the positions [0, ns) at which every lane of
+// the pass reads one row. In the split it starts with block S (positions
+// [0, ls), ls = s_fill - t0 clamped to the span), where a position's thread
+// loads the one ancestry entry of the window's first lane (beside s_fill,
+// which decides ls) and takes no part in the scan. In every mode it goes on
+// over the positions at which the pass's lanes agree, up to the first
+// disagreement, found by the scan's own barrier (a ballot a warp, the
+// first one a block). The run's rows are slots [0, ns), slot j position j,
+// and its tiles are padded to whole 16-row mma tiles. The other positions
+// (W) go through the distinct-row scan: each finds the distinct rows its
+// lanes use (a row and the set of lanes that use it), numbered in position
+// order through a block scan after the run's tiles. After the scan's
+// barrier each warp copies the run's rows of its 32 positions, then the
+// block W's. Copies are cp.async, 16 B a
+// piece of consecutive slots' rows, with the scales as 4-byte pairs, up to
+// CAP rows a chunk (later chunks through the slot list, the whole block).
+// QK takes the run's tiles as soon as their copies have landed, while W's
+// may still be in flight.
 // Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 // out) as in K3 (decode_attention.cu): codes become exact bf16x2 pairs, the
-// lanes' queries (int mode: their int8 codes) the other operand; a slot's
+// lanes' queries (int mode: their int8 codes) the other operand. A run tile
+// is a dense 16-position x 8-lane tile, each score every lane's, stored as
+// it comes and read back in PV without a slot lookup; in a W tile a slot's
 // score counts for the lanes that use it and for no other, so each (lane,
 // position) gets exactly one score. The weights enter PV as bf16 (int mode:
 // their codes, exact; fp mode: hi and lo halves, two products). Each block
@@ -74,7 +90,7 @@
 // exp(s - max) * vs, one triple a block of the split (flat: block W alone),
 // to every block of its cluster (a block alone: to itself) through
 // distributed shared memory; after one barrier each combines them in block
-// order and runs PV over its slots (the int split mode: S's slots, which come
+// order and runs PV over its slots (the int split mode: S's tiles, which come
 // first, then W's, two integer sums); in a cluster it pushes its partial
 // outputs to their owner block, and after a second barrier each owner sums
 // them in block order and writes. No atomics: a repeat is bit-equal.
@@ -103,6 +119,7 @@ constexpr int MAX_SPAN = MAX_T / MAX_CLUSTER;  // most positions a block takes (
 constexpr int LANES = 8;                      // lanes of a pass: the mma's n, a warp each
 constexpr int CAP = 512;                      // most rows a chunk holds
 static_assert(WARPS == LANES, "the softmax statistics take one warp a lane");
+static_assert(MAX_SPAN == THREADS, "a thread a position of the span");
 constexpr unsigned FULL = 0xffffffffu;
 
 // A slot (one distinct row of a block's span for a pass's lanes), packed:
@@ -123,8 +140,8 @@ struct Fixed {
   // a lane's factors to w (S, W), its code scales of w * vs (S, W) and the
   // int split mode's factors to the two integer sums (S, W)
   float row[LANES][6];
-  int scan[WARPS];
-  int js;  // the pass's first slot of block W
+  int scan[WARPS];   // each warp's distinct rows
+  int first[WARPS];  // each warp's first position where the pass's lanes disagree
 };
 
 constexpr int WSUM_FLOATS = WARPS * LANES * HD;  // a part's per-warp partial outputs
@@ -134,9 +151,10 @@ __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / 
 
 // The block's arrays in dynamic shared memory, sized by the launch: `cap`
 // rows a chunk (a multiple of 16), `span` positions (a multiple of 4),
-// `slots` most distinct rows a pass, `parts` partial outputs (2: the int
-// split mode's two integer sums). The K chunk's room holds the warps'
-// partial outputs and the pushed ones once QK is done.
+// `slots` most slots a pass (distinct rows and the run's tile padding),
+// `parts` partial outputs (2: the int split mode's two integer sums). The K
+// chunk's room holds the warps' partial outputs and the pushed ones once QK
+// is done.
 struct Layout {
   int k, v, ksp, vsp, slot, s, vsl, wsum, pout, total;
   __host__ __device__ Layout(int bits, int cap, int span, int slots, int parts) {
@@ -208,9 +226,9 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// the bf16 of a scale pair that holds element e
-__device__ __forceinline__ float scale_of(uint32_t pair, long long e) {
-  return __uint_as_float(((e & 1) ? pair >> 16 : pair & 0xffffu) << 16);
+// the bf16 of a scale pair that holds element e (its low bits suffice)
+__device__ __forceinline__ float scale_of(uint32_t pair, uint32_t e) {
+  return __uint_as_float(((e & 1u) ? pair >> 16 : pair & 0xffffu) << 16);
 }
 
 template <int BITS, bool INT_DOT>
@@ -255,18 +273,49 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
   const uint8_t* vh = v + head * ROWB;
   // the split: block S is the block's positions [0, ls); the flat mode (no
   // s_fill, or the overflow flag set) is block W alone
+  const int fill = s_fill != nullptr ? s_fill[win] : 0;  // loaded beside the flag
   const bool split = s_fill != nullptr && !(overflow != nullptr && overflow[0] != 0);
   const bool int_split = INT_DOT && split;
-  const int ls = split ? min(max(s_fill[win] - t0, 0), cnt) : 0;
+  const int ls = split ? min(max(fill - t0, 0), cnt) : 0;
+  const int tl = tid;  // the thread's position in the span
+  const bool live = tl < cnt;
   // a slot's row, relative to the head's base
   auto slot_row = [&](uint32_t sl) {
     return (long long)(t0 + slot_pos(sl)) * map.t + (long long)slot_owner(sl) * map.k;
+  };
+  // slots [lo, hi) of the chunk from slot j0 (none when lo >= hi), their
+  // rows read from the slot list, by `n` threads of which this is `me`:
+  // 16-byte pieces of consecutive slots' rows, K's codes and both scale
+  // pairs (keys) or V's codes, one copy group. Every thread commits four
+  // groups in chunk 0 of a pass: the run's K and V (a warp each 32
+  // positions), then W's (the block), so that QK can take the run's tiles
+  // while W's copies are in flight. A slot's word must be visible to the
+  // copying threads.
+  auto issue = [&](int j0, int lo, int hi, bool keys, int me, int n) {
+    uint8_t* dst = keys ? kbuf : vbuf;
+    const uint8_t* src = keys ? kh : vh;
+    for (int i = me; i < (hi - lo) * PIECES; i += n) {
+      const int j = lo + i / PIECES;
+      const int p = i % PIECES;
+      cp_async16(dst + (j - j0) * ROWB + p * 16, src + slot_row(slot[j]) * ROWB + p * 16, true);
+    }
+    if (keys) {
+      for (int j = lo + me; j < hi; j += n) {
+        const long long e2 = (head + slot_row(slot[j])) & ~1LL;
+        const int sb = e2 + 1 < scale_count ? 4 : 2;
+        cp_async4_part(&ksp[j - j0], ks + e2, sb);
+        cp_async4_part(&vsp[j - j0], vs + e2, sb);
+      }
+    }
+    cp_async_commit();
   };
   if (csize > 1) cluster_arrive_relaxed();  // waited before the first push to another block
 
   for (int r0 = 0; r0 < group; r0 += LANES) {
     const int nr = min(LANES, group - r0);
     const int lane0 = win * group + r0;  // the pass's first query row
+    const uint32_t all = (1u << nr) - 1u;
+    if (r0 > 0) __syncthreads();  // the last pass is done with the chunk buffers
     auto q_off = [&](int rr) { return ((size_t)(lane0 + rr) * n_head + h) * HD; };
 
     // the pass's queries, lane `warp`'s two dims a thread, loaded now so
@@ -277,25 +326,38 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       qv[1] = q[q_off(warp) + lane + 32];
     }
 
-    // slots: for each position of the span (a thread a position, 256 at a
-    // time), the distinct rows of the pass's lanes, numbered in position
-    // order by a block scan; the first slot of position ls starts block W
-    int n_slots = 0;
-    for (int base = 0; base < cnt; base += THREADS) {
-      const int tl = base + tid;
-      int a[LANES];
-      uint32_t first = 0u;  // bit r: lane r is the first lane using its row
-      uint32_t users[LANES];
-      int count = 0;
+    // the window's first lane's ancestry entry, loaded beside s_fill: block
+    // S of the split reads that one entry a position and no other
+    const int lead = live ? anc[(size_t)win * group * t_anc + t0 + tl] : -1;
+    const bool in_s = tl < ls;
+    // the rest of the span: the pass's lanes' ancestry, the distinct rows
+    // they use (a slot each), numbered in position order by a block scan
+    // after the agreed run's tiles; the same barrier finds where the run
+    // ends, the first position at which the pass's lanes disagree
+    const bool scanned = live && !in_s;
+    int a[LANES];
+    uint32_t first = 0u;  // bit r: lane r is the first lane using its row
+    uint32_t users[LANES];
+    int count = 0;
 #pragma unroll
-      for (int r = 0; r < LANES; ++r) {
-        a[r] = -1;
-        users[r] = 0u;
-        if (r < nr && tl < cnt) a[r] = anc[(size_t)(lane0 + r) * t_anc + t0 + tl];
+    for (int r = 0; r < LANES; ++r) {
+      a[r] = -1;
+      users[r] = 0u;
+      if (r < nr && scanned) {
+        a[r] = r == 0 && r0 == 0 ? lead : anc[(size_t)(lane0 + r) * t_anc + t0 + tl];
       }
+    }
+    bool agree = true;
+#pragma unroll
+    for (int r = 1; r < LANES; ++r) agree = agree && (r >= nr || a[r] == a[0]);
+    if (scanned && agree) {  // one row for every lane
+      first = 1u;
+      count = 1;
+      users[0] = all;
+    } else if (scanned) {
 #pragma unroll
       for (int r = 0; r < LANES; ++r) {
-        bool is_first = r < nr && tl < cnt;
+        bool is_first = r < nr;
 #pragma unroll
         for (int r2 = 0; r2 < r; ++r2) is_first = is_first && a[r2] != a[r];
         if (is_first) {
@@ -307,54 +369,56 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
           users[r] = m;
         }
       }
-      int x = count;  // inclusive scan over the warp
+    }
+    int x = count;  // inclusive scan over the warp
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(FULL, x, off);
-        if (lane >= off) x += y;
-      }
-      if (lane == 31) fx.scan[warp] = x;
-      __syncthreads();
-      int at = n_slots + x - count;
-      int tile = 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    const uint32_t apart = __ballot_sync(FULL, scanned && !agree);
+    if (lane == 31) fx.scan[warp] = x;
+    if (lane == 0) fx.first[warp] = apart ? warp * 32 + __ffs(apart) - 1 : THREADS;
+    __syncthreads();
+    int before = 0;  // the distinct rows of the warps before this one
+    int total = 0;
+    int run = THREADS;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        at += w < warp ? fx.scan[w] : 0;
-        tile += fx.scan[w];
-      }
-      if (tl == ls) fx.js = at;
+    for (int w = 0; w < WARPS; ++w) {
+      before += w < warp ? fx.scan[w] : 0;
+      total += fx.scan[w];
+      run = min(run, fx.first[w]);
+    }
+    // the agreed run: positions [0, ns) (block S's, which are never apart,
+    // then W's up to the first disagreement), slot j position j, padded to
+    // the run's tiles, slots [0, ns16)
+    const int ns = min(run, cnt);
+    const int ns16 = round_up(ns, 16);
+    // W's first slot, less the rows the scan counted in the run (one a position)
+    const int base = ns16 - (ns - ls);
+    const int n_slots = base + total;
+    if (tl < ns) {
+      slot[tl] = (uint32_t)tl | (all << 8) | ((uint32_t)(in_s ? lead : a[0]) << 16);
+    } else if (scanned) {
+      int at = base + before + x - count;
 #pragma unroll
       for (int r = 0; r < LANES; ++r) {
-        if (first & (1u << r)) slot[at++] = (uint32_t)tl | (users[r] << 8) | ((uint32_t)a[r] << 16);
-      }
-      n_slots += tile;
-      __syncthreads();
-    }
-    const int n_chunks = (n_slots + cap - 1) / cap;
-    const int js = ls < cnt ? fx.js : n_slots;
-
-    // one chunk's K (or V) codes and both scale pairs (scales with K only)
-    auto issue = [&](uint8_t* dst, const uint8_t* src_head, int j0, bool scales) {
-      const int n = min(cap, n_slots - j0);
-      for (int i = tid; i < n * PIECES; i += THREADS) {
-        const int j = i / PIECES;
-        const int p = i % PIECES;
-        cp_async16(dst + j * ROWB + p * 16, src_head + slot_row(slot[j0 + j]) * ROWB + p * 16,
-                   true);
-      }
-      if (scales) {
-        for (int j = tid; j < n; j += THREADS) {
-          const long long e = head + slot_row(slot[j0 + j]);
-          const long long e2 = e & ~1LL;
-          const int sb = e2 + 1 < scale_count ? 4 : 2;
-          cp_async4_part(&ksp[j], ks + e2, sb);
-          cp_async4_part(&vsp[j], vs + e2, sb);
+        if (first & (1u << r)) {
+          slot[at++] = (uint32_t)tl | (users[r] << 8) | ((uint32_t)a[r] << 16);
         }
       }
-      cp_async_commit();
-    };
-    issue(kbuf, kh, 0, true);
-    issue(vbuf, vh, 0, false);
+    }
+    __syncwarp();
+    const int r_lo = 32 * warp;  // the warp's run positions: slots [r_lo, r_hi)
+    const int r_hi = min(r_lo + 32, ns);
+    issue(0, r_lo, r_hi, true, lane, 32);
+    issue(0, r_lo, r_hi, false, lane, 32);
+    // W's slots of chunk 0, spread over the block once every word is written
+    const int w_hi = min(cap, n_slots);
+    if (w_hi > ns16) __syncthreads();
+    issue(0, ns16, w_hi, true, tid, THREADS);
+    issue(0, ns16, w_hi, false, tid, THREADS);
+    const int n_chunks = (n_slots + cap - 1) / cap;
 
     // the queries into qb (int mode: each lane's int8 codes and scale)
     if (warp < nr) {
@@ -371,12 +435,15 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
         fx.qb[warp][qpos<BITS>(lane + 32)] = qv[1];
       }
     }
+    // the run's copies (the first two groups) landed, every slot word written
+    cp_async_wait(2);
     __syncthreads();
 
     // QK on the tensor cores, chunk by chunk: S (16 slots x 8 lanes) += K
     // (16 slots x 16 dims) Q^T, warp w taking slot tiles w, w + 8, ... (the
-    // operand layout of decode_attention.cu). A slot's score is kept for
-    // each lane that uses it: one score a (lane, position).
+    // operand layout of decode_attention.cu). A run tile's scores are every
+    // lane's; a W slot's score is kept for each lane that uses it: one score
+    // a (lane, position).
     uint32_t bq[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
     if (gq < nr) {
       const uint4* p = reinterpret_cast<const uint4*>(&fx.qb[gq][16 * cq]);
@@ -385,54 +452,65 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       bq[0] = u0.x, bq[1] = u0.y, bq[2] = u0.z, bq[3] = u0.w;
       bq[4] = u1.x, bq[5] = u1.y, bq[6] = u1.z, bq[7] = u1.w;
     }
-    for (int c = 0; c < n_chunks; ++c) {
-      const int j0 = c * cap;
-      const int n = min(cap, n_slots - j0);
-      if (c > 0) {
-        __syncthreads();  // every warp is done with the last chunk's K
-        issue(kbuf, kh, j0, true);
-        cp_async_wait(0);
-      } else {
-        cp_async_wait(1);  // K and its scales; V may still be in flight
-      }
-      __syncthreads();
-      for (int kt = warp; kt * 16 < n; kt += WARPS) {
-        const uint8_t* ra = kbuf + (16 * kt + gq) * ROWB;  // slot gq of the tile
-        const uint8_t* rb = ra + 8 * ROWB;                 // slot gq + 8
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
-        if constexpr (BITS == 4) {
-          const uint2 u0 = *reinterpret_cast<const uint2*>(ra + 8 * cq);
-          const uint2 u1 = *reinterpret_cast<const uint2*>(rb + 8 * cq);
-          const uint32_t w0[2] = {u0.x ^ 0x88888888u, u0.y ^ 0x88888888u};
-          const uint32_t w1[2] = {u1.x ^ 0x88888888u, u1.y ^ 0x88888888u};
+    // tile kt of the chunk from j0 (n slots)
+    auto qk_tile = [&](int j0, int n, int kt) {
+      const uint8_t* ra = kbuf + (16 * kt + gq) * ROWB;  // slot gq of the tile
+      const uint8_t* rb = ra + 8 * ROWB;                 // slot gq + 8
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (BITS == 4) {
+        const uint2 u0 = *reinterpret_cast<const uint2*>(ra + 8 * cq);
+        const uint2 u1 = *reinterpret_cast<const uint2*>(rb + 8 * cq);
+        const uint32_t w0[2] = {u0.x ^ 0x88888888u, u0.y ^ 0x88888888u};
+        const uint32_t w1[2] = {u1.x ^ 0x88888888u, u1.y ^ 0x88888888u};
 #pragma unroll
-          for (int st = 0; st < 4; ++st) {
-            const int j = st >> 1;
-            const int sh = 8 * (st & 1);
-            mma_16816(sc, pair_signed(w0[j] >> sh), pair_signed(w1[j] >> sh),
-                      pair_signed(w0[j] >> (sh + 4)), pair_signed(w1[j] >> (sh + 4)), bq[2 * st],
-                      bq[2 * st + 1]);
-          }
-        } else {
-          const uint4 u0 = *reinterpret_cast<const uint4*>(ra + 16 * cq);
-          const uint4 u1 = *reinterpret_cast<const uint4*>(rb + 16 * cq);
-          const uint32_t w0[4] = {u0.x ^ 0x80808080u, u0.y ^ 0x80808080u, u0.z ^ 0x80808080u,
-                                  u0.w ^ 0x80808080u};
-          const uint32_t w1[4] = {u1.x ^ 0x80808080u, u1.y ^ 0x80808080u, u1.z ^ 0x80808080u,
-                                  u1.w ^ 0x80808080u};
-          float hi[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int st = 0; st < 4; ++st) {
-            mma_16816(sc, pair_low(w0[st]), pair_low(w1[st]), pair_low(w0[st] >> 8),
-                      pair_low(w1[st] >> 8), bq[2 * st], bq[2 * st + 1]);
-            mma_16816(hi, pair_signed(w0[st] >> 4), pair_signed(w1[st] >> 4),
-                      pair_signed(w0[st] >> 12), pair_signed(w1[st] >> 12), bq[2 * st],
-                      bq[2 * st + 1]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) sc[i] = fmaf(16.f, hi[i], sc[i]);
+        for (int st = 0; st < 4; ++st) {
+          const int j = st >> 1;
+          const int sh = 8 * (st & 1);
+          mma_16816(sc, pair_signed(w0[j] >> sh), pair_signed(w1[j] >> sh),
+                    pair_signed(w0[j] >> (sh + 4)), pair_signed(w1[j] >> (sh + 4)), bq[2 * st],
+                    bq[2 * st + 1]);
         }
-        // sc: slots gq (0, 1) and gq + 8 (2, 3) at lanes 2 cq, 2 cq + 1
+      } else {
+        const uint4 u0 = *reinterpret_cast<const uint4*>(ra + 16 * cq);
+        const uint4 u1 = *reinterpret_cast<const uint4*>(rb + 16 * cq);
+        const uint32_t w0[4] = {u0.x ^ 0x80808080u, u0.y ^ 0x80808080u, u0.z ^ 0x80808080u,
+                                u0.w ^ 0x80808080u};
+        const uint32_t w1[4] = {u1.x ^ 0x80808080u, u1.y ^ 0x80808080u, u1.z ^ 0x80808080u,
+                                u1.w ^ 0x80808080u};
+        float hi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+          mma_16816(sc, pair_low(w0[st]), pair_low(w1[st]), pair_low(w0[st] >> 8),
+                    pair_low(w1[st] >> 8), bq[2 * st], bq[2 * st + 1]);
+          mma_16816(hi, pair_signed(w0[st] >> 4), pair_signed(w1[st] >> 4),
+                    pair_signed(w0[st] >> 12), pair_signed(w1[st] >> 12), bq[2 * st],
+                    bq[2 * st + 1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[i] = fmaf(16.f, hi[i], sc[i]);
+      }
+      // sc: slots gq (0, 1) and gq + 8 (2, 3) at lanes 2 cq, 2 cq + 1
+      if (j0 + 16 * kt < ns16) {  // a run tile: slot j is position j for every lane
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 16 * kt + gq + 8 * half;
+          if (j < ns) {
+            const uint32_t e = (uint32_t)head + (uint32_t)(t0 + j) * (uint32_t)map.t +
+                               (uint32_t)slot_owner(slot[j]) * (uint32_t)map.k;
+            const float kscale = scale_of(ksp[j], e);
+            const float vscale = scale_of(vsp[j], e);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int rr = 2 * cq + i;
+              if (rr < nr) {
+                const float x = sc[2 * half + i];
+                sc_s[rr * span + j] = INT_DOT ? x * fx.qscale[rr] * kscale : x * kscale;
+                vsl[rr * span + j] = vscale;
+              }
+            }
+          }
+        }
+      } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = 16 * kt + gq + (i >> 1) * 8;
@@ -440,15 +518,33 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
           if (rr < nr && j < n) {
             const uint32_t sl = slot[j0 + j];
             if (slot_lanes(sl) & (1u << rr)) {
-              const int tl = slot_pos(sl);
-              const long long e = head + slot_row(sl);
+              const int t = slot_pos(sl);
+              const uint32_t e = (uint32_t)(head + slot_row(sl));
               const float kscale = scale_of(ksp[j], e);
-              sc_s[rr * span + tl] = INT_DOT ? sc[i] * fx.qscale[rr] * kscale : sc[i] * kscale;
-              vsl[rr * span + tl] = scale_of(vsp[j], e);
+              sc_s[rr * span + t] = INT_DOT ? sc[i] * fx.qscale[rr] * kscale : sc[i] * kscale;
+              vsl[rr * span + t] = scale_of(vsp[j], e);
             }
           }
         }
       }
+    };
+    // chunk 0: the run's tiles, then W's once their K has landed (V may be
+    // in flight)
+    const int n0 = min(cap, n_slots);
+    for (int kt = warp; kt * 16 < ns16; kt += WARPS) qk_tile(0, n0, kt);
+    if (n0 > ns16) {
+      cp_async_wait(1);
+      __syncthreads();
+      for (int kt = ns16 / 16 + warp; kt * 16 < n0; kt += WARPS) qk_tile(0, n0, kt);
+    }
+    for (int c = 1; c < n_chunks; ++c) {
+      const int j0 = c * cap;
+      const int n = min(cap, n_slots - j0);
+      __syncthreads();  // every warp is done with the last chunk's K
+      issue(j0, j0, j0 + n, true, tid, THREADS);
+      cp_async_wait(0);
+      __syncthreads();
+      for (int kt = warp; kt * 16 < n; kt += WARPS) qk_tile(j0, n, kt);
     }
     __syncthreads();
 
@@ -567,10 +663,12 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
     // (16 dims x 16 slots) W^T, warp w taking slot tiles w, w + 8, ... Lane
     // (gq, cq) holds A of its dims 8 gq .. 8 gq + 7 at slots 2 cq, 2 cq + 1,
     // 2 cq + 8, 2 cq + 9 of the tile (decode_attention.cu's layout) and B of
-    // lane gq's weights at those slots: its weight where it uses the slot,
-    // else 0. Exact products, fp32 sums (exact in the integer mode). The int
-    // split mode sums block S's slots [0, js) and block W's apart: S's sum
-    // goes to the partials once the chunk holding slot js is reached.
+    // lane gq's weights at those slots: in a run tile its weight at that
+    // position, in a W tile its weight where it uses the slot, else 0. Exact
+    // products, fp32 sums (exact in the integer mode). The int split mode
+    // sums block S's positions, in chunk 0's first run tiles, and block W's
+    // apart (a run tile holding both, twice, each time with one block's
+    // weights).
     float acc[4][4];
     float acch[4][4];
     auto zero_acc = [&]() {
@@ -581,71 +679,91 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
       }
     };
     zero_acc();
-    // the chunk's slots of [lo, hi) into acc
-    auto pv = [&](int j0, int n, int lo, int hi) {
-      auto weight = [&](int j) -> float {  // lane gq's weight at slot j of the chunk
-        if (gq >= nr || j >= n || j0 + j < lo || j0 + j >= hi) return 0.f;
+    // tile kt's product into acc, lane gq's weights at its slots kb0, kb0 + 1,
+    // kb0 + 8 and kb0 + 9 (kb0 = 16 kt + 2 cq) given
+    auto pv_tile = [&](int kt, const float (&w4)[4]) {
+      const int kb0 = 16 * kt + 2 * cq;
+      uint32_t b0[2], b1[2];  // [0]: the weights (int mode: codes); [1]: fp mode's low halves
+      b0[0] = bf16_pair(w4[0], w4[1]);
+      b1[0] = bf16_pair(w4[2], w4[3]);
+      if constexpr (!INT_DOT) {
+        float lo4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lo4[i] = w4[i] - __bfloat162float(__float2bfloat16(w4[i]));
+        b0[1] = bf16_pair(lo4[0], lo4[1]);
+        b1[1] = bf16_pair(lo4[2], lo4[3]);
+      }
+      constexpr int PARTS = INT_DOT ? 1 : 2;
+      const int keys[4] = {kb0, kb0 + 1, kb0 + 8, kb0 + 9};
+      if constexpr (BITS == 4) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          w[i] = *reinterpret_cast<const uint32_t*>(vbuf + keys[i] * ROWB + 4 * gq) ^ 0x88888888u;
+        }
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) {  // byte tt of the word: dims 8 gq + 2 tt, + 1
+          const uint32_t sel = (uint32_t)tt | ((uint32_t)(4 + tt) << 8);
+          const uint32_t p01 = __byte_perm(w[0], w[1], sel);
+          const uint32_t p89 = __byte_perm(w[2], w[3], sel);
+#pragma unroll
+          for (int part = 0; part < PARTS; ++part) {
+            mma_16816(acc[tt], pair_signed(p01), pair_signed(p01 >> 4), pair_signed(p89),
+                      pair_signed(p89 >> 4), b0[part], b1[part]);
+          }
+        }
+      } else {
+        uint2 w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint2 u = *reinterpret_cast<const uint2*>(vbuf + keys[i] * ROWB + 8 * gq);
+          w[i] = make_uint2(u.x ^ 0x80808080u, u.y ^ 0x80808080u);
+        }
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) {  // bytes 2 tt (dim 8 gq + 2 tt) and 2 tt + 1
+          const int bb = 2 * (tt & 1);
+          const uint32_t sa = (uint32_t)bb | ((uint32_t)(4 + bb) << 8);
+          const uint32_t sb = (uint32_t)(bb + 1) | ((uint32_t)(5 + bb) << 8);
+          const uint32_t x0 = tt < 2 ? w[0].x : w[0].y, x1 = tt < 2 ? w[1].x : w[1].y;
+          const uint32_t x8 = tt < 2 ? w[2].x : w[2].y, x9 = tt < 2 ? w[3].x : w[3].y;
+          const uint32_t pa = __byte_perm(x0, x1, sa), pb = __byte_perm(x0, x1, sb);
+          const uint32_t qa = __byte_perm(x8, x9, sa), qb = __byte_perm(x8, x9, sb);
+#pragma unroll
+          for (int part = 0; part < PARTS; ++part) {
+            mma_16816(acc[tt], pair_low(pa), pair_low(pb), pair_low(qa), pair_low(qb),
+                      b0[part], b1[part]);
+            mma_16816(acch[tt], pair_signed(pa >> 4), pair_signed(pb >> 4),
+                      pair_signed(qa >> 4), pair_signed(qb >> 4), b0[part], b1[part]);
+          }
+        }
+      }
+    };
+    // the run's tiles holding positions [lo, hi), with the weights of those
+    // positions alone: slot j is position j for every lane
+    auto pv_run = [&](int lo, int hi) {
+      for (int kt = lo / 16 + warp; kt * 16 < hi; kt += WARPS) {
+        const int kb0 = 16 * kt + 2 * cq;
+        const int keys[4] = {kb0, kb0 + 1, kb0 + 8, kb0 + 9};
+        float w4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          w4[i] = gq < nr && keys[i] >= lo && keys[i] < hi ? sc_s[gq * span + keys[i]] : 0.f;
+        }
+        pv_tile(kt, w4);
+      }
+    };
+    // W's tiles of the chunk from j0 (n slots), from tile kt0 on: lane gq's
+    // weight where it uses the slot, else 0
+    auto pv_w = [&](int j0, int n, int kt0) {
+      auto weight = [&](int j) -> float {
+        if (gq >= nr || j >= n) return 0.f;
         const uint32_t sl = slot[j0 + j];
         return (slot_lanes(sl) & (1u << gq)) ? sc_s[gq * span + slot_pos(sl)] : 0.f;
       };
-      for (int kt = warp; kt * 16 < n; kt += WARPS) {
-        if (j0 + 16 * kt + 16 <= lo || j0 + 16 * kt >= hi) continue;
-        const int kb0 = 16 * kt + 2 * cq;  // slots kb0, kb0 + 1, kb0 + 8, kb0 + 9
+      for (int kt = kt0 + warp; kt * 16 < n; kt += WARPS) {
+        const int kb0 = 16 * kt + 2 * cq;
         const float w4[4] = {weight(kb0), weight(kb0 + 1), weight(kb0 + 8), weight(kb0 + 9)};
-        uint32_t b0[2], b1[2];  // [0]: the weights (int mode: codes); [1]: fp mode's low halves
-        b0[0] = bf16_pair(w4[0], w4[1]);
-        b1[0] = bf16_pair(w4[2], w4[3]);
-        if constexpr (!INT_DOT) {
-          float lo4[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) lo4[i] = w4[i] - __bfloat162float(__float2bfloat16(w4[i]));
-          b0[1] = bf16_pair(lo4[0], lo4[1]);
-          b1[1] = bf16_pair(lo4[2], lo4[3]);
-        }
-        constexpr int PARTS = INT_DOT ? 1 : 2;
-        const int keys[4] = {kb0, kb0 + 1, kb0 + 8, kb0 + 9};
-        if constexpr (BITS == 4) {
-          uint32_t w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            w[i] = *reinterpret_cast<const uint32_t*>(vbuf + keys[i] * ROWB + 4 * gq) ^ 0x88888888u;
-          }
-#pragma unroll
-          for (int tt = 0; tt < 4; ++tt) {  // byte tt of the word: dims 8 gq + 2 tt, + 1
-            const uint32_t sel = (uint32_t)tt | ((uint32_t)(4 + tt) << 8);
-            const uint32_t p01 = __byte_perm(w[0], w[1], sel);
-            const uint32_t p89 = __byte_perm(w[2], w[3], sel);
-#pragma unroll
-            for (int part = 0; part < PARTS; ++part) {
-              mma_16816(acc[tt], pair_signed(p01), pair_signed(p01 >> 4), pair_signed(p89),
-                        pair_signed(p89 >> 4), b0[part], b1[part]);
-            }
-          }
-        } else {
-          uint2 w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint2 u = *reinterpret_cast<const uint2*>(vbuf + keys[i] * ROWB + 8 * gq);
-            w[i] = make_uint2(u.x ^ 0x80808080u, u.y ^ 0x80808080u);
-          }
-#pragma unroll
-          for (int tt = 0; tt < 4; ++tt) {  // bytes 2 tt (dim 8 gq + 2 tt) and 2 tt + 1
-            const int bb = 2 * (tt & 1);
-            const uint32_t sa = (uint32_t)bb | ((uint32_t)(4 + bb) << 8);
-            const uint32_t sb = (uint32_t)(bb + 1) | ((uint32_t)(5 + bb) << 8);
-            const uint32_t x0 = tt < 2 ? w[0].x : w[0].y, x1 = tt < 2 ? w[1].x : w[1].y;
-            const uint32_t x8 = tt < 2 ? w[2].x : w[2].y, x9 = tt < 2 ? w[3].x : w[3].y;
-            const uint32_t pa = __byte_perm(x0, x1, sa), pb = __byte_perm(x0, x1, sb);
-            const uint32_t qa = __byte_perm(x8, x9, sa), qb = __byte_perm(x8, x9, sb);
-#pragma unroll
-            for (int part = 0; part < PARTS; ++part) {
-              mma_16816(acc[tt], pair_low(pa), pair_low(pb), pair_low(qa), pair_low(qb),
-                        b0[part], b1[part]);
-              mma_16816(acch[tt], pair_signed(pa >> 4), pair_signed(pb >> 4),
-                        pair_signed(qa >> 4), pair_signed(qb >> 4), b0[part], b1[part]);
-            }
-          }
-        }
+        pv_tile(kt, w4);
       }
     };
     // acc[tt]: dims 8 gq + 2 tt (0, 1) and + 1 (2, 3) at lanes 2 cq, 2 cq + 1;
@@ -665,25 +783,26 @@ beamflat_attn_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restr
         }
       }
     };
-    bool s_done = !int_split;  // block S's sum is in the partials
     for (int c = 0; c < n_chunks; ++c) {
       const int j0 = c * cap;
       const int n = min(cap, n_slots - j0);
       if (c > 0) {
         __syncthreads();  // every warp is done with the last chunk's V
-        issue(vbuf, vh, j0, false);
+        issue(j0, j0, j0 + n, false, tid, THREADS);
       }
       cp_async_wait(0);
       __syncthreads();
-      if (!s_done) {
-        pv(j0, n, 0, js);
-        if (js <= j0 + n) {
+      if (c == 0) {
+        if (int_split) {  // block S's sum to the partials, then W's run
+          pv_run(0, ls);
           flush(0);
           zero_acc();
-          s_done = true;
+          pv_run(ls, ns);
+        } else {
+          pv_run(0, ns);
         }
       }
-      if (s_done) pv(j0, n, int_split ? js : 0, n_slots);
+      pv_w(j0, n, c == 0 ? ns16 / 16 : 0);
     }
     const int n_sums = int_split ? 2 : 1;
     flush(n_sums - 1);
@@ -792,7 +911,7 @@ extern "C" int wmt_beamflat_attention(const void* q, const void* k, const void* 
   }
   const int most = (limit + cluster - 1) / cluster;  // the longest span
   const int span = round_up(most, 4);
-  const int slots = most * std::min(group, LANES);
+  const int slots = most * std::min(group, LANES) + 16;  // with the run's tile padding
   const int parts = s_fill != nullptr && int_dot ? 2 : 1;
   const int smem = Layout(bits, cap, span, slots, parts).total;
   const dim3 grid(cluster, n_head, nb / group);

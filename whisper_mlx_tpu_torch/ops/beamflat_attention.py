@@ -31,11 +31,12 @@ XLA, are modes of the same kernel:
   block W; each block has its own softmax statistics and, in the integer
   mode, its own per-row code scale of ``e * vs``, and the two merge as
   ``kv_quant.py:_merge_two_block``. The reference reads block S from a
-  single copy S of the agreed prefix: those are the rows every lane's
-  ancestry names there, so here both blocks read the flat cache through
-  the ancestry and no S buffer is kept. Its window W bounds only the beam
-  loop's overflow rule, which keeps ``[s_fill, pos]`` inside it, so the
-  function takes no W. With the device flag ``overflow`` set the call
+  single copy S of the agreed prefix, filled from the window's first
+  lane's ancestry (``beam.py:_build_S`` and the commits): here block S
+  reads, for every lane of window w, row ``t * g + ancestry[w * g, t]`` of
+  the flat cache, and no S buffer is kept. Its window W bounds only the
+  beam loop's overflow rule, which keeps ``[s_fill, pos]`` inside it, so
+  the function takes no W. With the device flag ``overflow`` set the call
   computes the flat function.
 
 On a CUDA tensor the wrappers launch ``csrc/beamflat_attention.cu``: one
@@ -87,15 +88,44 @@ def beamflat_plan(limit: int, group: int, span: int = MAX_SPAN) -> tuple[int, in
     return cluster, cap
 
 
-def beamflat_rows_needed(ancestry: torch.Tensor, group: int, pos: int) -> torch.Tensor:
+def beamflat_rows_needed(ancestry: torch.Tensor, group: int, pos: int,
+                         s_fill: torch.Tensor | None = None) -> torch.Tensor:
     """``(n,)`` distinct cache rows each window's lanes attend at ``pos``:
     the rows ``t * g + ancestry[b, t]``, ``t <= pos``, of any of its lanes,
-    each once. It sets K8's bound: the bytes a step must read."""
+    each once (with ``s_fill``, the split's: at ``t < s_fill`` the window's
+    first lane's row only). It sets K8's bound: the bytes a step must
+    read."""
     t_pos = ancestry.shape[1]
     anc = ancestry.reshape(-1, group, t_pos)[:, :, :pos + 1].long()
+    if s_fill is not None:
+        in_s = torch.arange(pos + 1, device=anc.device)[None, :] < s_fill.long()[:, None]
+        anc = torch.where(in_s[:, None], anc[:, :1], anc)
     used = torch.zeros((anc.shape[0], pos + 1, group), dtype=torch.bool, device=anc.device)
     used.scatter_(2, anc.transpose(1, 2), True)
     return used.sum(dim=(1, 2))
+
+
+def beamflat_agreed_runs(ancestry: torch.Tensor, group: int, pos: int,
+                         cluster: int) -> torch.Tensor:
+    """``(n, passes, cluster)``: the positions each block of K8's flat mode
+    and per-lane layout reads through its agreed-run route, one ancestry
+    entry and one row a position (the split's run starts with block S and
+    goes on the same way). A pass is up to 8 lanes of a window and block r
+    of the plan's ``cluster`` spans ``[r L // cluster, (r + 1) L //
+    cluster)`` of the ``L = pos + 1`` live positions; its run is the
+    leading part of that span at which every lane of the pass names the
+    same lane."""
+    t_pos = ancestry.shape[1]
+    live = pos + 1
+    anc = ancestry.reshape(-1, group, t_pos)[:, :, :live]
+    runs = []
+    for r0 in range(0, group, LANES):
+        lanes = anc[:, r0:r0 + LANES]
+        agree = (lanes == lanes[:, :1]).all(dim=1).int()  # (n, L)
+        runs.append(torch.stack([
+            agree[:, r * live // cluster:(r + 1) * live // cluster].cumprod(dim=1).sum(dim=1)
+            for r in range(cluster)], dim=1))
+    return torch.stack(runs, dim=1)
 
 
 def beamflat_mask(ancestry: torch.Tensor, group: int, rows: int, pos: int) -> torch.Tensor:
@@ -113,13 +143,19 @@ def beamflat_mask(ancestry: torch.Tensor, group: int, rows: int, pos: int) -> to
 def split_masks(ancestry: torch.Tensor, s_fill: torch.Tensor, group: int, rows: int,
                 pos: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The shared scheme's two blocks over the flat cache's rows
-    (``kv_quant.py:_shared_masks``): each (n, g, rows) bool, block S the
-    attendable rows at positions ``t < s_fill[window]``, block W those at
-    ``s_fill[window] <= t <= pos``; together :func:`beamflat_mask`."""
+    (``kv_quant.py:_shared_masks``): each (n, g, rows) bool. Block S, the
+    positions ``t < s_fill[window]``, is the reference's single copy S
+    (``beam.py:_build_S``): row ``t * g + ancestry[window * g, t]``, the
+    window's first lane's, for every lane. Block W holds each lane's own
+    rows at ``s_fill[window] <= t <= pos``. Where the lanes agree below
+    s_fill, as the scheme's commits keep them, the two partition
+    :func:`beamflat_mask`."""
     mask = beamflat_mask(ancestry, group, rows, pos)
     t_idx = torch.arange(rows, device=ancestry.device) // group
     in_s = (t_idx[None, :] < s_fill.long()[:, None])[:, None, :]
-    return mask & in_s, mask & ~in_s
+    t_pos = rows // group
+    first = ancestry.reshape(-1, group, t_pos)[:, :1].expand(-1, group, -1).reshape(-1, t_pos)
+    return beamflat_mask(first, group, rows, pos) & in_s, mask & ~in_s
 
 
 def _merge_two_block(o_a, m_a, l_a, o_b, m_b, l_b) -> torch.Tensor:
